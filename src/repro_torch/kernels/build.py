@@ -1,0 +1,117 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is compiled
+on its own by ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash is of the
+source, so an edited source is rebuilt and a stale library is never loaded).
+All missing libraries are built together, one ``nvcc`` process per source, the
+first time any kernel is launched.  Nothing here runs at import time: the CPU
+tests import every module on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).with_name("csrc")
+BUILD_DIR = pathlib.Path(__file__).with_name("_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       f"{CSRC} at first use and need the CUDA toolkit")
+
+
+def _lib_path(src: pathlib.Path) -> pathlib.Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, all at once; returns
+    the wall seconds spent (0.0 when everything was already built)."""
+    todo = [(s, out) for s in sorted(CSRC.glob("*.cu")) if not (out := _lib_path(s)).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for src, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src.name} (rc {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a library
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building all kernels first
+    if any library is missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(_lib_path(CSRC / f"{name}.cu")))
+            _libs[name] = lib
+        return lib
+
+
+@functools.cache
+def function(lib: str, name: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``csrc/<lib>.cu``, with its signature
+    declared: undeclared, ctypes would pass each pointer as a 32-bit int.
+    Every kernel entry returns a ``cudaError_t``."""
+    f = getattr(load(lib), name)
+    f.argtypes, f.restype = list(argtypes), ctypes.c_int
+    return f
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned after a launch: a launch
+    the card refuses never runs, and a later synchronise does not report it."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    """The kernels' dtype code: 0 = float32, 1 = bfloat16."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return codes[t.dtype]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer-sized int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,71 @@
+"""Flash-attention forward: the hand-written CUDA kernel
+``csrc/flash_attention.cu`` and its wrapper.
+
+Replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``.  Bound on the card by
+operations at prefill sizes (~17 GFLOP on ~50 MB at B 4, S 1024); this first
+version does exact f32 arithmetic on the CUDA cores, reads KV head ``h // g``
+in place instead of copying K and V per group, masks the ragged edges in the
+kernel instead of padding, and skips key tiles the mask empties.  See the
+source note in the ``.cu`` file.
+
+A CPU tensor goes to the plain version (``ref.attention``); a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .ref import attention as plain
+
+HEAD_DIMS = (32, 64, 128)
+# q, k, v, o, B, Sq, Skv, Hq, Hkv, D, (b, s, h) strides of q, k and v, scale,
+# causal, window, kv_offset, dtype, stream
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 9
+             + (ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None, kv_offset: int = 0) -> torch.Tensor:
+    """q: (B,Sq,Hq,D); k, v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D) in q's dtype.
+
+    Any strides are taken as long as the head dim is contiguous (v may be a
+    slice of a fused qkv projection)."""
+    if q.device.type == "cpu":
+        return plain(q, k, v, causal=causal, window=window, scale=scale,
+                     kv_offset=kv_offset)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q {q.device}, k {k.device}, v {v.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hkv == 0 or Hq % Hkv or Skv == 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention: the head dim must be contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window {window} must be positive")
+    scale = scale if scale is not None else D ** -0.5
+    o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    kernel = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale), int(causal),
+                -1 if window is None else int(window), int(kv_offset), build.dtype_code(q),
+                build.stream_of(q))
+    build.check(rc, "flash_attention")
+    flash_attention.n_launches += 1
+    return o
+
+
+flash_attention.n_launches = 0

@@ -1,0 +1,47 @@
+"""Dispatch for the perf-critical ops (port of ``repro.kernels.ops``).
+
+A tensor's device picks the path: a CPU tensor runs the plain PyTorch
+version (``ref.py``), a CUDA tensor launches the hand-written kernel or the
+call raises.  There is no environment override and no fallback.  ``plain=True``
+runs the plain version on any device; only the parity checks (the tests and
+``chip_smoke.py``) pass it, to hold the kernel path against the plain one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .decode_attention import decode_attention as _decode_attention
+from .flash_attention import flash_attention as _flash_attention
+from .rmsnorm import rmsnorm as _rmsnorm
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: int | None = None, scale: float | None = None,
+              kv_offset: int = 0, plain: bool = False) -> torch.Tensor:
+    fn = ref.attention if plain else _flash_attention
+    return fn(q, k, v, causal=causal, window=window, scale=scale, kv_offset=kv_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: torch.Tensor | int, *, window: int | None = None,
+                     scale: float | None = None, plain: bool = False) -> torch.Tensor:
+    fn = ref.decode_attention if plain else _decode_attention
+    return fn(q, k_cache, v_cache, cache_len, window=window, scale=scale)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
+            plain: bool = False) -> torch.Tensor:
+    return (ref.rmsnorm if plain else _rmsnorm)(x, scale, eps)
+
+
+def ssd_scan(*args, **kwargs):
+    raise NotImplementedError(
+        "ssd_scan (Pallas ssd_scan_pallas) is ported in the next slice: hymba's "
+        "hybrid/mamba blocks")
+
+
+def mlstm_scan(*args, **kwargs):
+    raise NotImplementedError(
+        "mlstm_scan is ported with the xLSTM blocks, a later slice")

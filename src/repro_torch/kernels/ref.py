@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the hand-written kernels (port of
+``repro.kernels.ref``).
+
+These are the semantics of record for the port: the CPU path runs them, and
+each CUDA kernel is held against them on the card.  Conventions kept from the
+reference: masks use -1e30 (not -inf), math is f32 with a cast back to the
+input dtype, and query head h reads KV head ``h // g``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NEG_INF = -1e30
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None, kv_offset: int = 0) -> torch.Tensor:
+    """Full attention with GQA head broadcast.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0.
+    ``kv_offset``: absolute position of q[0] minus that of k[0].
+    window: sliding-window size (attend to positions in (i-window, i]).
+    The reference routes long sliding-window inputs to a banded form that
+    equals this masked form on the band; the port keeps the masked form.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().mul(scale).reshape(B, Sq, Hkv, g, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + kv_offset
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, _NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: torch.Tensor | int, *, window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-token attention over a (possibly ring-buffered) KV cache.
+
+    q: (B, Hq, D); caches: (B, Smax, Hkv, D); cache_len: number of valid
+    slots (scalar or (B,)).  Validity is by slot, so ring order does not
+    matter; ``window`` is accepted and unused, as in the reference.
+    """
+    B, Hq, D = q.shape
+    _, Smax, Hkv, _ = k_cache.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().mul(scale).reshape(B, Hkv, g, D)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    lens = torch.as_tensor(cache_len, device=q.device).broadcast_to((B,))
+    valid = (torch.arange(Smax, device=q.device)[None, :]
+             < torch.clamp(lens, max=Smax)[:, None])
+    logits = logits.masked_fill(~valid[:, None, None, :], _NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)

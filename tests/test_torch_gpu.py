@@ -1,0 +1,166 @@
+"""The port's hand-written CUDA kernels against their plain versions, on the
+card.  Every test here carries the ``gpu`` marker and skips where there is no
+CUDA device; the file imports neither jax nor the reference, so it runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Shapes and tolerances are the reference's sweep (``tests/test_kernels.py``:
+f32 3e-5, bf16 2e-2), plus rows and caches with no valid key.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs as C
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.models import init_params
+from repro_torch.runtime import ServeConfig, Server, make_decode_step, make_prefill_step
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset
+    (2, 128, 128, 4, 2, 64, True, None, 0),
+    (1, 100, 100, 3, 1, 32, True, None, 0),
+    (2, 64, 192, 4, 4, 64, True, None, 128),
+    (1, 256, 256, 8, 2, 64, True, 64, 0),
+    (2, 128, 128, 4, 2, 64, False, None, 0),
+    (1, 64, 64, 2, 2, 128, True, None, 0),
+    # rows with no valid key: the plain version's uniform softmax over -1e30
+    (1, 64, 64, 2, 1, 64, True, 8, 100),
+    (1, 70, 70, 2, 1, 32, True, None, -5),
+]
+DECODE_CASES = [  # B, Smax, Hq, Hkv, D, valid length
+    (2, 256, 4, 2, 64, 100), (3, 100, 6, 6, 32, 100),
+    (2, 512, 8, 2, 128, 511), (1, 64, 4, 1, 64, 64),
+    (2, 96, 4, 2, 64, 0),
+]
+RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4096, 2048)]
+
+
+def tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else dict(rtol=3e-5, atol=3e-5)
+
+
+def normal(seed, *shape, dtype=torch.float32, device="cuda"):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def f32(t):
+    return t.float().cpu().numpy()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    return resolve_device("cuda")
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,off", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal, window,
+                                              off, name):
+    dt = DTYPES[name]
+    q, k, v = (normal(i, B, s, h, D, dtype=dt)
+               for i, (s, h) in enumerate([(Sq, Hq), (Skv, Hkv), (Skv, Hkv)]))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    n0 = flash_attention.n_launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.n_launches == n0 + 1
+    assert got.dtype == dt and got.shape == q.shape
+    np.testing.assert_allclose(f32(got), f32(ref.attention(q, k, v, **kw)), **tol(name))
+
+
+def test_flash_attention_kernel_takes_strided_v(cuda):
+    """v as a slice of a fused projection, as the model passes it."""
+    qkv = normal(0, 2, 96, 4 + 2 * 2, 64)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert not v.is_contiguous()
+    got = flash_attention(q, k, v)
+    np.testing.assert_allclose(f32(got), f32(ref.attention(q, k, v)), **tol("float32"))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,Smax,Hq,Hkv,D,ln", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain(cuda, B, Smax, Hq, Hkv, D, ln, name):
+    dt = DTYPES[name]
+    q, kc, vc = (normal(0, B, Hq, D, dtype=dt), normal(1, B, Smax, Hkv, D, dtype=dt),
+                 normal(2, B, Smax, Hkv, D, dtype=dt))
+    got = decode_attention(q, kc, vc, ln)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f32(got), f32(ref.decode_attention(q, kc, vc, ln)), **tol(name))
+
+
+def test_decode_attention_kernel_per_seq_lengths(cuda):
+    q, kc, vc = normal(0, 3, 4, 32), normal(1, 3, 128, 2, 32), normal(2, 3, 128, 2, 32)
+    lens = torch.tensor([5, 77, 128], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, kc, vc, lens)
+    np.testing.assert_allclose(f32(got), f32(ref.decode_attention(q, kc, vc, lens)),
+                               rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES)
+def test_rmsnorm_kernel_matches_plain(cuda, shape, name):
+    x = normal(0, *shape, dtype=DTYPES[name])
+    s = normal(1, shape[-1]) * 0.1 + 1
+    got = rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype
+    np.testing.assert_allclose(f32(got), f32(ref.rmsnorm(x, s)), **tol(name))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(normal(0, 1, 8, 2, 48) for _ in range(3)))
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(normal(0, 8, 64)[:, ::2], normal(1, 32))
+    with pytest.raises(TypeError):
+        rmsnorm(normal(0, 8, 64, dtype=torch.float16), normal(1, 64))
+    with pytest.raises(ValueError, match="caches"):
+        decode_attention(normal(0, 1, 2, 32), normal(1, 1, 8, 2, 32, device="cpu"),
+                         normal(2, 1, 8, 2, 32), 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_server_kernel_path_matches_plain(cuda, dtype):
+    """A small model end to end on the card: the kernel path's logits against
+    the plain path's.  f32 at 1e-4 (summation order only); bf16 at 2e-2 of
+    the logits' magnitude (an ulp flip compounds through the layers)."""
+    cfg = C.get_config("internlm2_1p8b").reduced(n_layers=4, d_model=256, n_heads=4, vocab=1000)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(0, cfg, device=cuda)
+    B, S, steps = 2, 40, 5
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S))).to(cuda)
+    out = Server(cfg, params, ServeConfig(max_len=S + steps), device=cuda).generate(
+        toks.cpu().numpy(), steps)
+    assert out.shape == (B, steps)
+    (kp, kd), (pp, pd) = [(make_prefill_step(cfg, S + steps, plain=p),
+                           make_decode_step(cfg, plain=p)) for p in (False, True)]
+
+    def check(a, b):
+        if dtype == "float32":
+            np.testing.assert_allclose(f32(a), f32(b), rtol=1e-4, atol=1e-4)
+        else:
+            assert (a - b).abs().max() <= 2e-2 * b.abs().max()
+
+    with torch.inference_mode():
+        (kl, kc), (pl, pc) = kp(params, {"tokens": toks}), pp(params, {"tokens": toks})
+        check(kl, pl)
+        ids = torch.from_numpy(out.astype(np.int64)).to(cuda)
+        for i in range(steps):
+            (kl, kc), (pl, pc) = kd(params, ids[:, i:i + 1], kc, S + i), \
+                pd(params, ids[:, i:i + 1], pc, S + i)
+            check(kl, pl)

@@ -1,0 +1,220 @@
+"""Package and device rules of the PyTorch port (``src/repro_torch``).
+
+The port imports neither jax nor the reference package, keeps its own copies
+of the reference's configs, runs on the card unless asked for the CPU, sends
+a CPU tensor down the plain path, refuses the dtype mix the reference cannot
+serve, and reaches every kernel dispatch point the card path reaches.
+"""
+
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+
+import repro.configs as JC
+from repro.launch.dryrun import production_cfg as jax_production_cfg
+from repro.models import init_params as jax_init_params
+from repro.runtime.serve import ServeConfig as JaxServeConfig
+from repro.runtime.serve import Server as JaxServer
+from repro_torch import configs as TC
+from repro_torch import resolve_device
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import from_jax_params, init_cache, init_params, prefill
+from repro_torch.runtime.serve import ServeConfig, Server
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def small_cfg(**kw):
+    return TC.get_config("internlm2_1p8b").reduced(n_layers=2, d_model=64, vocab=512, **kw)
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, repro_torch, repro_torch.kernels.ops, repro_torch.models, "
+            "repro_torch.runtime, repro_torch.launch.serve\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), (path, node.lineno, n)
+
+
+@pytest.mark.parametrize("arch", JC.list_archs())
+def test_config_copies_match_reference(arch):
+    j, t = JC.get_config(arch), TC.get_config(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert (dataclasses.asdict(TC.production_cfg(t))
+            == dataclasses.asdict(jax_production_cfg(j)))
+    assert t.vocab_padded == j.vocab_padded and t.hd == j.hd
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the card-less behaviour")
+    cfg = small_cfg()
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Server(cfg, init_params(0, cfg, device="cpu"), ServeConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_serve.main(["--reduced", "--steps", "2", "--prompt-len", "4"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_launcher_runs_on_cpu_when_asked():
+    out = launch_serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                             "--prompt-len", "4", "--steps", "3"])
+    assert out.shape == (2, 3) and out.dtype == np.int32
+
+
+def test_cpu_tensors_take_the_plain_path():
+    g = torch.Generator().manual_seed(0)
+    x, s = torch.randn(3, 5, 64, generator=g), torch.randn(64, generator=g)
+    q, k, v = (torch.randn(2, 16, h, 32, generator=g) for h in (4, 2, 2))
+    qd, kc, vc = torch.randn(2, 4, 32, generator=g), torch.randn(2, 20, 2, 32, generator=g), \
+        torch.randn(2, 20, 2, 32, generator=g)
+    counts = (rmsnorm.n_launches, flash_attention.n_launches, decode_attention.n_launches)
+    for plain in (False, True):
+        assert torch.equal(ops.rmsnorm(x, s, 1e-5, plain=plain), ref.rmsnorm(x, s, 1e-5))
+        assert torch.equal(ops.attention(q, k, v, window=8, plain=plain),
+                           ref.attention(q, k, v, window=8))
+        assert torch.equal(ops.decode_attention(qd, kc, vc, 11, plain=plain),
+                           ref.decode_attention(qd, kc, vc, 11))
+    assert (rmsnorm.n_launches, flash_attention.n_launches,
+            decode_attention.n_launches) == counts
+
+
+def test_non_cpu_tensors_never_fall_back():
+    """A tensor off the CPU launches the kernel or raises; here (the meta
+    device) it must raise rather than quietly run the plain version."""
+    x = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.empty(64, device="meta"))
+    with pytest.raises(ValueError):
+        flash_attention(*(torch.empty(1, 8, 2, 32, device="meta") for _ in range(3)))
+    with pytest.raises(ValueError):
+        decode_attention(torch.empty(1, 2, 32, device="meta"),
+                         *(torch.empty(1, 8, 2, 32, device="meta") for _ in range(2)), 4)
+
+
+def test_unported_scans_name_their_slice():
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        ops.ssd_scan()
+    with pytest.raises(NotImplementedError, match="mlstm"):
+        ops.mlstm_scan()
+
+
+def test_unported_block_kinds_raise():
+    for arch in ("hymba_1p5b", "xlstm_1p3b", "minicpm3_4b", "granite_moe_3b"):
+        cfg = TC.get_config(arch).reduced(n_layers=8 if arch == "xlstm_1p3b" else 2)
+        with pytest.raises(NotImplementedError):
+            init_params(0, cfg, device="cpu")
+
+
+MIXED = dict(param_dtype="float32", compute_dtype="bfloat16")
+
+
+def test_mixed_dtype_config_raises_in_port():
+    cfg = dataclasses.replace(small_cfg(), **MIXED)
+    with pytest.raises(ValueError, match="param_dtype"):
+        init_params(0, cfg, device="cpu")
+    params = init_params(0, small_cfg(), device="cpu")
+    with pytest.raises(ValueError, match="param_dtype"):
+        Server(cfg, params, ServeConfig(), device="cpu")
+    with pytest.raises(ValueError, match="param_dtype"):
+        prefill(params, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+
+
+def test_mixed_dtype_config_fails_in_reference():
+    """Why the port refuses the mix: the reference's own serve path cannot
+    run it (bf16 activations meet f32 weights and its decode scan carry
+    changes dtype)."""
+    cfg = dataclasses.replace(JC.get_config("internlm2_1p8b").reduced(
+        n_layers=2, d_model=64, vocab=512), **MIXED)
+    srv = JaxServer(cfg, jax_init_params(jax.random.PRNGKey(0), cfg),
+                    JaxServeConfig(max_len=16, batch_size=2))
+    with pytest.raises(TypeError, match="carry"):
+        srv.generate(np.zeros((2, 4), np.int32), 2)
+
+
+def test_from_jax_params_unstacks_layers_in_order():
+    jcfg = JC.get_config("internlm2_1p8b").reduced(n_layers=2, d_model=64, vocab=512)
+    tree = jax.tree.map(np.asarray, jax_init_params(jax.random.PRNGKey(0), jcfg))
+    assert not tree["embed"]["table"].flags.writeable
+    tp = from_jax_params(tree, small_cfg(), device="cpu")
+    assert len(tp["blocks"]) == 2
+    for layer in range(2):
+        for key in ("wqkv", "wo"):
+            np.testing.assert_array_equal(tp["blocks"][layer]["attn"][key].numpy(),
+                                          tree["blocks"][0]["attn"][key][layer])
+    assert tp["lm_head"].shape == (64, 512) and tp["embed"]["table"].shape == (512, 64)
+
+
+def test_init_params_shapes_and_seed():
+    cfg = TC.production_cfg(TC.get_config("internlm2_1p8b")).reduced(n_layers=2)
+    cfg = dataclasses.replace(cfg, vocab=1000, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    a, b = init_params(7, cfg, device="cpu"), init_params(7, cfg, device="cpu")
+    assert a["embed"]["table"].shape == (cfg.vocab_padded, cfg.d_model) == (1024, 64)
+    assert a["lm_head"].shape == (cfg.d_model, cfg.vocab_padded)
+    assert a["blocks"][1]["mlp"]["w_out"].dtype == torch.bfloat16
+    assert torch.equal(a["blocks"][1]["attn"]["wqkv"], b["blocks"][1]["attn"]["wqkv"])
+    std = a["blocks"][0]["mlp"]["w_out"].float().std().item()
+    assert abs(std - cfg.d_ff ** -0.5) < 0.1 * cfg.d_ff ** -0.5
+    # pad columns of the head never reach the caller
+    logits, _ = prefill(a, cfg, {"tokens": torch.zeros(1, 3, dtype=torch.long)})
+    assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
+
+
+def test_dispatch_counts_match_the_card_path(monkeypatch):
+    """Every dispatch point the card path reaches is reached on the CPU too:
+    for 24 layers, 49 norms per prefill and per decode step, 24 attention
+    calls per prefill and 24 decode-attention calls per step."""
+    calls = {"rmsnorm": 0, "attention": 0, "decode_attention": 0}
+    for name in calls:
+        real = getattr(ops, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(ops, name, counted)
+    cfg = TC.get_config("internlm2_1p8b").reduced(n_layers=24, d_model=32, vocab=256)
+    srv = Server(cfg, init_params(0, cfg, device="cpu"), ServeConfig(max_len=16),
+                 device="cpu")
+    steps = 3
+    srv.generate(np.zeros((2, 4), np.int32), steps)
+    assert calls == {"rmsnorm": 49 * (1 + steps), "attention": 24,
+                     "decode_attention": 24 * steps}
