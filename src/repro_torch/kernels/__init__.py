@@ -6,7 +6,10 @@ flash_attention  — online-softmax attention forward, causal/window/GQA
                    (``csrc/flash_attention.cu``)
 decode_attention — single-token flash-decode over (ring) KV caches
                    (``csrc/decode_attention.cu``)
-ref              — the plain versions; ops — dispatch by device
+ssm_scan         — chunked Mamba-2 SSD scan, one block per (batch, head)
+                   (``csrc/ssm_scan.cu``)
+ref, chunked     — the plain versions (``chunked`` holds the SSD scan's,
+                   ``ref`` also its sequential oracle); ops — dispatch by device
 build            — nvcc at first use into ``_build/``, loaded with ctypes
 """
 

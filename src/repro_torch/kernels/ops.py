@@ -1,10 +1,11 @@
 """Dispatch for the perf-critical ops (port of ``repro.kernels.ops``).
 
 A tensor's device picks the path: a CPU tensor runs the plain PyTorch
-version (``ref.py``), a CUDA tensor launches the hand-written kernel or the
-call raises.  There is no environment override and no fallback.  ``plain=True``
-runs the plain version on any device; only the parity checks (the tests and
-``chip_smoke.py``) pass it, to hold the kernel path against the plain one.
+version (``ref.py``; ``chunked.py`` for the SSD scan), a CUDA tensor launches
+the hand-written kernel or the call raises.  There is no environment override
+and no fallback.  ``plain=True`` runs the plain version on any device; only
+the parity checks (the tests and ``chip_smoke.py``) pass it, to hold the
+kernel path against the plain one.
 """
 
 from __future__ import annotations
@@ -12,9 +13,11 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .chunked import ssd_scan_chunked
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
 from .rmsnorm import rmsnorm as _rmsnorm
+from .ssm_scan import ssd_scan as _ssd_scan
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -36,10 +39,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
     return (ref.rmsnorm if plain else _rmsnorm)(x, scale, eps)
 
 
-def ssd_scan(*args, **kwargs):
-    raise NotImplementedError(
-        "ssd_scan (Pallas ssd_scan_pallas) is ported in the next slice: hymba's "
-        "hybrid/mamba blocks")
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             h0: torch.Tensor | None = None, *, chunk: int = 256,
+             plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    return (ssd_scan_chunked if plain else _ssd_scan)(x, a, b, c, h0, chunk=chunk)
 
 
 def mlstm_scan(*args, **kwargs):

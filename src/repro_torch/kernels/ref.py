@@ -4,7 +4,9 @@
 These are the semantics of record for the port: the CPU path runs them, and
 each CUDA kernel is held against them on the card.  Conventions kept from the
 reference: masks use -1e30 (not -inf), math is f32 with a cast back to the
-input dtype, and query head h reads KV head ``h // g``.
+input dtype, and query head h reads KV head ``h // g``.  ``ssd_scan`` is the
+sequential oracle of the SSD scan; the plain version the CPU path runs is
+``chunked.ssd_scan_chunked``.
 """
 
 from __future__ import annotations
@@ -72,3 +74,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective-state-space scan (Mamba-2 SSD form), one step at a time.
+
+    Recurrence per head: h_t = a_t * h_{t-1} + x_t ⊗ b_t;  y_t = h_t @ c_t.
+      x: (B, S, H, P); a: (B, S, H) decay in (0, 1); b, c: (B, S, H, N);
+      h0: (B, H, P, N) initial state (zeros if None).
+    Returns y (B, S, H, P) in x's dtype and the final state (B, H, P, N) in f32.
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    xf, af, bf, cf = (t.float() for t in (x, a, b, c))
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(S):
+        h = h * af[:, t, :, None, None] + xf[:, t, :, :, None] * bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -3,12 +3,14 @@ steps of the full-width bf16 model under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch internlm2_1p8b --batch 4 --prompt-len 1024 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch hymba_1p5b --batch 4 --prompt-len 1536 --steps 16
 
 Prints, for prefill and for decode, the host wall time (ended by a
 synchronise) with and without the profiler, the summed device time of all
 kernels, the device's idle share (1 - device / unprofiled wall: one stream,
 so kernels do not overlap) and the kernels' device time grouped as the
-port's three hand-written kernels, matrix products, and everything else.
+port's four hand-written kernels, matrix products, and everything else.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 
 # Kernel-name fragments of each group (the port's kernels are named in csrc/).
 GROUPS = (("rmsnorm", ("rmsnorm_kernel",)), ("flash_attention", ("flash_fwd_kernel",)),
-          ("decode_attention", ("decode_kernel",)),
+          ("decode_attention", ("decode_kernel",)), ("ssd_scan", ("ssd_scan_kernel",)),
           ("matmul", ("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")))
 
 

@@ -3,6 +3,8 @@ at full width in bf16 (``production_cfg``) on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1p8b \\
         --batch 4 --prompt-len 1024 --steps 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1p5b \\
+        --batch 4 --prompt-len 1536 --steps 64
 
 ``--reduced`` runs the reference's small f32 shrink instead (the CPU path:
 ``--reduced --device cpu``).  Request placement over a serving pool

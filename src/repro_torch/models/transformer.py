@@ -1,21 +1,25 @@
-"""Decoder LM for serving (port of the ``attn``-block half of
-``repro.models.transformer``).
+"""Decoder LM for serving (port of the ``attn``, ``hybrid`` and ``mamba``
+block kinds of ``repro.models.transformer``).
 
 The reference stores blocks stacked over pattern groups and runs them with
 ``lax.scan``; the port keeps one dict of tensors per layer and runs a Python
 loop over layers (``models/convert.py`` unstacks reference parameters).
-Only ``attn`` blocks with GQA attention and a dense MLP are ported in this
-slice:
+Ported block kinds (GQA/SWA attention, dense MLP):
 
-    attn : x + Attn(norm1(x));   x + MLP(norm2(x))
+    attn   : x + Attn(norm1(x));             x + MLP(norm2(x))
+    hybrid : x + 0.5 (Attn + SSM)(norm1(x)); x + MLP(norm2(x))   (hymba)
+    mamba  : x + SSM(norm1(x));             [x + MLP(norm2(x)) if d_ff > 0]
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout:
 ``embed.table`` (vocab_padded, d), ``lm_head`` (d, vocab_padded),
 ``final_norm.scale`` (d,), and ``blocks[l]`` with ``norm1``, ``attn``
-(``wqkv``, ``wo``), ``norm2`` and ``mlp`` (``w_in``, ``w_gate``, ``w_out``).
+(``wqkv``, ``wo``), ``ssm`` (``models/ssm.py``), ``norm2`` and ``mlp``
+(``w_in``, ``w_gate``, ``w_out``) as its kind has them.  A layer's cache is a
+dict: ``k``, ``v`` (attention; a ring of ``window`` slots under SWA),
+``conv`` and ``ssm`` (the SSM's carried states).
 
-``plain=True`` routes every norm and attention through the plain PyTorch
-versions; only the parity checks pass it.
+``plain=True`` routes every norm, attention and scan through the plain
+PyTorch versions; only the parity checks pass it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .common import dense_init, dtype_of, mlp_apply, mlp_init, rmsnorm
 
 
@@ -41,12 +46,14 @@ def check_config(cfg: ModelConfig) -> None:
             f"{cfg.compute_dtype}; the reference serves only matching forms "
             "(use production_cfg(cfg) for bf16 or cfg.reduced() for f32)")
     kinds = set(cfg.block_pattern)
-    if kinds != {"attn"}:
+    if not kinds <= {"attn", "hybrid", "mamba"}:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)}; only 'attn' blocks are ported "
-            "(hybrid/mamba come with the ssd_scan slice, mlstm/slstm later)")
-    if cfg.attn not in ("gqa", "swa"):
+            f"{cfg.name}: block kinds {sorted(kinds)}; 'attn', 'hybrid' and 'mamba' "
+            "blocks are ported (mlstm/slstm come with the xLSTM slice)")
+    if kinds & {"attn", "hybrid"} and cfg.attn not in ("gqa", "swa"):
         raise NotImplementedError(f"{cfg.name}: attention {cfg.attn!r} is a later slice")
+    if kinds & {"hybrid", "mamba"} and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: block kinds {sorted(kinds)} need an ssm config")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE blocks are a later slice")
 
@@ -63,14 +70,22 @@ def init_params(seed: int, cfg: ModelConfig, device: str | torch.device = "cuda"
     def ones():
         return {"scale": torch.ones(d, dtype=dt, device=dev)}
 
+    def block(kind: str) -> dict:
+        p = {"norm1": ones()}
+        if kind in ("attn", "hybrid"):
+            p["attn"] = attn_mod.gqa_init(gen, cfg, dt)
+        if kind in ("hybrid", "mamba"):
+            p["ssm"] = ssm_mod.ssm_init(gen, cfg, dt)
+        if kind != "mamba" or cfg.d_ff > 0:
+            p["norm2"] = ones()
+            p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt)
+        return p
+
     params: dict = {"embed": {"table": dense_init(gen, d, (cfg.vocab_padded, d), dt)},
                     "final_norm": ones()}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, (d, cfg.vocab_padded), dt)
-    params["blocks"] = [
-        {"norm1": ones(), "attn": attn_mod.gqa_init(gen, cfg, dt), "norm2": ones(),
-         "mlp": mlp_init(gen, d, cfg.d_ff, dt)}
-        for _ in range(cfg.n_layers)]
+    params["blocks"] = [block(kind) for kind in cfg.pattern_for_layers()]
     return params
 
 
@@ -105,14 +120,31 @@ def _to_cache(t: torch.Tensor, cfg: ModelConfig, max_len: int) -> torch.Tensor:
     return out
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype | None = None
+                 ) -> list[dict]:
+    """Per layer, ``{name: (shape, dtype)}`` of its cache: ``k``/``v`` for
+    attention (ring of ``window`` slots under SWA), ``conv``/``ssm`` for the
+    SSM (the scan state in f32)."""
+    dt = dtype or dtype_of(cfg.compute_dtype)
+    out = []
+    for kind in cfg.pattern_for_layers():
+        one = {}
+        if kind in ("attn", "hybrid"):
+            kv = attn_mod.gqa_cache_shape(cfg, batch, seq)
+            one.update(k=(kv, dt), v=(kv, dt))
+        if kind in ("hybrid", "mamba"):
+            one["conv"], one["ssm"] = ssm_mod.ssm_cache_shape(cfg, batch, dt)
+        out.append(one)
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device: str | torch.device = "cuda",
                dtype: torch.dtype | None = None) -> list[dict]:
-    """Zero KV cache, one ``{"k", "v"}`` dict per layer."""
+    """Zero cache, one dict per layer (``cache_shapes``)."""
     dev = resolve_device(device)
-    dt = dtype or dtype_of(cfg.compute_dtype)
-    shape = attn_mod.gqa_cache_shape(cfg, batch, seq)
-    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)} for _ in range(cfg.n_layers)]
+    return [{name: torch.zeros(shape, dtype=dt, device=dev)
+             for name, (shape, dt) in one.items()}
+            for one in cache_shapes(cfg, batch, seq, dtype)]
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = None, *,
@@ -127,14 +159,21 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
     cache = []
     for p in params["blocks"]:
         h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps, plain=plain)
-        y, (k, v) = attn_mod.gqa_apply(p["attn"], cfg, h, positions, plain=plain)
-        if cfg.attn == "swa" and cfg.window and cfg.window < S:
-            # ring-buffer layout: slot = abs_pos % window
-            k = torch.roll(k[:, -cfg.window:], S % cfg.window, dims=1)
-            v = torch.roll(v[:, -cfg.window:], S % cfg.window, dims=1)
-        cache.append({"k": _to_cache(k, cfg, max_len), "v": _to_cache(v, cfg, max_len)})
+        c = {}
+        if "attn" in p:
+            y, (k, v) = attn_mod.gqa_apply(p["attn"], cfg, h, positions, plain=plain)
+            if cfg.attn == "swa" and cfg.window and cfg.window < S:
+                # ring-buffer layout: slot = abs_pos % window
+                k = torch.roll(k[:, -cfg.window:], S % cfg.window, dims=1)
+                v = torch.roll(v[:, -cfg.window:], S % cfg.window, dims=1)
+            c.update(k=_to_cache(k, cfg, max_len), v=_to_cache(v, cfg, max_len))
+        if "ssm" in p:
+            ys, (c["conv"], c["ssm"]) = ssm_mod.ssm_prefill(p["ssm"], cfg, h, plain=plain)
+            y = 0.5 * (y + ys) if "attn" in p else ys
+        cache.append(c)
         x = x + y
-        x = x + _ffn(p, cfg, x, plain)
+        if "mlp" in p:  # a mamba block with d_ff 0 has none
+            x = x + _ffn(p, cfg, x, plain)
     logits = _lm_logits(params, cfg, x[:, -1:].contiguous(), plain)
     return logits[:, 0], cache
 
@@ -142,11 +181,19 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: list[dict],
                 pos: int, *, plain: bool = False) -> tuple[torch.Tensor, list[dict]]:
     """One new token per sequence.  tokens: (B, 1); pos: the current cache
-    length.  Updates ``cache`` in place; returns (logits (B, V) f32, cache)."""
+    length.  Updates ``cache`` in place (the attention caches' slot is
+    written, the SSM states are replaced); returns (logits (B, V) f32, cache)."""
     check_config(cfg)
     x = _embed_in(params, cfg, {"tokens": tokens})
     for p, c in zip(params["blocks"], cache):
         h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps, plain=plain)
-        x = x + attn_mod.gqa_decode(p["attn"], cfg, h, (c["k"], c["v"]), pos, plain=plain)
-        x = x + _ffn(p, cfg, x, plain)
+        if "attn" in p:
+            y = attn_mod.gqa_decode(p["attn"], cfg, h, (c["k"], c["v"]), pos, plain=plain)
+        if "ssm" in p:
+            ys, (c["conv"], c["ssm"]) = ssm_mod.ssm_decode(p["ssm"], cfg, h,
+                                                           (c["conv"], c["ssm"]), plain=plain)
+            y = 0.5 * (y + ys) if "attn" in p else ys
+        x = x + y
+        if "mlp" in p:  # a mamba block with d_ff 0 has none
+            x = x + _ffn(p, cfg, x, plain)
     return _lm_logits(params, cfg, x, plain)[:, 0], cache

@@ -6,7 +6,9 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Shapes and tolerances are the reference's sweep (``tests/test_kernels.py``:
-f32 3e-5, bf16 2e-2), plus rows and caches with no valid key.
+f32 3e-5, bf16 2e-2, SSD 5e-5), plus rows and caches with no valid key, and
+for the SSD scan a ragged last chunk, one decode step, no initial state and
+the production dtype mix.
 """
 
 import dataclasses
@@ -19,9 +21,11 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs as C
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
+from repro_torch.kernels.chunked import ssd_scan_chunked
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssm_scan import ssd_scan
 from repro_torch.models import init_params
 from repro_torch.runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 
@@ -44,7 +48,11 @@ DECODE_CASES = [  # B, Smax, Hq, Hkv, D, valid length
     (2, 512, 8, 2, 128, 511), (1, 64, 4, 1, 64, 64),
     (2, 96, 4, 2, 64, 0),
 ]
-RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4096, 2048)]
+RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4096, 2048), (4, 3200)]
+SSD_CASES = ([(shape, chunk) for shape in [(2, 96, 3, 16, 8), (1, 64, 1, 8, 4)]
+              for chunk in (16, 32, 40, 96)]   # (B, S, H, P, N), chunk
+             + [((2, 100, 3, 16, 8), 32), ((2, 1, 3, 16, 8), 256), ((2, 300, 3, 64, 16), 256),
+                ((1, 70, 2, 100, 32), 64)])
 
 
 def tol(name):
@@ -122,6 +130,46 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, name):
     np.testing.assert_allclose(f32(got), f32(ref.rmsnorm(x, s)), **tol(name))
 
 
+def ssd_inputs(B, S, H, P, N, seed=0, device="cuda"):
+    """tests/test_kernels.py's distributions: a = sigmoid(normal + 2)."""
+    x, a, b, c, h0 = (normal(seed + i, *shape, device=device) for i, shape in
+                      enumerate([(B, S, H, P), (B, S, H), (B, S, H, N), (B, S, H, N),
+                                 (B, H, P, N)]))
+    return x, torch.sigmoid(a + 2.0), b * 0.3, c * 0.3, h0 * 0.2
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("shape,chunk", SSD_CASES, ids=str)
+def test_ssd_scan_kernel_matches_both_plain_versions(cuda, shape, chunk, with_h0):
+    x, a, b, c, h0 = ssd_inputs(*shape)
+    h0 = h0 if with_h0 else None
+    n0 = ssd_scan.n_launches
+    y, h = ssd_scan(x, a, b, c, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.n_launches == n0 + 1
+    assert y.dtype == torch.float32 and h.dtype == torch.float32 and y.shape == x.shape
+    for want_y, want_h in (ssd_scan_chunked(x, a, b, c, h0, chunk=chunk),
+                           ref.ssd_scan(x, a, b, c, h0)):
+        np.testing.assert_allclose(f32(y), f32(want_y), rtol=5e-5, atol=5e-5)
+        np.testing.assert_allclose(f32(h), f32(want_h), rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("S", [1, 300])
+def test_ssd_scan_kernel_production_dtype_mix(cuda, S):
+    """x and c bf16 (c a strided slice of a fused projection, as the model
+    passes it), a and b f32, h0 f32: y at bf16's 2e-2, h_final at 5e-5."""
+    x, a, b, c, h0 = ssd_inputs(2, S, 3, 64, 16)
+    bc = torch.cat([b, c], dim=-1).bfloat16()
+    c = bc[..., 16:]
+    assert not c.is_contiguous()
+    x = x.bfloat16()
+    y, h = ssd_scan(x, a, b, c, h0, chunk=256)
+    want_y, want_h = ssd_scan_chunked(x, a, b, c, h0, chunk=256)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    np.testing.assert_allclose(f32(y), f32(want_y), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(f32(h), f32(want_h), rtol=5e-5, atol=5e-5)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(*(normal(0, 1, 8, 2, 48) for _ in range(3)))
@@ -132,14 +180,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="caches"):
         decode_attention(normal(0, 1, 2, 32), normal(1, 1, 8, 2, 32, device="cpu"),
                          normal(2, 1, 8, 2, 32), 4)
+    x, a, b, c, h0 = ssd_inputs(1, 8, 2, 16, 4)
+    with pytest.raises(ValueError, match="a "):
+        ssd_scan(x, a.cpu(), b, c)
+    with pytest.raises(ValueError, match="h0"):
+        ssd_scan(x, a, b, c, h0[:, :1])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x, a, b, normal(0, 1, 8, 2, 8)[..., ::2])
+    with pytest.raises(ValueError, match="exceeds"):
+        ssd_scan(*ssd_inputs(1, 8, 2, 16, 72)[:4])
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), a, b, c)
 
 
+@pytest.mark.parametrize("arch", ["internlm2_1p8b", "hymba_1p5b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_server_kernel_path_matches_plain(cuda, dtype):
+def test_server_kernel_path_matches_plain(cuda, dtype, arch):
     """A small model end to end on the card: the kernel path's logits against
     the plain path's.  f32 at 1e-4 (summation order only); bf16 at 2e-2 of
-    the logits' magnitude (an ulp flip compounds through the layers)."""
-    cfg = C.get_config("internlm2_1p8b").reduced(n_layers=4, d_model=256, n_heads=4, vocab=1000)
+    the logits' magnitude (an ulp flip compounds through the layers).  The
+    reduced hymba has a window of 32 and chunks of 16, so the 40-token
+    prompt rolls the ring, ends in a ragged chunk, and decode wraps."""
+    cfg = C.get_config(arch).reduced(n_layers=4, d_model=256, n_heads=4, vocab=1000)
     cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
     params = init_params(0, cfg, device=cuda)
     B, S, steps = 2, 40, 5

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssm_scan import ssd_scan
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import from_jax_params, init_cache, init_params, prefill
 from repro_torch.runtime.serve import ServeConfig, Server
@@ -130,14 +131,19 @@ def test_non_cpu_tensors_never_fall_back():
 
 
 def test_unported_scans_name_their_slice():
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        ops.ssd_scan()
+    """mLSTM is a later slice; the SSD scan is ported, and off the CPU (here
+    the meta device) it raises rather than run the plain version."""
     with pytest.raises(NotImplementedError, match="mlstm"):
         ops.mlstm_scan()
+    x, b = torch.empty(1, 8, 2, 16, device="meta"), torch.empty(1, 8, 2, 4, device="meta")
+    n0 = ssd_scan.n_launches
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, torch.empty(1, 8, 2, device="meta"), b, b)
+    assert ssd_scan.n_launches == n0
 
 
 def test_unported_block_kinds_raise():
-    for arch in ("hymba_1p5b", "xlstm_1p3b", "minicpm3_4b", "granite_moe_3b"):
+    for arch in ("xlstm_1p3b", "minicpm3_4b", "granite_moe_3b"):
         cfg = TC.get_config(arch).reduced(n_layers=8 if arch == "xlstm_1p3b" else 2)
         with pytest.raises(NotImplementedError):
             init_params(0, cfg, device="cpu")
