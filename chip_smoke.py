@@ -6,12 +6,17 @@
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. card    — print ``nvidia-smi`` name and power limit; fail with no card.
   2. build   — nvcc every kernel in ``src/repro_torch/kernels/csrc`` (in
-               parallel) into the gitignored ``_build`` directory.
+               parallel) into the gitignored ``_build`` directory; count the
+               tensor-core instructions (HMMA/HGMMA) of flash attention's bf16
+               instantiations in ``cuobjdump --dump-sass`` of the library.
   3. kernels — hold each hand-written kernel against its plain PyTorch
                version on the card, at the reference's test-sweep shapes
                (f32 and bf16) and at each serving path's shapes; time kernel,
                plain version and, where one exists, one PyTorch library call
-               computing the same function (a yardstick the port never calls).
+               computing the same function (a yardstick the port never calls);
+               hold flash attention's bf16 kernel, within its output rounding,
+               to its own arithmetic in f32; print decode attention's split-K
+               grid as the wrapper launched it at both served shapes.
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
                with the launch counts set to 0 just before and asserted
@@ -45,6 +50,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # Reference tolerances (tests/test_kernels.py: f32 3e-5, bf16 2e-2, SSD 5e-5).
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 SSD_TOL = 5e-5
+# The bf16 flash kernel against its arithmetic in f32 (scheme_close).
+SCHEME_RTOL, SCHEME_ATOL = 2.0 ** -8, 2.0 ** -12
 # Published H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 on
 # the CUDA cores, HBM3 bandwidth.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -77,10 +84,13 @@ PATHS = {
 #   decode steps plain bf16 vs f32 reached 2.1e-1, kernel vs plain 1.3e-1.
 GATE = {"internlm2_1p8b": 2e-2, "hymba_1p5b": 1.6e-1}
 # The same comparison in f32 (f32 weights, the kernels' f32 instantiations
-# against the plain f32 path) has no bf16 rounding to amplify and is what
-# holds the kernels to their plain versions at full width: hymba's prefill
-# logits agree to 1.6e-4 (worst layer 4.6e-4; the f32 scan's cumulative log
-# decays reach ~1e3 in magnitude, where one f32 ulp is ~1e-4).
+# against the plain f32 path) has no bf16 rounding to amplify and holds
+# rmsnorm, decode attention, the scan and flash attention's f32 kernel to
+# their plain versions at full width: hymba's prefill logits agree to 1.6e-4
+# (worst layer 4.6e-4; the f32 scan's cumulative log decays reach ~1e3 in
+# magnitude, where one f32 ulp is ~1e-4).  Flash attention's bf16 kernel,
+# the one that serves, has another instantiation: scheme_close holds it at
+# the served shapes to its own arithmetic in f32.
 F32_GATE = 2e-3
 
 
@@ -164,19 +174,37 @@ def sweeps(torch, randn):
                 (2, 64, 192, 4, 4, 64, True, None, 128), (1, 256, 256, 8, 2, 64, True, 64, 0),
                 (2, 128, 128, 4, 2, 64, False, None, 0), (1, 64, 64, 2, 2, 128, True, None, 0),
                 (1, 64, 64, 2, 1, 64, True, 8, 100), (1, 70, 70, 2, 1, 32, True, None, -5),
-                (1, 256, 256, 10, 2, 64, True, 64, 0)]:
+                (1, 256, 256, 10, 2, 64, True, 64, 0),
+                # served head layouts at length (the cp.async ring, causal and
+                # window band skipping) and a ragged Sq
+                (1, 1024, 1024, 16, 8, 128, True, None, 0),
+                (1, 1536, 1536, 25, 5, 64, True, 1024, 0),
+                (1, 1000, 1000, 4, 2, 128, True, None, 0)]:
             q, k, v = randn(b, sq, hq, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt), \
                 randn(b, skv, hkv, d, dtype=dt)
             kw = dict(causal=causal, window=window, kv_offset=off)
-            close(flash_attention(q, k, v, **kw), ref.attention(q, k, v, **kw), dt_name,
-                  f"flash_attention {dt_name} {(b, sq, skv, hq, hkv, d, causal, window, off)}")
+            what = f"flash_attention {dt_name} {(b, sq, skv, hq, hkv, d, causal, window, off)}"
+            got = flash_attention(q, k, v, **kw)
+            close(got, ref.attention(q, k, v, **kw), dt_name, what)
+            if dt == torch.bfloat16:
+                scheme_close(got, ref.attention_bf16_scheme(q, k, v, **kw), what)
         for (b, smax, hq, hkv, d, ln) in [(2, 256, 4, 2, 64, 100), (3, 100, 6, 6, 32, 100),
                                           (2, 512, 8, 2, 128, 511), (1, 64, 4, 1, 64, 64),
-                                          (2, 96, 4, 2, 64, 0), (2, 256, 25, 5, 64, 200)]:
+                                          (2, 96, 4, 2, 64, 0), (2, 256, 25, 5, 64, 200),
+                                          # split-K at length: few (b, kvh) pairs, no
+                                          # valid slot, hymba's ring
+                                          (1, 4096, 8, 1, 128, 4000), (1, 4096, 4, 2, 64, 0),
+                                          (4, 1024, 25, 5, 64, 1024)]:
             q, kc, vc = randn(b, hq, d, dtype=dt), randn(b, smax, hkv, d, dtype=dt), \
                 randn(b, smax, hkv, d, dtype=dt)
             close(decode_attention(q, kc, vc, ln), ref.decode_attention(q, kc, vc, ln),
                   dt_name, f"decode_attention {dt_name} {(b, smax, hq, hkv, d, ln)}")
+        # per-sequence device lengths: splits sized from Smax, some wholly past a length
+        q, kc, vc = randn(3, 8, 128, dtype=dt), randn(3, 4096, 2, 128, dtype=dt), \
+            randn(3, 4096, 2, 128, dtype=dt)
+        lens = torch.tensor([1, 700, 4096], dtype=torch.int32, device="cuda")
+        close(decode_attention(q, kc, vc, lens), ref.decode_attention(q, kc, vc, lens),
+              dt_name, f"decode_attention {dt_name} per-sequence lengths [1, 700, 4096]")
         for shape in [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4, 3200)]:
             x, s = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1 + 1
             close(rmsnorm(x, s), ref.rmsnorm(x, s), dt_name, f"rmsnorm {dt_name} {shape}")
@@ -184,7 +212,8 @@ def sweeps(torch, randn):
     lens = torch.tensor([5, 77, 128], dtype=torch.int32, device="cuda")
     close(decode_attention(q, kc, vc, lens), ref.decode_attention(q, kc, vc, lens),
           "float32", "decode_attention per-sequence lengths")
-    print("[kernels] attention and rmsnorm sweeps passed (f32 3e-5, bf16 2e-2)", flush=True)
+    print("[kernels] attention and rmsnorm sweeps passed (f32 3e-5, bf16 2e-2; bf16 flash "
+          "also within its output rounding of its arithmetic in f32)", flush=True)
 
     # SSD scan, f32 at 5e-5 against both the sequential oracle and the
     # chunked plain version.  (B, S, H, P, N), chunk.
@@ -261,8 +290,9 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str) -> dict:
     q, k, v = randn(B, S, hq, hd, dtype=bf), randn(B, S, hkv, hd, dtype=bf), \
         randn(B, S, hkv, hd, dtype=bf)
     kw = dict(causal=True, window=window)
-    err = close(flash_attention(q, k, v, **kw), ref.attention(q, k, v, **kw), "bfloat16",
-                f"flash_attention {what}")
+    got = flash_attention(q, k, v, **kw)
+    err = close(got, ref.attention(q, k, v, **kw), "bfloat16", f"flash_attention {what}")
+    scheme_close(got, ref.attention_bf16_scheme(q, k, v, **kw), f"flash_attention {what}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     # the causal (and windowed) mask; its unmasked (query, key) pairs count
     i = torch.arange(S, device="cuda")
@@ -285,6 +315,21 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str) -> dict:
         ops_ms=4 * B * hq * hd * pairs / PEAK_BF16 * 1e3))
 
 
+def scheme_close(got, want32, what: str) -> None:
+    """The bf16 flash kernel against its own arithmetic in f32 (the plain
+    ``ref.attention_bf16_scheme``): within the kernel's one rounding of the
+    output to bf16 (half an ulp, at most 2^-8 of the value) plus
+    ``SCHEME_ATOL`` of max|out| for f32 summation order, far below the
+    output's typical size; the bf16 sweep's 2e-2 is not."""
+    d = (got.float() - want32).abs()
+    lim = SCHEME_RTOL * want32.abs() + SCHEME_ATOL * want32.abs().max()
+    ratio = (d / lim).max().item()
+    print(f"[kernels] {what} vs the bf16 scheme in f32: max|d| {d.max().item():.3e}, "
+          f"max|d| / (2^-8 |ref| + 2^-12 max|ref|) {ratio:.3f}", flush=True)
+    need(ratio <= 1 and bool(got.float().isfinite().all()),
+         f"{what}: beyond the bf16 scheme by {ratio:.3f} of its rounding tolerance")
+
+
 def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
@@ -301,10 +346,20 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str) -> dict:
     valid = (torch.arange(smax, device="cuda") < L)[None, None, None, :].expand(B, 1, 1, -1)
     lib_sets = [(q.unsqueeze(2), kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous())
                 for (q, kc, vc) in sets]
+    decode_attention.last_grid = None
+    ms = time_ms([lambda s=s: decode_attention(*s, L) for s in sets])
+    # the split kernel's grid as the wrapper launched it in the timed calls
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    need(decode_attention.last_grid is not None, f"decode_attention {what}: no grid recorded")
+    bh, splits = decode_attention.last_grid
+    grid = bh * splits
+    print(f"[kernels] decode_attention grid at {what}: B*Hkv*splits = {bh}*{splits} = "
+          f"{grid} blocks on {n_sm} SMs (as launched)", flush=True)
+    need(grid > n_sm, f"decode_attention {what}: grid {grid} does not exceed {n_sm} SMs")
     return finish(dict(
-        name="decode_attention", max_abs_err=err,
+        name="decode_attention", max_abs_err=err, grid=grid,
         shape=f"q ({B},{hq},{hd}), caches ({B},{smax},{hkv},{hd}) bf16, {L} valid [{what}]",
-        ms=time_ms([lambda s=s: decode_attention(*s, L) for s in sets]),
+        ms=ms,
         plain_ms=time_ms([lambda s=s: ref.decode_attention(*s, L) for s in sets]),
         library_ms=time_ms([lambda s=s: F.scaled_dot_product_attention(
             *s, attn_mask=valid, enable_gqa=True) for s in lib_sets]),
@@ -350,6 +405,39 @@ def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> 
         library_ms=None,
         bytes_ms=(nbytes(x, a, b, c, h0) + nbytes(y, hf)) / PEAK_BYTES * 1e3,
         ops_ms=flops / PEAK_BF16 * 1e3))
+
+
+def tensor_core_count() -> dict:
+    """HMMA/HGMMA (tensor-core) and FFMA instructions per kernel function of
+    the built flash-attention library, from ``cuobjdump --dump-sass``."""
+    import collections
+    import shutil
+    from repro_torch.kernels import build
+    lib = build._lib_path(build.CSRC / "flash_attention.cu")
+    tool = shutil.which("cuobjdump") or str(pathlib.Path(build._nvcc()).parent / "cuobjdump")
+    r = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
+                       timeout=300)
+    need(r.returncode == 0, f"cuobjdump --dump-sass {lib.name} failed: {r.stderr[-2000:]}")
+    counts, fn = collections.defaultdict(collections.Counter), None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA", "FFMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[fn][op] += 1
+    bf16 = {f: c for f, c in counts.items() if "flash_fwd_bf16_kernel" in f}
+    f32 = {f: c for f, c in counts.items() if "flash_fwd_f32_kernel" in f}
+    n_tc = sum(c["HMMA"] + c["HGMMA"] for c in bf16.values())
+    print(f"[build] flash_attention bf16 instantiations: {len(bf16)} functions, {n_tc} "
+          f"tensor-core instructions (HMMA/HGMMA) by function "
+          f"{[c['HMMA'] + c['HGMMA'] for c in bf16.values()]}, FFMA "
+          f"{[c['FFMA'] for c in bf16.values()]}; f32 instantiations: HMMA "
+          f"{[c['HMMA'] + c['HGMMA'] for c in f32.values()]}, FFMA "
+          f"{[c['FFMA'] for c in f32.values()]}", flush=True)
+    need(len(bf16) == 3 and all(c["HMMA"] + c["HGMMA"] > 0 for c in bf16.values()),
+         f"flash_attention bf16 instantiations without tensor-core instructions: {dict(bf16)}")
+    return {"hmma_bf16": n_tc}
 
 
 def kernel_phase(torch, gen) -> dict:
@@ -541,6 +629,7 @@ def main() -> int:
     resolve_device("cuda")  # TF32 off for the plain f32 comparisons
     print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
           f"{build.build_all():.1f} s", flush=True)
+    tensor_core_count()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     recs = kernel_phase(torch, gen)
@@ -558,7 +647,9 @@ def main() -> int:
          "launches": sum(by_path[arch][name] for arch in PATHS),
          **{k: recs[name][0][k] for k in TIMES},
          "launches_by_path": {arch: by_path[arch][name] for arch in PATHS},
-         "more_shapes": [{k: r[k] for k in TIMES} for r in recs[name][1:]]}
+         "more_shapes": [{k: r[k] for k in TIMES + ("grid",) if k in r}
+                         for r in recs[name][1:]],
+         **({"grid": recs[name][0]["grid"]} if "grid" in recs[name][0] else {})}
         for name in SOURCES]}
     print(json.dumps(line))
     print(card)

@@ -2,9 +2,9 @@
 device dispatch.
 
 rmsnorm          — fused row norm (``csrc/rmsnorm.cu``)
-flash_attention  — online-softmax attention forward, causal/window/GQA
-                   (``csrc/flash_attention.cu``)
-decode_attention — single-token flash-decode over (ring) KV caches
+flash_attention  — online-softmax attention forward, causal/window/GQA; bf16
+                   on the tensor cores (``csrc/flash_attention.cu``)
+decode_attention — single-token split-K flash-decode over (ring) KV caches
                    (``csrc/decode_attention.cu``)
 ssm_scan         — chunked Mamba-2 SSD scan, one block per (batch, head)
                    (``csrc/ssm_scan.cu``)

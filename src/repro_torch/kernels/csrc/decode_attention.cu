@@ -1,181 +1,371 @@
-// Decode attention (flash-decode, one query token per sequence) for Hopper (sm_90a).
+// Decode attention (split-K flash-decode, one query token per sequence) for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py::decode_attention.
-//   q (B,Hq,D), k_cache and v_cache (B,Smax,Hkv,D), lens int32 (B,) -> o (B,Hq,D).
-//   Slot s of sequence b is valid iff s < min(lens[b], Smax): validity is by
+//   q (B,Hq,D), k_cache and v_cache (B,Smax,Hkv,D), lengths -> o (B,Hq,D).
+//   Slot s of sequence b is valid iff s < min(len_b, Smax): validity is by
 //   slot, so ring-buffer (sliding-window) caches work unchanged.  Masked
 //   logits are -1e30 and the denominator is clamped at 1e-30, as in the
 //   reference; a sequence with no valid slot averages V over all Smax slots,
-//   as the plain version's uniform softmax does.
+//   as the plain version's uniform softmax does.  The lengths are one int for
+//   the whole batch, or an int32 (B,) tensor on the device.
 //
 // Bound on the card: bytes.  Every valid K and V slot is read once (at B 4,
-// ~1088 slots, 8 KV heads of 128 in bf16 that is ~17.8 MB a call) against
-// 4*g*D flops per slot.  Design: one block of 256 threads per (batch, KV
-// head), so the g query heads of a KV head share one pass over its cache;
-// 64-slot tiles are loaded with all threads (coalesced along D), kept as f32
-// in shared memory, and only tiles below the valid length are read.  It does
-// not split the cache across blocks (split-K), so B*Hkv blocks run; that and
-// overlapping the loads with the arithmetic are later changes.
+// 1088 slots, 8 KV heads of 128 in bf16 that is ~17.8 MB a call) against
+// 4*g*D flops per slot.  The first version ran one block per (batch, KV head),
+// 32 blocks on 132 SMs, with scalar loads widened into f32 shared memory and
+// nothing overlapped: 0.1850 ms at that shape and 0.1628 ms on hymba's ring
+// (B 4, 1024 slots, 5 KV heads of 64), about 3 % of HBM bandwidth (PERF.md,
+// the kernel table's earlier times).
+//
+// Design: split-K.
+//   - decode_split_kernel runs a grid of (B*Hkv, splits) blocks; block
+//     (b*Hkv + kvh, s) walks the contiguous slots [s*chunk, (s+1)*chunk) of
+//     its sequence's valid range.  The host picks `splits` so that the grid
+//     fills the SMs four times over with no split shorter than ~64 slots.
+//   - Each K and V row is read by D/8 lanes (bf16; D/4 for f32) with one
+//     16-byte load each.  Every lane keeps its 8 (4) columns of the g query
+//     rows of its KV head in registers, in f32 and pre-scaled by
+//     scale*log2(e); dot products reduce across the lanes of a row by xor
+//     shuffles.  Each group of lanes keeps (m, l, acc) for its own slots in
+//     registers, and the groups, then the warps, merge them at the end.
+//   - Loads in flight: each lane issues the K and V loads of U slots (4, or 2
+//     when g > 4) before it uses any of them, so a block of 4 warps has
+//     4*32*U*32 bytes in flight and a few blocks per SM reach the ~25 KB
+//     that Little's law asks at 3.35 TB/s and ~1 us.  Independent loads
+//     were chosen over a cp.async ring: every byte is used once, by the lane
+//     that loaded it, so staging through shared memory buys nothing.
+//   - The block writes its partial (m, l, acc[g, D]) in f32 to a scratch
+//     tensor; a split wholly past the valid length writes m = -1e30, l = 0,
+//     acc = 0, which the combine weighs at exactly 0.
+//   - decode_combine_kernel, launched by the same entry point, computes for
+//     each (b, query head) o = sum_s 2^(m_s-M) acc_s / max(sum_s 2^(m_s-M) l_s, 1e-30).
+// The arithmetic stays f32 FMAs on the CUDA cores: at g flops per byte the
+// kernel is far below the tensor-core ridge.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int BK = 64;
-constexpr int kMaxAcc = 8;  // accumulators per thread: g*D <= 2048
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxGroup = 8;  // g = Hq / Hkv; the wrapper's MAX_GROUP
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kAbsent = -__builtin_huge_valf();  // a slot outside the split: exp2 gives 0
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// 16-byte row chunk -> f32.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+    #pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-int smem_bytes(int g, int D) {
-  return static_cast<int>(sizeof(float)) *
-         (g * D + BK * (D + 1) + BK * D + g * BK + 3 * g);
+// Merge a running (m, l, acc) with another: the result is in max(m, m_o)'s units.
+template <int NV>
+__device__ __forceinline__ void merge(float& m, float& l, float (&acc)[NV], float m_o, float l_o,
+                                      const float (&acc_o)[NV]) {
+  const float mx = fmaxf(m, m_o), a = exp2f(m - mx), a_o = exp2f(m_o - mx);
+  m = mx;
+  l = l * a + l_o * a_o;
+  #pragma unroll
+  for (int e = 0; e < NV; ++e) acc[e] = acc[e] * a + acc_o[e] * a_o;
 }
 
-template <typename T, int D>
+// Partials: acc (B*Hq, splits, D) and ml (B*Hq, splits, 2), f32.
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-              const int* __restrict__ lens, T* __restrict__ o,
-              int Hq, int Hkv, int Smax, float scale) {
-  const int g = Hq / Hkv;
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // g x D, pre-scaled
-  float* Ks = Qs + g * D;           // BK x (D+1)
-  float* Vs = Ks + BK * (D + 1);    // BK x D
-  float* Ps = Vs + BK * D;          // g x BK
-  float* m_s = Ps + g * BK;         // g
-  float* l_s = m_s + g;             // g
-  float* a_s = l_s + g;             // g: this tile's rescale
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                    const int* __restrict__ lens, int len_all, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int Hq, int Hkv, int Smax, int chunk,
+                    float sl2) {
+  constexpr int NV = Vec<T>::N;        // elements per 16-byte load
+  constexpr int LPS = D / NV;          // lanes per slot
+  constexpr int SPW = 32 / LPS;        // slots per warp per step
+  constexpr int U = G <= 4 ? 4 : 2;    // steps whose loads are in flight together
+  constexpr int STEP = kWarps * SPW * U;
+  static_assert(LPS <= 32 && 32 % LPS == 0, "a slot's lanes share one warp");
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G], sm_acc[kWarps][G][D];
+
+  const int g = Hq / Hkv, splits = gridDim.y, split = blockIdx.y;
   const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
-  const long long row = static_cast<long long>(Hkv) * D;  // one cache slot
-  const T* kb = kc + static_cast<long long>(b) * Smax * row + kvh * D;
-  const T* vb = vc + static_cast<long long>(b) * Smax * row + kvh * D;
-  const T* qb = q + (static_cast<long long>(b) * Hq + kvh * g) * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sub = lane / LPS, li = lane % LPS;
 
-  for (int idx = tid; idx < g * D; idx += kThreads) Qs[idx] = to_f(qb[idx]) * scale;
-  for (int hh = tid; hh < g; hh += kThreads) {
-    m_s[hh] = kNegInf;
-    l_s[hh] = 0.f;
-  }
-  const int L = min(lens[b], Smax);
-  // With no valid slot every slot counts (uniform softmax over -1e30).
-  const int n_tiles = ((L > 0 ? L : Smax) + BK - 1) / BK;
+  int L = min(lens != nullptr ? lens[b] : len_all, Smax);
+  const bool none = L <= 0;  // no valid slot: all Smax slots count, with equal logits
+  if (none) L = Smax;
+  const int s0 = split * chunk, s1 = min(s0 + chunk, L);
 
-  float acc[kMaxAcc];
+  // This lane's columns [li*NV, li*NV + NV) of the group's query rows.
+  float qr[G][NV];
   #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // Qs/m_s ready; the previous tile's reads are done
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D, s = k0 + r;
-      const bool in = s < Smax;
-      Ks[r * (D + 1) + c] = in ? to_f(kb[s * row + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[s * row + c]) : 0.f;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < g * BK; idx += kThreads) {
-      const int hh = idx / BK, j = idx % BK;
-      float dot = 0.f;
-      #pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(Qs[hh * D + d], Ks[j * (D + 1) + d], dot);
-      Ps[idx] = k0 + j < L ? dot : kNegInf;
-    }
-    __syncthreads();
-    for (int hh = warp; hh < g; hh += kWarps) {
-      float s0 = Ps[hh * BK + lane], s1 = Ps[hh * BK + lane + 32];
-      float mx = fmaxf(s0, s1);
-      for (int o2 = 16; o2 > 0; o2 >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
-      const float m_old = m_s[hh];
-      const float m_new = fmaxf(m_old, mx);
-      // Slots past Smax do not exist; invalid slots weigh exp(-1e30 - m).
-      const float p0 = (k0 + lane) < Smax ? expf(s0 - m_new) : 0.f;
-      const float p1 = (k0 + lane + 32) < Smax ? expf(s1 - m_new) : 0.f;
-      Ps[hh * BK + lane] = p0;
-      Ps[hh * BK + lane + 32] = p1;
-      float sum = p0 + p1;
-      for (int o2 = 16; o2 > 0; o2 >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o2);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[hh] = alpha;
-        l_s[hh] = l_s[hh] * alpha + sum;
-        m_s[hh] = m_new;
-      }
-    }
-    __syncthreads();
+  for (int hh = 0; hh < G; ++hh) {
     #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
-      const int idx = tid + a * kThreads;
-      if (idx < g * D) {
-        const int hh = idx / D, d = idx % D;
-        float v = acc[a] * a_s[hh];
-        #pragma unroll 8
-        for (int j = 0; j < BK; ++j) v = fmaf(Ps[hh * BK + j], Vs[j * D + d], v);
-        acc[a] = v;
+    for (int e = 0; e < NV; ++e) qr[hh][e] = 0.f;
+    if (hh < g) {
+      const T* qrow = q + (static_cast<long long>(b) * Hq + kvh * g + hh) * D + li * NV;
+      Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(qrow)), qr[hh]);
+      #pragma unroll
+      for (int e = 0; e < NV; ++e) qr[hh][e] *= sl2;
+    }
+  }
+  float m[G], l[G], acc[G][NV];
+  #pragma unroll
+  for (int hh = 0; hh < G; ++hh) {
+    m[hh] = kNegInf;
+    l[hh] = 0.f;
+    #pragma unroll
+    for (int e = 0; e < NV; ++e) acc[hh][e] = 0.f;
+  }
+
+  const long long row = static_cast<long long>(Hkv) * D;  // one cache slot
+  const T* kb = kc + static_cast<long long>(b) * Smax * row + kvh * D + li * NV;
+  const T* vb = vc + static_cast<long long>(b) * Smax * row + kvh * D + li * NV;
+
+  for (int base = s0; base < s1; base += STEP) {
+    uint4 kr[U], vr[U];
+    bool in[U];
+    #pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = base + (u * kWarps + warp) * SPW + sub;
+      in[u] = s < s1;
+      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      if (in[u]) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + s * row));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + s * row));
       }
+    }
+    float sc[U][G];
+    #pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[NV];
+      Vec<T>::unpack(kr[u], kf);
+      #pragma unroll
+      for (int hh = 0; hh < G; ++hh) {
+        float dot = 0.f;
+        #pragma unroll
+        for (int e = 0; e < NV; ++e) dot = fmaf(qr[hh][e], kf[e], dot);
+        #pragma unroll
+        for (int o = LPS / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        sc[u][hh] = !in[u] ? kAbsent : (none ? kNegInf : dot);
+      }
+    }
+    #pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+      float mx = m[hh];
+      #pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, sc[u][hh]);
+      const float alpha = exp2f(m[hh] - mx);
+      m[hh] = mx;
+      l[hh] *= alpha;
+      #pragma unroll
+      for (int e = 0; e < NV; ++e) acc[hh][e] *= alpha;
+      #pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float pu = exp2f(sc[u][hh] - mx);
+        float vf[NV];
+        Vec<T>::unpack(vr[u], vf);
+        l[hh] += pu;
+        #pragma unroll
+        for (int e = 0; e < NV; ++e) acc[hh][e] = fmaf(pu, vf[e], acc[hh][e]);
+      }
+    }
+  }
+
+  // Merge the SPW slot groups of the warp, then the warps through shared memory.
+  #pragma unroll
+  for (int o = LPS; o < 32; o <<= 1) {
+    #pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+      float acc_o[NV];
+      #pragma unroll
+      for (int e = 0; e < NV; ++e) acc_o[e] = __shfl_xor_sync(0xffffffffu, acc[hh][e], o);
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[hh], o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[hh], o);
+      merge(m[hh], l[hh], acc[hh], m_o, l_o, acc_o);
+    }
+  }
+  if (sub == 0) {
+    #pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+      if (li == 0) {
+        sm_m[warp][hh] = m[hh];
+        sm_l[warp][hh] = l[hh];
+      }
+      #pragma unroll
+      for (int e = 0; e < NV; ++e) sm_acc[warp][hh][li * NV + e] = acc[hh][e];
     }
   }
   __syncthreads();
-  T* ob = o + (static_cast<long long>(b) * Hq + kvh * g) * D;
-  #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) {
-    const int idx = tid + a * kThreads;
-    if (idx < g * D) ob[idx] = from_f<T>(acc[a] / fmaxf(l_s[idx / D], 1e-30f));
+  for (int idx = tid; idx < g * D; idx += kThreads) {
+    const int hh = idx / D, d = idx % D;
+    float mx = sm_m[0][hh];
+    #pragma unroll
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][hh]);
+    float lt = 0.f, at = 0.f;
+    #pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float a = exp2f(sm_m[w][hh] - mx);
+      lt += sm_l[w][hh] * a;
+      at += sm_acc[w][hh][d] * a;
+    }
+    const long long ph = (static_cast<long long>(b) * Hq + kvh * g + hh) * splits + split;
+    part_acc[ph * D + d] = at;
+    if (d == 0) {
+      part_ml[2 * ph] = mx;
+      part_ml[2 * ph + 1] = lt;
+    }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kc, const void* vc, const int* lens, void* o,
-           int B, int Hq, int Hkv, int Smax, float scale, cudaStream_t stream) {
-  const int bytes = smem_bytes(Hq / Hkv, D);
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
+// Max (kMax) or sum of v over the block; blockDim.x is a multiple of 32, at most 128.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  #pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float t = __shfl_xor_sync(0xffffffffu, v, o);
+    v = kMax ? fmaxf(v, t) : v + t;
   }
-  decode_kernel<T, D><<<B * Hkv, kThreads, bytes, stream>>>(
+  __syncthreads();  // red is free
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
+    v = kMax ? fmaxf(v, red[w]) : v + red[w];
+  return v;
+}
+
+// One block of D threads per (b, query head): the weighted sum of the splits.
+// The threads share out the splits' (m, l) to form M, the weights 2^(m_s - M)
+// and the denominator; then thread d sums column d.  A split with l = 0 saw no
+// slot and weighs exactly 0.
+template <typename T>
+__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
+                                      const float* __restrict__ part_ml, T* __restrict__ o,
+                                      int splits, int D) {
+  extern __shared__ float w_s[];  // splits
+  __shared__ float red[kThreads / 32];
+  const long long bh = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* ml = part_ml + bh * splits * 2;
+  float mx = kNegInf;
+  for (int s = d; s < splits; s += D)
+    if (ml[2 * s + 1] > 0.f) mx = fmaxf(mx, ml[2 * s]);
+  mx = block_reduce<true>(mx, red);
+  float den = 0.f;
+  for (int s = d; s < splits; s += D) {
+    const float ls = ml[2 * s + 1], w = ls > 0.f ? exp2f(ml[2 * s] - mx) : 0.f;
+    w_s[s] = w;
+    den = fmaf(w, ls, den);
+  }
+  den = block_reduce<false>(den, red);  // its barriers also publish w_s
+  const float* acc = part_acc + bh * splits * D + d;
+  float num = 0.f;
+  #pragma unroll 8
+  for (int s = 0; s < splits; ++s) num = fmaf(w_s[s], acc[static_cast<long long>(s) * D], num);
+  o[bh * D + d] = from_f<T>(num / fmaxf(den, 1e-30f));
+}
+
+template <typename T, int D, int G>
+int launch(const void* q, const void* kc, const void* vc, const int* lens, int len_all, void* o,
+           float* part, int B, int Hq, int Hkv, int Smax, int splits, int chunk, float scale,
+           cudaStream_t stream) {
+  float* part_acc = part;
+  float* part_ml = part + static_cast<long long>(B) * Hq * splits * D;
+  decode_split_kernel<T, D, G><<<dim3(B * Hkv, splits), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), lens,
-      static_cast<T*>(o), Hq, Hkv, Smax, scale);
+      len_all, part_acc, part_ml, Hq, Hkv, Smax, chunk, scale * kLog2e);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_combine_kernel<T><<<B * Hq, D, splits * sizeof(float), stream>>>(
+      part_acc, part_ml, static_cast<T*>(o), splits, D);
   return static_cast<int>(cudaGetLastError());
 }
 
+// G: the group size rounded up to 1, 2, 4, 5 (hymba's) or 8.
+template <typename T, int D>
+int dispatch_g(int g, const void* q, const void* kc, const void* vc, const int* lens,
+               int len_all, void* o, float* part, int B, int Hq, int Hkv, int Smax, int splits,
+               int chunk, float scale, cudaStream_t s) {
+#define DECODE_LAUNCH(G_) \
+  launch<T, D, G_>(q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits, chunk, scale, s)
+  if (g <= 1) return DECODE_LAUNCH(1);
+  if (g <= 2) return DECODE_LAUNCH(2);
+  if (g <= 4) return DECODE_LAUNCH(4);
+  if (g <= 5) return DECODE_LAUNCH(5);
+  return DECODE_LAUNCH(8);
+#undef DECODE_LAUNCH
+}
+
 template <typename T>
-int dispatch_d(const void* q, const void* kc, const void* vc, const int* lens, void* o,
-               int B, int Hq, int Hkv, int Smax, int D, float scale, cudaStream_t s) {
+int dispatch_d(int D, int g, const void* q, const void* kc, const void* vc, const int* lens,
+               int len_all, void* o, float* part, int B, int Hq, int Hkv, int Smax, int splits,
+               int chunk, float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, kc, vc, lens, o, B, Hq, Hkv, Smax, scale, s);
-    case 64: return launch<T, 64>(q, kc, vc, lens, o, B, Hq, Hkv, Smax, scale, s);
-    case 128: return launch<T, 128>(q, kc, vc, lens, o, B, Hq, Hkv, Smax, scale, s);
+    case 32:
+      return dispatch_g<T, 32>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits,
+                               chunk, scale, s);
+    case 64:
+      return dispatch_g<T, 64>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits,
+                               chunk, scale, s);
+    case 128:
+      return dispatch_g<T, 128>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits,
+                                chunk, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// All tensors contiguous; lens is int32 (B,) on the device.
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// All tensors contiguous and 16-byte aligned.  lens: int32 (B,) on the device,
+// or null, and then every sequence has len_all valid slots.  part: f32 scratch
+// of B*Hq*splits*(D+2) elements.  Split s covers slots [s*chunk, (s+1)*chunk).
+// dtype: 0 = float32, 1 = bfloat16.  Launches the split and combine kernels;
+// returns a cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const void* v_cache,
-                                    const void* lens, void* o, int B, int Hq, int Hkv,
-                                    int Smax, int D, float scale, int dtype, void* stream) {
+                                    const void* lens, int len_all, void* o, void* part, int B,
+                                    int Hq, int Hkv, int Smax, int D, int splits, int chunk,
+                                    float scale, int dtype, void* stream) {
   if (B == 0 || Hkv == 0) return 0;
-  if (Hq % Hkv != 0 || (Hq / Hkv) * D > kMaxAcc * kThreads || Smax <= 0)
+  if (Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || Smax <= 0 || splits <= 0 || splits > 8192 ||
+      chunk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[3] = {q, k_cache, v_cache};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
-  if (dtype == 0) return dispatch_d<float>(q, k_cache, v_cache, ln, o, B, Hq, Hkv, Smax, D, scale, s);
+  float* pt = static_cast<float*>(part);
+  const int g = Hq / Hkv;
+  if (dtype == 0)
+    return dispatch_d<float>(D, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq, Hkv, Smax,
+                             splits, chunk, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k_cache, v_cache, ln, o, B, Hq, Hkv, Smax, D, scale, s);
+    return dispatch_d<__nv_bfloat16>(D, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq,
+                                     Hkv, Smax, splits, chunk, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,10 +3,12 @@
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``.  Bound on the card by
-operations at prefill sizes (~17 GFLOP on ~50 MB at B 4, S 1024); this first
-version does exact f32 arithmetic on the CUDA cores, reads KV head ``h // g``
-in place instead of copying K and V per group, masks the ragged edges in the
-kernel instead of padding, and skips key tiles the mask empties.  See the
+operations at prefill sizes (~17 GFLOP on ~50 MB at B 4, S 1024).  bf16
+inputs run on the bf16 tensor cores (``mma.sync``, K and V staged by
+``cp.async`` in a two-stage ring, P as a bf16 high part plus the bf16 of its
+remainder for P·V); f32 inputs keep exact f32 arithmetic on the CUDA cores.  Both read KV head ``h // g`` in
+place instead of copying K and V per group, mask the ragged edges in the
+kernel instead of padding, and skip key tiles the mask empties.  See the
 source note in the ``.cu`` file.
 
 A CPU tensor goes to the plain version (``ref.attention``); a CUDA tensor
@@ -35,7 +37,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,Sq,Hq,D); k, v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D) in q's dtype.
 
     Any strides are taken as long as the head dim is contiguous (v may be a
-    slice of a fused qkv projection)."""
+    slice of a fused qkv projection); bf16 operands are copied 16 bytes at a
+    time, so their base must be 16-byte aligned and their strides multiples
+    of 8 elements."""
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, scale=scale,
                      kv_offset=kv_offset)
@@ -54,9 +58,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v need 16-byte aligned bases and "
+                         "(batch, seq, head) strides that are multiples of 8")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window {window} must be positive")
     scale = scale if scale is not None else D ** -0.5
+    if scale == 0 and q.dtype == torch.bfloat16:  # the bf16 kernel keeps its row max unscaled
+        raise ValueError("flash_attention: a bf16 scale must be non-zero")
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     kernel = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv, Hq, Hkv, D,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -50,6 +51,45 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
+
+
+def attention_bf16_scheme(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int | None = None,
+                          kv_offset: int = 0, bk: int = 64) -> torch.Tensor:
+    """``attention`` in the arithmetic of the flash kernel's bf16 path, in
+    f32: Q.K^T of the operands accumulated in f32, the scale (times log2 e)
+    applied to S in f32, an online softmax over ``bk``-key tiles with l
+    summed from the f32 p, and P split into a bf16 high part and the bf16 of
+    its remainder for P.V.  Returns f32, before the kernel's one rounding of
+    the output to bf16, so the kernel can be held to it within that rounding.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    g = Hq // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, g, D)
+    kf, vf = k.float(), v.float()
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + kv_offset
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window is not None:
+        valid &= k_pos > q_pos - window
+    m = torch.full((B, Hkv, g, Sq), _NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, g, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, D), device=q.device)
+    for k0 in range(0, Skv, bk):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf[:, k0:k0 + bk]) * (D ** -0.5 * _LOG2E)
+        s = s.masked_fill(~valid[:, k0:k0 + bk], _NEG_INF)
+        mx = torch.maximum(m, s.amax(-1))
+        alpha, p = torch.exp2(m - mx), torch.exp2(s - mx[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", hi + (p - hi).bfloat16().float(), vf[:, k0:k0 + bk])
+        m = mx
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

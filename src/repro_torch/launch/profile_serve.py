@@ -30,8 +30,10 @@ from ..models import init_params
 from ..runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 
 # Kernel-name fragments of each group (the port's kernels are named in csrc/).
-GROUPS = (("rmsnorm", ("rmsnorm_kernel",)), ("flash_attention", ("flash_fwd_kernel",)),
-          ("decode_attention", ("decode_kernel",)), ("ssd_scan", ("ssd_scan_kernel",)),
+GROUPS = (("rmsnorm", ("rmsnorm_kernel",)),
+          ("flash_attention", ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")),
+          ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
+          ("ssd_scan", ("ssd_scan_kernel",)),
           ("matmul", ("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")))
 
 

@@ -42,11 +42,18 @@ FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset
     # rows with no valid key: the plain version's uniform softmax over -1e30
     (1, 64, 64, 2, 1, 64, True, 8, 100),
     (1, 70, 70, 2, 1, 32, True, None, -5),
+    # served head layouts at length: the cp.async ring over many tiles, causal
+    # and window band skipping, and a ragged Sq
+    (1, 1024, 1024, 16, 8, 128, True, None, 0),
+    (1, 1536, 1536, 25, 5, 64, True, 1024, 0),
+    (1, 1000, 1000, 4, 2, 128, True, None, 0),
 ]
 DECODE_CASES = [  # B, Smax, Hq, Hkv, D, valid length
     (2, 256, 4, 2, 64, 100), (3, 100, 6, 6, 32, 100),
     (2, 512, 8, 2, 128, 511), (1, 64, 4, 1, 64, 64),
     (2, 96, 4, 2, 64, 0),
+    # split-K at length: few (b, kvh) pairs, no valid slot, hymba's ring
+    (1, 4096, 8, 1, 128, 4000), (1, 4096, 4, 2, 64, 0), (4, 1024, 25, 5, 64, 1024),
 ]
 RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4096, 2048), (4, 3200)]
 SSD_CASES = ([(shape, chunk) for shape in [(2, 96, 3, 16, 8), (1, 64, 1, 8, 4)]
@@ -91,6 +98,21 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, caus
     np.testing.assert_allclose(f32(got), f32(ref.attention(q, k, v, **kw)), **tol(name))
 
 
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,off", FLASH_CASES)
+def test_flash_attention_bf16_kernel_matches_its_scheme(cuda, B, Sq, Skv, Hq, Hkv, D, causal,
+                                                        window, off):
+    """The bf16 kernel against its own arithmetic in f32
+    (``ref.attention_bf16_scheme``), within the kernel's one rounding of the
+    output to bf16: far tighter than the bf16 sweep's 2e-2."""
+    q, k, v = (normal(i, B, s, h, D, dtype=torch.bfloat16)
+               for i, (s, h) in enumerate([(Sq, Hq), (Skv, Hkv), (Skv, Hkv)]))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    got = flash_attention(q, k, v, **kw)
+    want = ref.attention_bf16_scheme(q, k, v, **kw)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2.0 ** -8,
+                               atol=2.0 ** -12 * want.abs().max().item())
+
+
 def test_flash_attention_kernel_takes_strided_v(cuda):
     """v as a slice of a fused projection, as the model passes it."""
     qkv = normal(0, 2, 96, 4 + 2 * 2, 64)
@@ -98,6 +120,17 @@ def test_flash_attention_kernel_takes_strided_v(cuda):
     assert not v.is_contiguous()
     got = flash_attention(q, k, v)
     np.testing.assert_allclose(f32(got), f32(ref.attention(q, k, v)), **tol("float32"))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_flash_attention_kernel_negative_scale(cuda, name):
+    """The bf16 kernel keeps its row max unscaled and takes |scale|, flipping
+    the sign of Q for a negative one."""
+    dt = DTYPES[name]
+    q, k, v = (normal(i, 1, 96, 4, 64, dtype=dt) for i in range(3))
+    kw = dict(window=40, scale=-0.2)
+    np.testing.assert_allclose(f32(flash_attention(q, k, v, **kw)),
+                               f32(ref.attention(q, k, v, **kw)), **tol(name))
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
@@ -117,6 +150,21 @@ def test_decode_attention_kernel_per_seq_lengths(cuda):
     got = decode_attention(q, kc, vc, lens)
     np.testing.assert_allclose(f32(got), f32(ref.decode_attention(q, kc, vc, lens)),
                                rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_decode_attention_kernel_per_seq_lengths_split_k(cuda, name):
+    """Device lengths size the splits from Smax: the short sequences' later
+    splits lie wholly past their lengths and must weigh nothing."""
+    dt = DTYPES[name]
+    q, kc, vc = (normal(0, 3, 8, 128, dtype=dt), normal(1, 3, 4096, 2, 128, dtype=dt),
+                 normal(2, 3, 4096, 2, 128, dtype=dt))
+    lens = torch.tensor([1, 700, 4096], dtype=torch.int32, device=cuda)
+    n0 = decode_attention.n_launches
+    got = decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.n_launches == n0 + 1
+    np.testing.assert_allclose(f32(got), f32(ref.decode_attention(q, kc, vc, lens)), **tol(name))
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
@@ -180,6 +228,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="caches"):
         decode_attention(normal(0, 1, 2, 32), normal(1, 1, 8, 2, 32, device="cpu"),
                          normal(2, 1, 8, 2, 32), 4)
+    with pytest.raises(ValueError, match="exceeds"):
+        decode_attention(normal(0, 1, 9, 32), normal(1, 1, 8, 1, 32), normal(2, 1, 8, 1, 32), 4)
+    qkv = normal(0, 1, 8, 3 * 2 * 32 + 4, dtype=torch.bfloat16)[..., 4:]
+    q, k, v = (t.reshape(1, 8, 2, 32) for t in qkv.split(64, dim=-1))
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="scale"):
+        flash_attention(*(normal(0, 1, 8, 2, 32, dtype=torch.bfloat16) for _ in range(3)),
+                        scale=0.0)
     x, a, b, c, h0 = ssd_inputs(1, 8, 2, 16, 4)
     with pytest.raises(ValueError, match="a "):
         ssd_scan(x, a.cpu(), b, c)

@@ -4,8 +4,13 @@ On the CPU each wrapper runs its plain PyTorch version; it is held against
 the reference's Pallas function in interpret mode over the same shape sweep
 and tolerances as ``tests/test_kernels.py``.  Inputs come from a seeded numpy
 generator and go to both packages.  The CUDA kernels themselves are held
-against these plain versions on the card in ``tests/test_torch_gpu.py``.
+against these plain versions on the card in ``tests/test_torch_gpu.py``; the
+arithmetic the kernels do differently from their plain versions (flash
+attention's bf16 tensor-core scheme, decode attention's split-K combine) is
+emulated here in plain PyTorch and held against the Pallas kernels too.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -17,7 +22,9 @@ import jax.numpy as jnp
 from repro.kernels.decode_attention import decode_attention as pallas_decode_attention
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, MIN_SPLIT, decode_attention,
+                                                  num_splits, split_plan)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -98,3 +105,147 @@ def test_rmsnorm_plain_matches_pallas(shape, name):
     want = pallas_rmsnorm(jx, jnp.asarray(s), block_rows=16, interpret=True)
     assert got.dtype == tx.dtype
     np.testing.assert_allclose(f32(got), f32(want), **tol(name))
+
+
+# --- The redesigned kernels' arithmetic, emulated in plain PyTorch ---------
+
+LOG2E = 1.4426950408889634
+H100_SMS = 132
+
+
+def split_decode(q, kc, vc, cache_len, splits, chunk):
+    """csrc/decode_attention.cu's algorithm: each split s of the slots
+    [s*chunk, (s+1)*chunk) within a sequence's valid range keeps (m, l, acc)
+    in log2 units of the pre-scaled q; a split with no slot writes (-1e30,
+    0, 0); the combine weighs the splits by 2^(m_s - M) over those with
+    l > 0.  With no valid slot every Smax slot counts at logit -1e30."""
+    B, Hq, D = q.shape
+    _, Smax, Hkv, _ = kc.shape
+    g = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, g, D) * (D ** -0.5 * LOG2E)
+    lens = torch.as_tensor(cache_len).broadcast_to((B,)).clamp(max=Smax)
+    out = torch.empty(B, Hkv, g, D)
+    for b in range(B):
+        n = int(lens[b])
+        none = n <= 0
+        n = Smax if none else n
+        ms, ls, accs = [], [], []
+        for s in range(splits):
+            lo, hi = s * chunk, min((s + 1) * chunk, n)
+            if lo >= hi:
+                ms.append(torch.full((Hkv, g), -1e30))
+                ls.append(torch.zeros(Hkv, g))
+                accs.append(torch.zeros(Hkv, g, D))
+                continue
+            sc = torch.einsum("hgd,khd->hgk", qf[b], kc[b, lo:hi].float())
+            if none:
+                sc = torch.full_like(sc, -1e30)
+            m = sc.amax(-1)
+            p = torch.exp2(sc - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("hgk,khd->hgd", p, vc[b, lo:hi].float()))
+        m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        big = torch.where(l > 0, m, torch.tensor(-torch.inf)).amax(0)
+        w = torch.where(l > 0, torch.exp2(m - big), torch.zeros(()))
+        out[b] = (w[..., None] * acc).sum(0) / torch.clamp((w * l).sum(0), min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+SPLIT_CASES = DECODE_CASES + [  # + no valid slot, and hymba's group of 5 at D 64
+    (2, 96, 4, 2, 64, 0), (2, 256, 25, 5, 64, 200)]
+SPLIT_MODES = ("host", "ragged", "past")
+
+
+def split_for(mode, B, Hkv, Smax, ln):
+    """host: split_plan's own choice; ragged: 3 splits that do not divide the
+    length; past: quarters of Smax and two splits more, wholly past it."""
+    splits, chunk = split_plan(B, Hkv, Smax, ln, H100_SMS)
+    if mode == "past":
+        return 6, -(-Smax // 4)
+    k = {"host": splits, "ragged": 3}[mode]
+    return k, -(-min(splits * chunk, Smax) // k)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_decode(B, Smax, Hq, Hkv, D, lens, name, block_k):
+    jq, _ = both(normal(0, B, Hq, D), name)
+    jk, _ = both(normal(1, B, Smax, Hkv, D), name)
+    jv, _ = both(normal(2, B, Smax, Hkv, D), name)
+    ln = jnp.asarray(np.array(lens, np.int32)) if isinstance(lens, tuple) else lens
+    return f32(pallas_decode_attention(jq, jk, jv, ln, block_k=block_k, interpret=True))
+
+
+@pytest.mark.parametrize("mode", SPLIT_MODES)
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,Smax,Hq,Hkv,D,ln", SPLIT_CASES)
+def test_split_k_decode_emulation_matches_plain_and_pallas(B, Smax, Hq, Hkv, D, ln, name, mode):
+    _, tq = both(normal(0, B, Hq, D), name)
+    _, tk = both(normal(1, B, Smax, Hkv, D), name)
+    _, tv = both(normal(2, B, Smax, Hkv, D), name)
+    splits, chunk = split_for(mode, B, Hkv, Smax, ln)
+    if mode == "past":
+        assert (splits - 1) * chunk >= Smax  # a split wholly past every length
+    got = split_decode(tq, tk, tv, ln, splits, chunk)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(f32(got), f32(ref.decode_attention(tq, tk, tv, ln)), **tol(name))
+    # block_k dividing Smax: the Pallas kernel's padding would join a no-slot average
+    block_k = 32 if Smax % 64 else 64
+    np.testing.assert_allclose(f32(got), _pallas_decode(B, Smax, Hq, Hkv, D, ln, name, block_k),
+                               **tol(name))
+
+
+@pytest.mark.parametrize("mode", SPLIT_MODES)
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("lens", [(5, 77, 128), (0, 1, 128)])
+def test_split_k_decode_emulation_per_sequence_lengths(lens, name, mode):
+    """A (B,) length tensor: splits are sized from Smax, so a short sequence
+    has splits wholly past its length, and a zero length averages all slots."""
+    _, tq = both(normal(0, 3, 4, 32), name)
+    _, tk = both(normal(1, 3, 128, 2, 32), name)
+    _, tv = both(normal(2, 3, 128, 2, 32), name)
+    tl = torch.tensor(lens, dtype=torch.int32)
+    splits, chunk = split_for(mode, 3, 2, 128, tl)
+    got = split_decode(tq, tk, tv, tl, splits, chunk)
+    np.testing.assert_allclose(f32(got), f32(ref.decode_attention(tq, tk, tv, tl)), **tol(name))
+    np.testing.assert_allclose(f32(got), _pallas_decode(3, 128, 4, 2, 32, lens, name, 32),
+                               **tol(name))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,off", FLASH_CASES + [
+    (1, 64, 64, 2, 1, 64, True, 8, 100)])   # rows with no valid key
+def test_flash_bf16_scheme_matches_pallas(B, Sq, Skv, Hq, Hkv, D, causal, window, off):
+    (jq, tq), (jk, tk), (jv, tv) = (both(normal(i, B, s, h, D), "bfloat16")
+                                    for i, (s, h) in enumerate([(Sq, Hq), (Skv, Hkv), (Skv, Hkv)]))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    got = ref.attention_bf16_scheme(tq, tk, tv, **kw).to(tq.dtype)
+    want = pallas_flash_attention(jq, jk, jv, **kw, block_q=32, block_k=32, interpret=True)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
+    np.testing.assert_allclose(f32(got), f32(ref.attention(tq, tk, tv, **kw)), **tol("bfloat16"))
+
+
+# (B, Hkv, Smax, valid slots) of each served decode: internlm2's cache of
+# prompt 1024 + 64 steps at its first and last step, hymba's full ring.
+SERVED_DECODES = [(4, 8, 1089, 1025), (4, 8, 1089, 1088), (4, 5, 1024, 1024)]
+
+
+@pytest.mark.parametrize("B,Hkv,Smax,ln", SERVED_DECODES)
+def test_num_splits_fills_the_card_at_served_shapes(B, Hkv, Smax, ln):
+    splits, chunk = split_plan(B, Hkv, Smax, ln, H100_SMS)
+    assert B * Hkv * splits >= 2 * H100_SMS
+    assert chunk >= MIN_SPLIT and (splits - 1) * chunk < ln <= splits * chunk
+
+
+@pytest.mark.parametrize("bh", [1, 2, 5, 20, 32, 132, 264, 1000])
+def test_num_splits_never_cuts_below_the_minimum(bh):
+    for n in (1, 63, 64, 65, 127, 128, 1000, 1088, 4096, 16897, 100000):
+        k = num_splits(bh, n, H100_SMS)
+        assert k >= 1 and (k == 1 or n // k >= MIN_SPLIT)
+        assert bh * k >= BLOCKS_PER_SM * H100_SMS or k == max(1, n // MIN_SPLIT)
+        for cache_len in (n, torch.tensor([n])):
+            smax = n + 7
+            splits, chunk = split_plan(bh, 1, smax, cache_len, H100_SMS)
+            covered = n if not isinstance(cache_len, torch.Tensor) else smax
+            assert (splits - 1) * chunk < covered <= splits * chunk
+            assert chunk >= min(MIN_SPLIT, covered)
