@@ -14,9 +14,13 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                (f32 and bf16) and at each serving path's shapes; time kernel,
                plain version and, where one exists, one PyTorch library call
                computing the same function (a yardstick the port never calls);
-               hold flash attention's bf16 kernel, within its output rounding,
-               to its own arithmetic in f32; print decode attention's split-K
-               grid as the wrapper launched it at both served shapes.
+               hold flash attention's bf16 kernel and the SSD scan's bf16
+               output pass, within their output rounding, to their own
+               arithmetic in f32; print decode attention's split-K grid,
+               rmsnorm's plan and the scan's grids as the wrappers launched
+               them at the served shapes; and the device time alone
+               (``torch.profiler``) of rmsnorm against ``F.rms_norm`` and of
+               the scan by CUDA kernel.
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
                with the launch counts set to 0 just before and asserted
@@ -50,7 +54,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # Reference tolerances (tests/test_kernels.py: f32 3e-5, bf16 2e-2, SSD 5e-5).
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 SSD_TOL = 5e-5
-# The bf16 flash kernel against its arithmetic in f32 (scheme_close).
+# A bf16 tensor-core kernel against its arithmetic in f32 (scheme_close).
 SCHEME_RTOL, SCHEME_ATOL = 2.0 ** -8, 2.0 ** -12
 # Published H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 on
 # the CUDA cores, HBM3 bandwidth.
@@ -122,6 +126,32 @@ def time_ms(fns, reps: int = 7, inner: int = 10) -> float:
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / inner)
     return statistics.median(out)
+
+
+def device_us(fns, calls: int = 30) -> dict:
+    """Mean device microseconds of one call by CUDA kernel name, from
+    ``torch.profiler``'s device rows over ``calls`` calls that cycle ``fns``
+    (so inputs can outgrow the 50 MB L2).  Unlike ``time_ms`` of an eager
+    call, no host work counts."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"\w+_kernel", e.key)
+            name = m.group(0) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
+    need(out != {}, "torch.profiler recorded no device time")
+    return out
 
 
 def close(got, want, dtype_name: str, what: str, tol: float | None = None) -> float:
@@ -205,9 +235,19 @@ def sweeps(torch, randn):
         lens = torch.tensor([1, 700, 4096], dtype=torch.int32, device="cuda")
         close(decode_attention(q, kc, vc, lens), ref.decode_attention(q, kc, vc, lens),
               dt_name, f"decode_attention {dt_name} per-sequence lengths [1, 700, 4096]")
-        for shape in [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4, 3200)]:
+        for shape in [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4, 3200), (5, 100), (3, 7, 8192)]:
             x, s = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1 + 1
             close(rmsnorm(x, s), ref.rmsnorm(x, s), dt_name, f"rmsnorm {dt_name} {shape}")
+            # scale in x's dtype and in the other one
+            s2 = s.to(torch.bfloat16 if dt == torch.float32 else torch.float32)
+            close(rmsnorm(x, s2), ref.rmsnorm(x, s2), dt_name,
+                  f"rmsnorm {dt_name} {shape} scale {s2.dtype}")
+        # a contiguous view with a storage offset: not 16-byte aligned, so the
+        # plan takes the scalar path
+        flat = randn(1 + 6 * 2048, dtype=dt)
+        x, s = flat[1:].view(6, 2048), randn(2048) * 0.1 + 1
+        close(rmsnorm(x, s), ref.rmsnorm(x, s), dt_name, f"rmsnorm {dt_name} offset view")
+        need(rmsnorm.last_plan.vec == 1, f"rmsnorm offset view: plan {rmsnorm.last_plan}")
     q, kc, vc = randn(3, 4, 32), randn(3, 128, 2, 32), randn(3, 128, 2, 32)
     lens = torch.tensor([5, 77, 128], dtype=torch.int32, device="cuda")
     close(decode_attention(q, kc, vc, lens), ref.decode_attention(q, kc, vc, lens),
@@ -219,7 +259,11 @@ def sweeps(torch, randn):
     # chunked plain version.  (B, S, H, P, N), chunk.
     cases = ([(shape, chunk) for shape in [(2, 96, 3, 16, 8), (1, 64, 1, 8, 4)]
               for chunk in (16, 32, 40, 96)]
-             + [((2, 100, 3, 16, 8), 32), ((2, 1, 3, 16, 8), 256), ((2, 300, 3, 64, 16), 256)])
+             + [((2, 100, 3, 16, 8), 32), ((2, 1, 3, 16, 8), 256), ((2, 300, 3, 64, 16), 256),
+                # S = Q + 1 (a last chunk of one step), many chunks, the widest
+                # head and state, and S < Q
+                ((2, 257, 3, 64, 16), 256), ((1, 1000, 2, 64, 16), 64),
+                ((1, 130, 2, 128, 64), 64), ((1, 70, 2, 100, 32), 256)])
     for (B, S, H, P, N), chunk in cases:
         x, a, b, c, h0 = ssd_inputs(torch, randn, B, S, H, P, N)
         for h in (h0, None):
@@ -232,16 +276,27 @@ def sweeps(torch, randn):
     # production dtype mix: x and c bf16 (c a slice of the fused b|c
     # projection), a and b f32, h0 f32; y at bf16's 2e-2, h_final at 5e-5 of
     # its magnitude.
-    for S in (300, 1):
-        x, a, b, c, h0 = ssd_inputs(torch, randn, 2, S, 3, 64, 16, mix=True)
-        y, hf = ssd_scan(x, a, b, c, h0, chunk=256)
+    # (B, S, H, P, N), chunk, h0: many chunks, S = Q + 1, one step, and
+    # other head and state widths (P 100 takes the unvectorised loads)
+    for (B, S, H, P, N), chunk, with_h0 in [
+            ((2, 300, 3, 64, 16), 256, True), ((2, 300, 3, 64, 16), 256, False),
+            ((2, 257, 3, 64, 16), 256, True), ((2, 1, 3, 64, 16), 256, True),
+            ((2, 1, 3, 64, 16), 256, False), ((1, 130, 2, 128, 64), 64, True),
+            ((2, 96, 3, 16, 8), 32, False), ((1, 70, 2, 100, 32), 64, True)]:
+        x, a, b, c, h0 = ssd_inputs(torch, randn, B, S, H, P, N, mix=True)
+        h0 = h0 if with_h0 else None
+        y, hf = ssd_scan(x, a, b, c, h0, chunk=chunk)
+        case = f"ssd_scan mix {(B, S, H, P, N)} chunk {chunk} h0 {with_h0}"
         for plain_name, (py, ph) in (("sequential", ref.ssd_scan(x, a, b, c, h0)),
-                                     ("chunked", ssd_scan_chunked(x, a, b, c, h0, chunk=256))):
-            close(y, py, "bfloat16", f"ssd_scan mix S {S} vs {plain_name} y")
-            ssd_state_close(hf, ph, f"ssd_scan mix S {S} vs {plain_name} h_final")
+                                     ("chunked", ssd_scan_chunked(x, a, b, c, h0, chunk=chunk))):
+            close(y, py, "bfloat16", f"{case} vs {plain_name} y")
+            ssd_state_close(hf, ph, f"{case} vs {plain_name} h_final")
+        if S > 1:  # the tensor-core output pass against its arithmetic in f32
+            scheme_close(y, ref.ssd_scan_bf16_scheme(x, a, b, c, h0, chunk=chunk)[0], case)
     torch.cuda.synchronize()
     print("[kernels] ssd_scan sweep passed (f32 5e-5 vs sequential and chunked; "
-          "bf16/f32 mix: y 2e-2, h_final 5e-5 relative)", flush=True)
+          "bf16/f32 mix: y 2e-2, h_final 5e-5 relative, y within its output rounding of "
+          "the bf16 scheme in f32)", flush=True)
 
 
 def ssd_inputs(torch, randn, B, S, H, P, N, mix=False):
@@ -274,9 +329,27 @@ def rmsnorm_record(torch, randn, rows: int, d: int, what: str) -> dict:
     xd = randn(4, d, dtype=torch.bfloat16)
     err = max(err, close(rmsnorm(xd, sc), ref.rmsnorm(xd, sc), "bfloat16", f"rmsnorm {what} decode"))
     n = rows * d
+    rmsnorm.last_plan = None
+    ms = time_ms([lambda x=x: rmsnorm(x, sc) for x in xs])
+    plan = rmsnorm.last_plan  # as the wrapper launched it in the timed calls
+    print(f"[kernels] rmsnorm plan at {what} ({rows}, {d}): {plan}", flush=True)
+    need(plan is not None and plan.vec == 8, f"rmsnorm {what}: not the vector path: {plan}")
+    # Device time alone, against F.rms_norm's, in turns: the eager calls
+    # timed below are host-bound at these sizes.  Then a decode step's rows.
+    dev = {}
+    xds = [randn(4, d, dtype=torch.bfloat16) for _ in range(8)]
+    for r in range(2):
+        for rs, xx in (("", xs), (" decode rows", xds)):
+            dev.setdefault("kernel" + rs, []).append(
+                sum(device_us([lambda x=x: rmsnorm(x, sc) for x in xx]).values()))
+            dev.setdefault("F.rms_norm" + rs, []).append(
+                sum(device_us([lambda x=x: F.rms_norm(x, (d,), sc, 1e-5) for x in xx]).values()))
+    print(f"[kernels] rmsnorm device us a call at {what} ({rows}, {d}) and (4, {d}), two "
+          f"rounds: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in dev.items()),
+          flush=True)
     return finish(dict(
         name="rmsnorm", shape=f"x ({rows}, {d}) bf16 [{what}]", max_abs_err=err,
-        ms=time_ms([lambda x=x: rmsnorm(x, sc) for x in xs]),
+        plan=plan._asdict(), device_us=dev, ms=ms,
         plain_ms=time_ms([lambda x=x: ref.rmsnorm(x, sc) for x in xs]),
         library_ms=time_ms([lambda x=x: F.rms_norm(x, (d,), sc, 1e-5) for x in xs]),
         bytes_ms=(2 * n + d) * 2 / PEAK_BYTES * 1e3, ops_ms=4 * n / PEAK_F32 * 1e3))
@@ -316,11 +389,12 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str) -> dict:
 
 
 def scheme_close(got, want32, what: str) -> None:
-    """The bf16 flash kernel against its own arithmetic in f32 (the plain
-    ``ref.attention_bf16_scheme``): within the kernel's one rounding of the
-    output to bf16 (half an ulp, at most 2^-8 of the value) plus
-    ``SCHEME_ATOL`` of max|out| for f32 summation order, far below the
-    output's typical size; the bf16 sweep's 2e-2 is not."""
+    """A bf16 tensor-core kernel against its own arithmetic in f32 (the plain
+    ``ref.attention_bf16_scheme`` for flash attention,
+    ``ref.ssd_scan_bf16_scheme`` for the scan's output pass): within the
+    kernel's one rounding of the output to bf16 (half an ulp, at most 2^-8
+    of the value) plus ``SCHEME_ATOL`` of max|out| for f32 summation order,
+    far below the output's typical size; the bf16 sweep's 2e-2 is not."""
     d = (got.float() - want32).abs()
     lim = SCHEME_RTOL * want32.abs() + SCHEME_ATOL * want32.abs().max()
     ratio = (d / lim).max().item()
@@ -370,6 +444,7 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str) -> dict:
 def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> dict:
     """The SSD scan at a serving shape, in the bf16 model's dtype mix.  No
     single PyTorch call computes it, so ``library_ms`` is None."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels.chunked import ssd_scan_chunked
     from repro_torch.kernels.ssm_scan import ssd_scan
 
@@ -383,9 +458,14 @@ def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> 
     sets += [one_set() for _ in range(min(63, -(-64 * 2**20 // nbytes(*sets[0]))))]
     x, a, b, c, h0 = sets[0]
     y, hf = ssd_scan(x, a, b, c, h0, chunk=chunk)
-    py, ph = ssd_scan_chunked(x, a, b, c, h0, chunk=chunk)
-    err = close(y, py, "bfloat16", f"ssd_scan {what} y")
-    ssd_state_close(hf, ph, f"ssd_scan {what} h_final")
+    err = 0.0
+    for plain_name, (py, ph) in (("chunked", ssd_scan_chunked(x, a, b, c, h0, chunk=chunk)),
+                                 ("sequential", ref.ssd_scan(x, a, b, c, h0))):
+        err = max(err, close(y, py, "bfloat16", f"ssd_scan {what} vs {plain_name} y"))
+        ssd_state_close(hf, ph, f"ssd_scan {what} vs {plain_name} h_final")
+    if S > 1:  # the tensor-core output pass against its arithmetic in f32
+        scheme_close(y, ref.ssd_scan_bf16_scheme(x, a, b, c, h0, chunk=chunk)[0],
+                     f"ssd_scan {what}")
     # Operations of the causal form this run's chunks need: per (batch,
     # head) and chunk of L steps, L(L+1)/2 gate entries of 2N flops and
     # their product with X (2P flops each), and 2LPN flops each for the
@@ -395,11 +475,25 @@ def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> 
     lens = [min(Q, S - s0) for s0 in range(0, S, Q)]
     flops = B * H * sum(L * (L + 1) * (N + P) + 4 * L * P * N for L in lens)
     reps, inner = (5, 3) if S > 1 else (7, 10)
+    ssd_scan.last_grid = None
+    ms = time_ms([lambda s=s: ssd_scan(*s, chunk=chunk) for s in sets], reps, inner)
+    grid = ssd_scan.last_grid  # as the wrapper launched it in the timed calls
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[kernels] ssd_scan grids at {what}: (chunk states, carry, outputs) = {grid} "
+          f"blocks on {n_sm} SMs (as launched; (0, 0, n) is the single-step kernel)", flush=True)
+    need(grid is not None and (S == 1) == (grid[:2] == (0, 0)),
+         f"ssd_scan {what}: grid {grid} is not the {'step' if S == 1 else 'chunked'} path's")
+    need(S == 1 or min(grid[0], grid[2]) > 2 * n_sm,
+         f"ssd_scan {what}: grids {grid} do not exceed twice the {n_sm} SMs")
+    dev = device_us([lambda s=s: ssd_scan(*s, chunk=chunk) for s in sets], 10 if S > 1 else 30)
+    print(f"[kernels] ssd_scan device us a call at {what}: {sum(dev.values()):.2f} ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(dev.items(), key=lambda kv: -kv[1]))
+          + ")", flush=True)
     return finish(dict(
-        name="ssd_scan", max_abs_err=err,
+        name="ssd_scan", max_abs_err=err, grid=list(grid), device_us=dev,
         shape=f"x ({B},{S},{H},{P}) bf16, a f32, b ({B},{S},{H},{N}) f32, c bf16, "
               f"chunk {chunk}, h0 {'f32' if with_h0 else 'none'} [{what}]",
-        ms=time_ms([lambda s=s: ssd_scan(*s, chunk=chunk) for s in sets], reps, inner),
+        ms=ms,
         plain_ms=time_ms([lambda s=s: ssd_scan_chunked(*s, chunk=chunk) for s in sets],
                          reps, inner),
         library_ms=None,
@@ -612,6 +706,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu", "src/repro/kernels/ssm_scan.py:25"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+EXTRAS = ("grid", "plan", "device_us")
 
 
 def main() -> int:
@@ -647,9 +742,8 @@ def main() -> int:
          "launches": sum(by_path[arch][name] for arch in PATHS),
          **{k: recs[name][0][k] for k in TIMES},
          "launches_by_path": {arch: by_path[arch][name] for arch in PATHS},
-         "more_shapes": [{k: r[k] for k in TIMES + ("grid",) if k in r}
-                         for r in recs[name][1:]],
-         **({"grid": recs[name][0]["grid"]} if "grid" in recs[name][0] else {})}
+         "more_shapes": [{k: r[k] for k in TIMES + EXTRAS if k in r} for r in recs[name][1:]],
+         **{k: recs[name][0][k] for k in EXTRAS if k in recs[name][0]}}
         for name in SOURCES]}
     print(json.dumps(line))
     print(card)

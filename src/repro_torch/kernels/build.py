@@ -104,14 +104,19 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
 
 
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def dtype_code(t: torch.Tensor) -> int:
     """The kernels' dtype code: 0 = float32, 1 = bfloat16."""
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if t.dtype not in codes:
+    code = _DTYPE_CODES.get(t.dtype)
+    if code is None:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
-    return codes[t.dtype]
+    return code
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer-sized int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a pointer-sized int.
+    PyTorch's own launchers read it with this call; the public route builds a
+    Stream object first, several microseconds a launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -2,23 +2,37 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/rmsnorm.py::rmsnorm.
 //   y = x * rsqrt(mean(x^2, -1) + eps) * scale, sum of squares in f32,
-//   written in x's dtype.
+//   written in x's dtype, in the reference's product order (x * r) * scale.
 //
-// Bound on the card: bytes.  Each row is read once for the sum of squares and
-// once more for the normalise (the second read hits L1: a 2048-wide bf16 row
-// is 4 KB), and written once; the arithmetic is a few f32 operations per
-// element.  Design: one block of 256 threads per row, neighbouring threads on
-// neighbouring elements (coalesced), a warp-shuffle tree for the sum, and no
-// shared memory beyond the eight warp partials.  The feature dim stays whole
-// in one block, as the TPU kernel keeps it whole in VMEM.  Scalar loads keep
-// it simple; vector loads are a later change.
+// Bound on the card: bytes.  Each row is read once and written once; the
+// arithmetic is a few f32 operations per element.  Design: the vector path
+// reads and writes 16 bytes a thread (8 bf16 or 4 f32), x, y and scale
+// alike, scale in its own dtype.  A row is cut across a team of TPR threads
+// (a power of two: part of a warp, a warp, or a few warps), each holding
+// VPT 16-byte vectors of the row in registers (VPT is a template parameter,
+// so the array stays in registers) from the load, through the sum of
+// squares, to the normalise: x is read from device memory once and every
+// load of a thread is issued before the first is used.  Neighbouring
+// threads hold neighbouring vectors, so each access is coalesced.  A block
+// holds several rows (ROWS = threads / TPR), so narrow rows still fill a
+// block.  The team's sum is a shuffle tree, plus one shared-memory step
+// when a team spans warps.  The grid is at most the blocks the card holds
+// at once (the occupancy API, at the kernel's register count), and each
+// block steps through its share of the rows: no second, partial wave.  The
+// host plans the launch (kernels/rmsnorm.py::rmsnorm_plan): vector width,
+// vectors per thread, threads and rows per block; a decode step's few rows
+// get a block each.  Where a vector cannot be used (d not a multiple of the
+// vector width, or x, y or scale not 16-byte aligned), the scalar path runs:
+// one block of 256 threads per row with 2- or 4-byte loads, the row read
+// twice (the second read from L1).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kScalarThreads = 256;
+constexpr int kMaxVecThreads = 256;  // and at most 16 vectors a thread
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -28,6 +42,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
+// ---- scalar path: any d, any alignment ------------------------------------
+
 __device__ __forceinline__ float block_sum(float v, float* warp_part) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -35,49 +51,213 @@ __device__ __forceinline__ float block_sum(float v, float* warp_part) {
   __syncthreads();
   float t = 0.f;
   #pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) t += warp_part[w];
+  for (int w = 0; w < kScalarThreads / 32; ++w) t += warp_part[w];
   return t;
 }
 
 template <typename TX, typename TS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kScalarThreads)
 rmsnorm_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
                TX* __restrict__ y, int d, float eps) {
-  __shared__ float warp_part[kThreads / 32];
+  __shared__ float warp_part[kScalarThreads / 32];
   const int64_t row = blockIdx.x;
   const TX* xr = x + row * d;
   TX* yr = y + row * d;
   float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
+  for (int i = threadIdx.x; i < d; i += kScalarThreads) {
     const float v = to_f(xr[i]);
     ss += v * v;
   }
   const float var = block_sum(ss, warp_part) / static_cast<float>(d);
   const float r = rsqrtf(var + eps);
-  for (int i = threadIdx.x; i < d; i += kThreads) {
+  for (int i = threadIdx.x; i < d; i += kScalarThreads) {
     yr[i] = from_f<TX>((to_f(xr[i]) * r) * to_f(scale[i]));
   }
 }
 
+// ---- vector path: 16-byte accesses, the row in registers ------------------
+
+// The V = 16 / sizeof(T) elements of one 16-byte vector, as f32.
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+}
+// bf16 -> f32 is a shift into the high half (no address taken, so nothing
+// leaves the registers).
+__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  unpack2(u.x, f[0], f[1]); unpack2(u.y, f[2], f[3]);
+  unpack2(u.z, f[4], f[5]); unpack2(u.w, f[6], f[7]);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo)))
+         | (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
+}
+
+// V scale elements from element e (16-byte aligned in bytes of x's vector:
+// 8 bf16 scale = one uint4, 8 f32 = two, 4 f32 = one, 4 bf16 = one uint2).
+template <typename TS, int V>
+__device__ __forceinline__ void load_scale(const TS* __restrict__ s, int e, float (&f)[V]) {
+  if constexpr (sizeof(TS) * V == 8) {  // 4 bf16
+    const uint2 u = *reinterpret_cast<const uint2*>(s + e);
+    unpack2(u.x, f[0], f[1]);
+    unpack2(u.y, f[2], f[3]);
+  } else {
+    #pragma unroll
+    for (int h = 0; h < static_cast<int>(sizeof(TS) * V / 16); ++h) {
+      const uint4 u = reinterpret_cast<const uint4*>(s + e)[h];
+      constexpr int W = 16 / sizeof(TS);
+      float g[W];
+      unpack(u, g);
+      #pragma unroll
+      for (int k = 0; k < W; ++k) f[h * W + k] = g[k];
+    }
+  }
+}
+
+// tpr: threads per row, a power of two; the block holds blockDim.x / tpr
+// rows at a time and steps through its share of the rows (the grid is at
+// most what the card holds at once, so no block waits for a second wave).
+// VPT: 16-byte vectors per thread (a row has at most VPT * tpr).
+template <typename TX, typename TS, int VPT>
+__global__ void __launch_bounds__(kMaxVecThreads)
+rmsnorm_vec_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
+                   TX* __restrict__ y, int n, int d, int tpr, float eps) {
+  constexpr int V = 16 / sizeof(TX);
+  __shared__ float warp_part[kMaxVecThreads / 32];
+  const int lane_r = threadIdx.x & (tpr - 1), rows = blockDim.x / tpr, nv = d / V;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * rows; base < n;
+       base += static_cast<int64_t>(gridDim.x) * rows) {  // the same count for every thread
+    const int64_t row = base + threadIdx.x / tpr;
+    const bool live = row < n;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+    uint4 v[VPT];
+    #pragma unroll
+    for (int k = 0; k < VPT; ++k) {  // every load issued before the first use
+      const int i = lane_r + k * tpr;
+      v[k] = live && i < nv ? xr[i] : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float ss = 0.f;
+    #pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      float f[V];
+      unpack(v[k], f);
+      #pragma unroll
+      for (int e = 0; e < V; ++e) ss = fmaf(f[e], f[e], ss);
+    }
+    // The team's sum: shuffles within a warp (a team of tpr <= 32 lanes is
+    // an aligned run of lanes, so xor offsets below tpr stay inside it),
+    // then the team's warps through shared memory.
+    for (int o = (tpr < 32 ? tpr : 32) >> 1; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (tpr > 32) {
+      const int warp = threadIdx.x >> 5, per_row = tpr >> 5;
+      if ((threadIdx.x & 31) == 0) warp_part[warp] = ss;
+      __syncthreads();
+      ss = 0.f;
+      const int w0 = (warp / per_row) * per_row;
+      for (int w = 0; w < per_row; ++w) ss += warp_part[w0 + w];
+      __syncthreads();  // read before the next rows rewrite it
+    }
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    if (live) {
+      uint4* yr = reinterpret_cast<uint4*>(y + row * d);
+      #pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int i = lane_r + k * tpr;
+        if (i < nv) {
+          float f[V], s[V];
+          unpack(v[k], f);
+          load_scale<TS, V>(scale, i * V, s);
+          #pragma unroll
+          for (int e = 0; e < V; ++e) f[e] = (f[e] * r) * s[e];
+          yr[i] = pack(f);
+        }
+      }
+    }
+  }
+}
+
+// Blocks of the vector kernel the card holds at once: its SMs times what one
+// SM holds at this block size (registers decide it), found once a block size.
+template <typename TX, typename TS, int VPT>
+int resident_blocks(int threads) {
+  static int sms = 0, cached_threads = 0, per_sm = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  if (threads != cached_threads) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, rmsnorm_vec_kernel<TX, TS, VPT>, threads, 0) != cudaSuccess)
+      per_sm = 0;
+    cached_threads = threads;
+  }
+  return sms * per_sm;
+}
+
 template <typename TX, typename TS>
-int launch(const void* x, const void* scale, void* y, int n, int d, float eps,
-           cudaStream_t stream) {
-  rmsnorm_kernel<TX, TS><<<n, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TS*>(scale), static_cast<TX*>(y), d, eps);
+int launch(const void* x, const void* scale, void* y, int n, int d, float eps, int vec,
+           int vpt, int threads, int rows, cudaStream_t stream) {
+  const TX* xp = static_cast<const TX*>(x);
+  const TS* sp = static_cast<const TS*>(scale);
+  TX* yp = static_cast<TX*>(y);
+  if (vec == 1) {
+    if (threads != kScalarThreads || rows != 1) return static_cast<int>(cudaErrorInvalidValue);
+    rmsnorm_kernel<TX, TS><<<n, kScalarThreads, 0, stream>>>(xp, sp, yp, d, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int tpr = threads / rows;
+  if (vec != static_cast<int>(16 / sizeof(TX)) || d % vec || rows < 1 || threads % rows
+      || (tpr & (tpr - 1)) || threads > kMaxVecThreads || threads % 32
+      || static_cast<int64_t>(vpt) * tpr * vec < d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int needed = (n + rows - 1) / rows;
+#define RMS_VEC(K)                                                                      \
+  case K: {                                                                             \
+    const int held = resident_blocks<TX, TS, K>(threads);                               \
+    rmsnorm_vec_kernel<TX, TS, K><<<held > 0 && held < needed ? held : needed, threads, 0, \
+                                    stream>>>(xp, sp, yp, n, d, tpr, eps);              \
+    break;                                                                              \
+  }
+  switch (vpt) {
+    RMS_VEC(1) RMS_VEC(2) RMS_VEC(4) RMS_VEC(8) RMS_VEC(16)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RMS_VEC
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype codes: 0 = float32, 1 = bfloat16.  vec: elements per access (1 for
+// the scalar path; else 16 bytes' worth); vpt: vectors per thread; threads
+// and rows: per block.  Returns a cudaError_t.
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* y, int n, int d,
-                           float eps, int x_dtype, int s_dtype, void* stream) {
+                           float eps, int x_dtype, int s_dtype, int vec, int vpt, int threads,
+                           int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
-  if (x_dtype == 0 && s_dtype == 0) return launch<float, float>(x, scale, y, n, d, eps, s);
-  if (x_dtype == 0 && s_dtype == 1) return launch<float, __nv_bfloat16>(x, scale, y, n, d, eps, s);
-  if (x_dtype == 1 && s_dtype == 0) return launch<__nv_bfloat16, float>(x, scale, y, n, d, eps, s);
+  if (x_dtype == 0 && s_dtype == 0)
+    return launch<float, float>(x, scale, y, n, d, eps, vec, vpt, threads, rows, s);
+  if (x_dtype == 0 && s_dtype == 1)
+    return launch<float, __nv_bfloat16>(x, scale, y, n, d, eps, vec, vpt, threads, rows, s);
+  if (x_dtype == 1 && s_dtype == 0)
+    return launch<__nv_bfloat16, float>(x, scale, y, n, d, eps, vec, vpt, threads, rows, s);
   if (x_dtype == 1 && s_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, y, n, d, eps, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, y, n, d, eps, vec, vpt, threads,
+                                                 rows, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,7 +6,9 @@ each CUDA kernel is held against them on the card.  Conventions kept from the
 reference: masks use -1e30 (not -inf), math is f32 with a cast back to the
 input dtype, and query head h reads KV head ``h // g``.  ``ssd_scan`` is the
 sequential oracle of the SSD scan; the plain version the CPU path runs is
-``chunked.ssd_scan_chunked``.
+``chunked.ssd_scan_chunked``.  The ``*_bf16_scheme`` functions are the
+arithmetic of a kernel's bf16 tensor-core path, in f32, to hold that kernel
+to within its output rounding.
 """
 
 from __future__ import annotations
@@ -53,6 +55,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
+def _split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A bf16 high part and the bf16 of the remainder, both as f32."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
 def attention_bf16_scheme(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int | None = None,
                           kv_offset: int = 0, bk: int = 64) -> torch.Tensor:
@@ -84,9 +92,8 @@ def attention_bf16_scheme(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mx = torch.maximum(m, s.amax(-1))
         alpha, p = torch.exp2(m - mx), torch.exp2(s - mx[..., None])
         l = l * alpha + p.sum(-1)
-        hi = p.bfloat16().float()
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", hi + (p - hi).bfloat16().float(), vf[:, k0:k0 + bk])
+        hi, lo = _split_bf16(p)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", hi + lo, vf[:, k0:k0 + bk])
         m = mx
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
@@ -135,3 +142,62 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         h = h * af[:, t, :, None, None] + xf[:, t, :, :, None] * bf[:, t, :, None, :]
         ys.append(torch.einsum("bhpn,bhn->bhp", h, cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssd_scan_bf16_scheme(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         h0: torch.Tensor | None = None, *, chunk: int = 256, tile: int = 64
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan in the arithmetic of the kernel's bf16-x path (the output
+    pass on the tensor cores), in f32.  As ``chunked.ssd_scan_chunked``
+    (chunk states and the carry in f32), except that each product of the
+    output pass takes bf16 operands: an f32 operand is a bf16 high part plus
+    the bf16 of its remainder, and the low-by-low product is dropped:
+    C.B^T = C_hi B_hi + C_hi B_lo + C_lo B_hi, the inter-chunk C.h likewise
+    with the chunk's start state, and the gate G (f32) times X as
+    (G_hi + G_lo) X.  The output pass works in tiles of ``tile`` steps.  On
+    a t row's own tile the gate is (C.B^T) exp(cum_t - cum_s).  For an
+    earlier s tile the decay goes through that tile's last step r: B's row
+    is first scaled by exp(cum_r - cum_s), then split, and the product is
+    scaled by exp(cum_t - cum_r).  Returns y in f32, before the kernel's one
+    rounding to x's dtype, and h_final (f32)."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    xf, af, bf, cf = (t.float() for t in (x, a, b, c))
+    pad = -S % Q
+    if pad:  # a = 1 and zeros past S: what a chunk that ends at S computes
+        xf, bf, cf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, bf, cf))
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad), value=1.0)
+    G = xf.shape[1] // Q
+    xf, bf, cf = (t.reshape(B, G, Q, H, -1) for t in (xf, bf, cf))
+    cum = torch.cumsum(torch.log(torch.clamp(af, min=1e-37)).reshape(B, G, Q, H), dim=2)
+    total = cum[:, :, -1]
+    w = torch.exp(total[:, :, None] - cum)
+    h_in = torch.einsum("bgqh,bgqhn,bgqhp->bghpn", w, bf, xf)
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    starts = []
+    for g in range(G):
+        starts.append(h)
+        h = h * torch.exp(total[:, g])[..., None, None] + h_in[:, g]
+
+    def dots(bv):  # C.B^T of split operands: (B,G,t,s,H)
+        (c_hi, c_lo), (b_hi, b_lo) = _split_bf16(cf), _split_bf16(bv)
+        return sum(torch.einsum("bgthn,bgshn->bgtsh", u, v)
+                   for u, v in ((c_hi, b_hi), (c_hi, b_lo), (c_lo, b_hi)))
+
+    i = torch.arange(Q, device=x.device)
+    same = (i[:, None] // tile == i[None, :] // tile) & (i[None, :] <= i[:, None])
+    earlier = i[:, None] // tile > i[None, :] // tile
+    ref_s = cum[:, :, torch.clamp((i // tile + 1) * tile - 1, max=Q - 1)]  # cum_r for each s
+    gate = dots(bf) * torch.exp((cum[:, :, :, None] - cum[:, :, None, :]).masked_fill(
+        ~same[None, None, :, :, None], float("-inf")))
+    gate = gate + dots(bf * torch.exp(ref_s - cum)[..., None]) * torch.exp(
+        (cum[:, :, :, None] - ref_s[:, :, None, :]).masked_fill(
+            ~earlier[None, None, :, :, None], float("-inf")))
+    g_hi, g_lo = _split_bf16(gate)
+    (c_hi, c_lo), (h_hi, h_lo) = _split_bf16(cf), _split_bf16(torch.stack(starts, dim=1))
+    y = (torch.einsum("bgtsh,bgshp->bgthp", g_hi, xf) + torch.einsum("bgtsh,bgshp->bgthp", g_lo, xf)
+         + sum(torch.einsum("bgthn,bghpn->bgthp", u, v)
+               for u, v in ((c_hi, h_hi), (c_hi, h_lo), (c_lo, h_hi))) * torch.exp(cum)[..., None])
+    return y.reshape(B, -1, H, P)[:, :S], h

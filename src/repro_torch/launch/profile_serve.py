@@ -30,10 +30,11 @@ from ..models import init_params
 from ..runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 
 # Kernel-name fragments of each group (the port's kernels are named in csrc/).
-GROUPS = (("rmsnorm", ("rmsnorm_kernel",)),
+GROUPS = (("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
           ("flash_attention", ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")),
           ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
-          ("ssd_scan", ("ssd_scan_kernel",)),
+          ("ssd_scan", ("ssd_chunk_state_kernel", "ssd_carry_kernel", "ssd_output_kernel",
+                        "ssd_output_tc_kernel", "ssd_step_kernel")),
           ("matmul", ("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")))
 
 
@@ -44,31 +45,37 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _device_us(prof) -> tuple[float, dict[str, float], list[tuple[str, float, int]]]:
-    """Summed device time of all kernels (us), by group, and the top kernels
-    by device time with their call counts.  Only device-side events count:
-    a host op's row also carries the time of the kernels it launched."""
-    total, groups, rows = 0.0, collections.Counter(), []
+def _device_us(prof) -> tuple[float, dict[str, float], dict[str, int],
+                              list[tuple[str, float, int]]]:
+    """Summed device time of all kernels (us), and by group, the kernels'
+    device time and launches; and the top kernels by device time with their
+    call counts.  Only device-side events count: a host op's row also
+    carries the time of the kernels it launched."""
+    total, groups, counts, rows = 0.0, collections.Counter(), collections.Counter(), []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.self_device_time_total
         total += us
         groups[_group(e.key)] += us
+        counts[_group(e.key)] += e.count
         rows.append((e.key, us, e.count))
     rows.sort(key=lambda r: -r[1])
-    return total, dict(groups), rows[:8]
+    return total, dict(groups), dict(counts), rows[:8]
 
 
 def _report(what: str, bare_s: float, wall_s: float, prof, n: int) -> None:
     """``bare_s``: the same work's wall without the profiler, whose host cost
-    would otherwise count as device idle time."""
-    dev_us, groups, top = _device_us(prof)
+    would otherwise count as device idle time.  Per group: device ms per
+    call, share, and CUDA kernel launches per call with the mean device us
+    per launch."""
+    dev_us, groups, counts, top = _device_us(prof)
     print(f"[profile] {what}: wall {bare_s * 1e3 / n:.3f} ms unprofiled "
           f"({wall_s * 1e3 / n:.3f} ms profiled), kernels {dev_us / n / 1e3:.3f} ms per call; "
           f"device idle share {1 - dev_us / (bare_s * 1e6):.3f}")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {g:17s} {us / n / 1e3:8.3f} ms/call  {us / dev_us:6.1%}")
+        print(f"[profile]   {g:17s} {us / n / 1e3:8.3f} ms/call  {us / dev_us:6.1%}  "
+              f"{counts[g] / n:7.1f} kernels/call, {us / max(counts[g], 1):9.3f} us each")
     for name, us, count in top:
         print(f"[profile]     {us / n / 1e3:8.3f} ms/call  x{count // n:<4d} {name[:90]}")
 

@@ -55,11 +55,17 @@ DECODE_CASES = [  # B, Smax, Hq, Hkv, D, valid length
     # split-K at length: few (b, kvh) pairs, no valid slot, hymba's ring
     (1, 4096, 8, 1, 128, 4000), (1, 4096, 4, 2, 64, 0), (4, 1024, 25, 5, 64, 1024),
 ]
-RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4096, 2048), (4, 3200)]
+RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4096, 2048), (4, 3200),
+                  # the scalar path (d = 100 in bf16), the served widths, a row
+                  # shared by several warps
+                  (5, 100), (6144, 1600), (6144, 3200), (3, 7, 8192)]
 SSD_CASES = ([(shape, chunk) for shape in [(2, 96, 3, 16, 8), (1, 64, 1, 8, 4)]
               for chunk in (16, 32, 40, 96)]   # (B, S, H, P, N), chunk
              + [((2, 100, 3, 16, 8), 32), ((2, 1, 3, 16, 8), 256), ((2, 300, 3, 64, 16), 256),
-                ((1, 70, 2, 100, 32), 64)])
+                ((1, 70, 2, 100, 32), 64),
+                # S = Q + 1, many chunks, the widest head and state, S < Q
+                ((2, 257, 3, 64, 16), 256), ((1, 1000, 2, 64, 16), 64),
+                ((1, 130, 2, 128, 64), 64), ((1, 70, 2, 100, 32), 256)])
 
 
 def tol(name):
@@ -178,6 +184,25 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, name):
     np.testing.assert_allclose(f32(got), f32(ref.rmsnorm(x, s)), **tol(name))
 
 
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rmsnorm_kernel_takes_scale_in_the_other_dtype(cuda, name):
+    x = normal(0, 64, 2048, dtype=DTYPES[name])
+    s = (normal(1, 2048) * 0.1 + 1).to(torch.bfloat16 if name == "float32" else torch.float32)
+    got = rmsnorm(x, s)
+    assert rmsnorm.last_plan.vec == 16 // x.element_size()
+    np.testing.assert_allclose(f32(got), f32(ref.rmsnorm(x, s)), **tol(name))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rmsnorm_kernel_offset_view_takes_the_scalar_path(cuda, name):
+    """A contiguous view with a storage offset is not 16-byte aligned."""
+    flat = normal(0, 1 + 6 * 2048, dtype=DTYPES[name])
+    x, s = flat[1:].view(6, 2048), normal(1, 2048) * 0.1 + 1
+    got = rmsnorm(x, s)
+    assert rmsnorm.last_plan.vec == 1
+    np.testing.assert_allclose(f32(got), f32(ref.rmsnorm(x, s)), **tol(name))
+
+
 def ssd_inputs(B, S, H, P, N, seed=0, device="cuda"):
     """tests/test_kernels.py's distributions: a = sigmoid(normal + 2)."""
     x, a, b, c, h0 = (normal(seed + i, *shape, device=device) for i, shape in
@@ -202,20 +227,44 @@ def test_ssd_scan_kernel_matches_both_plain_versions(cuda, shape, chunk, with_h0
         np.testing.assert_allclose(f32(h), f32(want_h), rtol=5e-5, atol=5e-5)
 
 
-@pytest.mark.parametrize("S", [1, 300])
-def test_ssd_scan_kernel_production_dtype_mix(cuda, S):
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("B,S,H", [(2, 1, 3), (2, 300, 3), (2, 257, 3), (4, 1536, 50)])
+def test_ssd_scan_kernel_production_dtype_mix(cuda, B, S, H, with_h0):
     """x and c bf16 (c a strided slice of a fused projection, as the model
-    passes it), a and b f32, h0 f32: y at bf16's 2e-2, h_final at 5e-5."""
-    x, a, b, c, h0 = ssd_inputs(2, S, 3, 64, 16)
+    passes it), a and b f32, h0 f32: y at bf16's 2e-2, h_final at 5e-5.  The
+    last shape is hymba's served prefill, held to both plain versions."""
+    x, a, b, c, h0 = ssd_inputs(B, S, H, 64, 16)
+    h0 = h0 if with_h0 else None
     bc = torch.cat([b, c], dim=-1).bfloat16()
     c = bc[..., 16:]
     assert not c.is_contiguous()
     x = x.bfloat16()
     y, h = ssd_scan(x, a, b, c, h0, chunk=256)
-    want_y, want_h = ssd_scan_chunked(x, a, b, c, h0, chunk=256)
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
-    np.testing.assert_allclose(f32(y), f32(want_y), rtol=2e-2, atol=2e-2)
-    np.testing.assert_allclose(f32(h), f32(want_h), rtol=5e-5, atol=5e-5)
+    assert (ssd_scan.last_grid[:2] == (0, 0)) == (S == 1)
+    for want_y, want_h in (ssd_scan_chunked(x, a, b, c, h0, chunk=256),
+                           ref.ssd_scan(x, a, b, c, h0)):
+        np.testing.assert_allclose(f32(y), f32(want_y), rtol=2e-2, atol=2e-2)
+        np.testing.assert_allclose(f32(h), f32(want_h), rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("shape,chunk", [((2, 300, 3, 64, 16), 256), ((2, 257, 3, 64, 16), 256),
+                                         ((1, 130, 2, 128, 64), 64), ((1, 70, 2, 100, 32), 64),
+                                         ((2, 96, 3, 16, 8), 32), ((4, 1536, 50, 64, 16), 256)],
+                         ids=str)
+def test_ssd_scan_bf16_kernel_matches_its_scheme(cuda, shape, chunk, with_h0):
+    """bf16 x runs the output pass on the tensor cores: y against that
+    arithmetic in f32 (``ref.ssd_scan_bf16_scheme``), within the kernel's
+    one rounding of y to bf16; c both bf16 and f32."""
+    x, a, b, c, h0 = ssd_inputs(*shape)
+    h0 = h0 if with_h0 else None
+    x = x.bfloat16()
+    for cc in (c.bfloat16(), c):
+        y, _ = ssd_scan(x, a, b, cc, h0, chunk=chunk)
+        want, _ = ref.ssd_scan_bf16_scheme(x, a, b, cc, h0, chunk=chunk)
+        np.testing.assert_allclose(f32(y), f32(want), rtol=2.0 ** -8,
+                                   atol=2.0 ** -12 * want.abs().max().item())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

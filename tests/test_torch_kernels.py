@@ -26,7 +26,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, MIN_SPLIT, decode_attention,
                                                   num_splits, split_plan)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import VPT_CHOICES, rmsnorm, rmsnorm_plan
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -249,3 +249,50 @@ def test_num_splits_never_cuts_below_the_minimum(bh):
             covered = n if not isinstance(cache_len, torch.Tensor) else smax
             assert (splits - 1) * chunk < covered <= splits * chunk
             assert chunk >= min(MIN_SPLIT, covered)
+
+
+# --- RMSNorm's host plan ------------------------------------------------------
+
+@pytest.mark.parametrize("d,elem_bytes,rows", [
+    (2048, 2, 4), (1600, 2, 4), (3200, 2, 2),   # the served widths in bf16 (internlm2, hymba)
+    (2048, 4, 2), (64, 2, 16), (8, 2, 128), (100, 4, 4), (8192, 2, 1), (32768, 2, 1)])
+def test_rmsnorm_plan_takes_the_vector_path_where_it_can(d, elem_bytes, rows):
+    plan = rmsnorm_plan(d, elem_bytes, aligned=True)
+    team = plan.threads // plan.rows
+    assert plan.vec * elem_bytes == 16 and plan.vpt in VPT_CHOICES and plan.rows == rows
+    assert team & (team - 1) == 0 and plan.threads % 32 == 0 and plan.threads <= 256
+    assert plan.vpt * team * plan.vec >= d > (plan.vpt * team * plan.vec) // 2 or plan.vpt == 1
+
+
+@pytest.mark.parametrize("d,elem_bytes,vpt", [(2048, 2, 1), (1600, 2, 1), (3200, 2, 2),
+                                              (2048, 4, 2), (64, 2, 1)])
+def test_rmsnorm_plan_spreads_a_few_rows_over_wide_blocks(d, elem_bytes, vpt):
+    """A decode step's 4 rows: one block a row, as many threads as the row
+    has vectors (up to 256), instead of four rows in one block of 128."""
+    plan = rmsnorm_plan(d, elem_bytes, True, 4)
+    nv = d * elem_bytes // 16
+    team = min(256, 1 << (nv - 1).bit_length())
+    assert plan.vpt == vpt and plan.vec * elem_bytes == 16
+    assert plan.threads == max(32, team) and plan.rows == max(1, 32 // team)
+    assert plan.vpt * plan.threads >= nv
+    assert rmsnorm_plan(d, elem_bytes, True, 4096) == rmsnorm_plan(d, elem_bytes, True)
+
+
+@pytest.mark.parametrize("d,elem_bytes,aligned", [
+    (100, 2, True),      # d not a multiple of 8 bf16
+    (2050, 4, True),     # nor of 4 f32
+    (2048, 2, False),    # a pointer off 16 bytes
+    (65536, 2, True)])   # wider than 256 threads of 16 vectors
+def test_rmsnorm_plan_takes_the_scalar_path_where_it_must(d, elem_bytes, aligned):
+    assert rmsnorm_plan(d, elem_bytes, aligned) == (1, 0, 256, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_offset_view_is_not_aligned(dtype):
+    """A contiguous view with a storage offset starts off 16 bytes, so the
+    plan for it (as the wrapper makes it) is the scalar path."""
+    flat = torch.zeros(1 + 6 * 2048, dtype=dtype)
+    x = flat[1:].view(6, 2048)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert rmsnorm_plan(2048, x.element_size(), x.data_ptr() % 16 == 0).vec == 1
+    np.testing.assert_allclose(f32(rmsnorm(x, torch.ones(2048))), f32(x))

@@ -224,3 +224,27 @@ def test_dispatch_counts_match_the_card_path(monkeypatch):
     srv.generate(np.zeros((2, 4), np.int32), steps)
     assert calls == {"rmsnorm": 49 * (1 + steps), "attention": 24,
                      "decode_attention": 24 * steps}
+
+
+def test_profile_groups_name_every_kernel():
+    """``launch/profile_serve.py`` sorts device time into groups by kernel
+    name: every ``__global__`` function in ``csrc/`` must fall in its own
+    kernel's group, or its time would land in "other"."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.profile_serve import _group
+
+    decl = re.compile(r"__global__\s+void\s+"
+                      r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+)?(\w+)")
+    found = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        names = decl.findall(src.read_text())
+        assert names, src.name
+        found[src.stem] = names
+    want = {"rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
+            "decode_attention": "decode_attention", "ssm_scan": "ssd_scan"}
+    assert set(found) == set(want)
+    for stem, names in found.items():
+        for name in names:
+            assert _group(name) == want[stem], (stem, name)
