@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch/CUDA port's serving and placement paths on one NVIDIA H100
+and check them.
 
     python3 chip_smoke.py
 
@@ -30,8 +31,25 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                (prompt 1024) and hymba-1.5B's hybrid attention+SSM blocks
                (prompt 1536: past the 1024 window, so the window mask, a ring
                roll and decode wrapping the ring all run).
-  5. report  — a ``kernels`` JSON line, the card line, and as the last line
+  5. place   — the paper's placement path.  With every launch count set to 0:
+               the batched ``ould-dp-sparse`` planner on the card
+               (``batch_solve=True``) on the S7 swarm (LeNet, N = 1024,
+               1024 requests; benchmarks/bench_swarm.py) and on VGG-16 at
+               N = 256, then LeNet and VGG-16 placed by ``ould-dp`` across
+               at least two nodes a request and run by ``ExecutionEngine`` on
+               four 326×595×3 frames; the counts are read just after.  Then
+               the gates: the batched plans equal the sequential planner's
+               (admission, assignment, objective), the DP sweep kernel equals
+               its plain version bit for bit on both instances' first-launch
+               rows (also with infeasible candidates, with and without
+               compute cost), the placed outputs match the sequential run on
+               the card and one frame the CPU run; and the walls, the sweep's
+               times and bound, per-stage walls and the calibrated re-solve's
+               MAE are printed.
+  6. report  — a ``kernels`` JSON line, the card line, and as the last line
                ``{"ok": true, "device": {...}}``.
+
+Each phase prints the seconds it took.
 
 Imports nothing of the JAX package and no jax.
 """
@@ -62,17 +80,39 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 SEED = 0
 STEPS = 64
+# H100 SXM f64 peak outside the tensor cores (NVIDIA's data sheet: 34
+# TFLOP/s) for the DP sweep's bound; it counts an FMA as two operations, the
+# sweep's unfused multiply, adds and compares as one each.
+PEAK_F64 = 34e12
 # Serving paths: batch, prompt, and the exact launches of one generate of
 # STEPS steps (one prefill + STEPS decode steps; a norm per layer for norm1
 # and norm2, one more for a hybrid layer's SSM, and the final norm).
 PATHS = {
     "internlm2_1p8b": dict(B=4, S=1024, launches={
         "rmsnorm": (2 * 24 + 1) * (1 + STEPS), "flash_attention": 24,
-        "decode_attention": 24 * STEPS, "ssd_scan": 0}),
+        "decode_attention": 24 * STEPS, "ssd_scan": 0, "dp_sweep": 0}),
     "hymba_1p5b": dict(B=4, S=1536, launches={
         "rmsnorm": (3 * 32 + 1) * (1 + STEPS), "flash_attention": 32,
-        "decode_attention": 32 * STEPS, "ssd_scan": 32 * (1 + STEPS)}),
+        "decode_attention": 32 * STEPS, "ssd_scan": 32 * (1 + STEPS), "dp_sweep": 0}),
 }
+# The placement path.  Swarm instances for the batched DP, in the regime of
+# benchmarks/bench_swarm.py's S7 (snapshot_problem: a provisioned swarm of
+# 8 x 512 MB nodes over 300 m, requests from hotspot nodes, seed 0):
+# model, N, requests, hotspots, compute budget a node.  LeNet at N = 1024 is
+# S7's own instance (the paper's 95 GFLOP window).  VGG-16 gets 8 windows,
+# provisioned like the memory: one 326x595 frame is 117 GFLOP, so at one
+# window no node holds a frame's compute and the solve leaves S7's regime.
+SWARMS = {"lenet N1024 (S7)": ("lenet", 1024, 1024, 64, 95e9),
+          "vgg16 N256": ("vgg16", 256, 256, 32, 8 * 95e9)}
+# Placed execution: four frames from two camera nodes over a pool whose
+# per-node memory is below the model's total, so every request spans two
+# nodes or more (LeNet 108 MB, VGG-16 1003 MB of which 480 MB is the folded
+# head).  Compute capacity is set out of the way: one VGG-16 frame at
+# 326x595 is 117 GFLOP, past a paper node's 95 GFLOP window.
+PLACED = {"lenet": dict(nodes=10, mem=96e6), "vgg16": dict(nodes=16, mem=600e6)}
+FRAMES, FRAME_HW = 4, (326, 595, 3)
+EXEC_REL = 1e-4   # placed vs sequential, and card vs CPU, x max|ref| (f32 sums)
+
 # Kernel-path vs plain-path logits gate in bf16, max|d| / max|plain| at
 # prefill and every step.  Both paths round the same f32 results to bf16, so
 # they differ by an ulp where summation order moves a value across a rounding
@@ -573,10 +613,6 @@ def serve_phase(torch, arch: str) -> dict:
     """One full-width generate with exact launch counts, then the kernel path
     against the plain path (and, for information, the plain path in f32)."""
     from repro_torch import configs as C
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.kernels.ssm_scan import ssd_scan
     from repro_torch.models import init_params
     from repro_torch.runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 
@@ -594,8 +630,7 @@ def serve_phase(torch, arch: str) -> dict:
     srv = Server(cfg, params, ServeConfig(max_len=max_len, batch_size=B), device="cuda")
 
     srv.generate(prompts, steps=2)  # warm-up: first cuBLAS calls at these shapes
-    kernels = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-               "decode_attention": decode_attention, "ssd_scan": ssd_scan}
+    kernels = all_kernels()
     for fn in kernels.values():
         fn.n_launches = 0
     torch.cuda.synchronize()
@@ -697,6 +732,259 @@ def _tree_map(tree, fn):
     return fn(tree)
 
 
+def all_kernels() -> dict:
+    """Every kernel wrapper by name (each counts its launches)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.dp_sweep import dp_sweep
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssm_scan import ssd_scan
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "decode_attention": decode_attention, "ssd_scan": ssd_scan, "dp_sweep": dp_sweep}
+
+
+def swarm_problem(model: str, n: int, requests: int, hotspots: int, comp: float):
+    """benchmarks/common.py::snapshot_problem at mem 8 x 512 MB, area 300 m,
+    seed SEED: RPG positions, the paper's radio, requests from hotspots."""
+    from repro_torch import core as C
+    mob = C.RPGMobility(C.RPGParams(n_uavs=n, area_m=300.0, homogeneous=True), seed=SEED)
+    rng = np.random.default_rng(SEED)
+    sources = rng.integers(0, min(hotspots, n), requests).astype(np.int64)
+    return C.Problem(C.lenet_profile() if model == "lenet" else C.vgg16_profile(),
+                     np.full(n, 8 * 512e6), np.full(n, comp),
+                     C.rate_matrix(mob.positions(1, seed=SEED)[0], C.RadioParams()),
+                     sources, compute_speed=np.full(n, 9.5e9))
+
+
+def first_rows(prob) -> dict:
+    """The rows of a batched solve's first launch (``_place_batch``): each
+    distinct source in order of first arrival, its candidates and
+    feasibility at the full capacities, k = the default sparse budget."""
+    from repro_torch.core import ould
+    spb = prob.transfer_cost()
+    prof = prob.profile
+    consts = ould._sparse_consts(spb, prof.output_vector(), prof.memory_vector(),
+                                 prof.compute_vector())
+    mem_left, comp_left = prob.mem_cap.astype(float), prob.comp_cap.astype(float)
+    head = mem_left / mem_left.max() + comp_left / comp_left.max()
+    srcs = np.array(list(dict.fromkeys(int(s) for s in prob.sources)), np.int64)
+    cand, valid = ould._sparse_select_batch(spb, srcs, mem_left, comp_left, head, consts,
+                                            ould.default_sparse_k(prob.n_nodes))
+    comp = np.array(prof.compute_vector())
+    cc = comp[:, None] / prob.compute_speed[None, :] * prob.horizon()
+    return dict(spb=spb, Kv=consts[0], Ks=float(prof.input_bytes), srcs=srcs, cand=cand,
+                valid=valid, cc=cc)
+
+
+def sweep_args(torch, rows: dict, with_cc: bool, infeasible: float = 0.0) -> tuple:
+    """The sweep's arguments on the card; ``infeasible`` of the candidates
+    lose their feasibility bit (a seeded draw), so their penalty is +inf."""
+    valid = rows["valid"] & (np.random.default_rng(SEED).random(rows["valid"].shape)
+                             >= infeasible)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    return (put(rows["spb"]), put(rows["Kv"]), rows["Ks"], put(rows["srcs"]),
+            put(rows["cand"]), put(valid), put(rows["cc"]) if with_cc else None)
+
+
+def sweep_bound_ms(rows: dict, with_cc: bool) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one sweep over these rows: each input
+    read once (the distinct spb and compute-cost entries the rows gather,
+    sources, candidates, feasibility bits, Kv) and the outputs written once
+    (final costs, back-pointers); a multiply, two or three adds and a compare
+    per (row, layer, a, b), two or three operations per first-layer entry."""
+    spb, cand, srcs = rows["spb"], rows["cand"], rows["srcs"]
+    N = spb.shape[0]
+    S, M, k = cand.shape
+    gathers = [srcs[:, None] * N + cand[:, 0, :]] + [
+        cand[:, j - 1, :, None] * N + cand[:, j, None, :] for j in range(1, M)]
+    n_spb = np.unique(np.concatenate([g.ravel() for g in gathers])).size
+    n_cc = np.unique(np.arange(M)[None, :, None] * N + cand).size if with_cc else 0
+    nbytes = (8 * (n_spb + n_cc + S + S * M * k + (M - 1)) + S * M * k
+              + 8 * S * k + 8 * (M - 1) * S * k)
+    ops = S * (M - 1) * k * k * (4 + with_cc) + S * k * (2 + with_cc)
+    return nbytes / PEAK_BYTES * 1e3, ops / PEAK_F64 * 1e3
+
+
+def sweep_record(torch, rows: dict, what: str) -> dict:
+    """The sweep kernel against its plain version, bit for bit (torch.equal)
+    on these rows as they are and with 30 % of the candidates infeasible,
+    with and without compute cost; then times and bound of the rows as the
+    planner sweeps them (no compute cost).  No single PyTorch call computes
+    a min-plus sweep, so ``library_ms`` is None."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dp_sweep import dp_sweep
+    for with_cc in (False, True):
+        for infeasible in (0.0, 0.3):
+            args = sweep_args(torch, rows, with_cc, infeasible)
+            got, want = dp_sweep(*args), ref.dp_sweep(*args)
+            torch.cuda.synchronize()
+            case = f"dp_sweep {what} cc {with_cc} infeasible {infeasible}"
+            need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                 f"{case}: kernel differs from its plain version (max|d| final "
+                 f"{(got[0] - want[0]).abs().nan_to_num().max().item():.3e}, backs differ at "
+                 f"{int((got[1] != want[1]).sum())} entries)")
+            print(f"[place] {case}: kernel == plain bit for bit (final {tuple(got[0].shape)}, "
+                  f"backs {tuple(got[1].shape)}, {int(got[0].isinf().sum())} inf finals)",
+                  flush=True)
+    args = sweep_args(torch, rows, False)
+    S, M, k = rows["cand"].shape
+    dp_sweep.last_grid = None
+    ms = time_ms([lambda: dp_sweep(*args)], reps=7, inner=50)
+    grid = dp_sweep.last_grid
+    dev = device_us([lambda: dp_sweep(*args)], calls=50)
+    bytes_ms, ops_ms = sweep_bound_ms(rows, False)
+    print(f"[place] dp_sweep at {what}: grid (blocks, k, rows a block) {grid} as launched; "
+          f"device us a call {sum(dev.values()):.2f} ({dev}); bound the larger of bytes / "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s = {bytes_ms * 1e3:.3f} us and f64 operations / "
+          f"{PEAK_F64 / 1e12:.0f} TFLOP/s (H100 SXM, outside the tensor cores) = "
+          f"{ops_ms * 1e3:.3f} us", flush=True)
+    return finish(dict(
+        name="dp_sweep", max_abs_err=0.0, grid=list(grid), device_us=dev,
+        shape=f"{S} rows x {M} layers x k {k}, spb {rows['spb'].shape} f64, "
+              f"no compute cost [{what}]",
+        ms=ms, plain_ms=time_ms([lambda: ref.dp_sweep(*args)], reps=5, inner=5),
+        library_ms=None, bytes_ms=bytes_ms, ops_ms=ops_ms))
+
+
+def placed_setup(torch, model: str) -> dict:
+    """A pool that forces every request across two nodes or more, the
+    ould-dp plan, its stage graph and the engine on the card with weights
+    from a generator seeded SEED."""
+    from repro_torch import core as C
+    from repro_torch import exec as X
+    from repro_torch.models import cnn
+    cfg = PLACED[model]
+    n = cfg["nodes"]
+    prof = C.lenet_profile() if model == "lenet" else C.vgg16_profile()
+    mob = C.RPGMobility(C.RPGParams(n_uavs=n, area_m=100.0, homogeneous=True), seed=SEED)
+    rates = C.rate_matrix(mob.positions(1, seed=SEED)[0], C.RadioParams())
+    prob = C.Problem(prof, np.full(n, cfg["mem"]), np.full(n, 1e13), rates,
+                     np.arange(FRAMES) % 2, compute_speed=np.full(n, 9.5e9))
+    plan = C.get_planner("ould-dp").plan(prob, C.SnapshotView(rates))
+    graph = X.compile_plan(plan)
+    spans = [len(set(a)) for a in plan.assign]
+    print(f"[place] {model}: {n} nodes of {cfg['mem'] / 1e6:.0f} MB (model "
+          f"{sum(prof.memory_vector()) / 1e6:.1f} MB), sources {prob.sources.tolist()}; "
+          f"ould-dp admitted {plan.n_admitted}/{FRAMES}, nodes a request {spans}, tasks "
+          f"{len(graph.tasks)}, shared stages {graph.n_shared}, transfers "
+          f"{len(graph.transfers)}", flush=True)
+    need(plan.n_admitted == FRAMES and min(spans) >= 2,
+         f"{model}: the pool did not force every request across two nodes: {spans}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = (cnn.lenet_init if model == "lenet" else cnn.vgg16_init)(gen, device="cuda")
+    layers = cnn.lenet_layers if model == "lenet" else cnn.vgg16_layers
+    frames = np.random.default_rng(SEED).standard_normal((FRAMES, *FRAME_HW)).astype(np.float32)
+    return dict(prob=prob, plan=plan, graph=graph, params=params, layers=layers,
+                frames=frames, engine=X.ExecutionEngine(layers(params), device="cuda"))
+
+
+def rel_err(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def placed_checks(torch, model: str, run: dict) -> None:
+    """Placed outputs against the sequential run on the card, one frame on
+    the card against the CPU, the walls, and the calibrated re-solve."""
+    from repro_torch import core as C
+    from repro_torch import exec as X
+    from repro_torch.models import cnn
+    report, engine, frames = run["report"], run["engine"], run["frames"]
+    seq = engine.sequential_reference(frames, run["graph"].requests)
+    errs = [rel_err(report.outputs[r], seq[r]) for r in run["graph"].requests]
+    shape = report.outputs[0].shape
+    print(f"[place] {model} placed vs sequential on the card: outputs {shape}, max|d| / "
+          f"max|ref| by request {[f'{e:.2e}' for e in errs]} (gate {EXEC_REL})", flush=True)
+    need(all(np.isfinite(report.outputs[r]).all() for r in report.outputs)
+         and max(errs) <= EXEC_REL, f"{model}: placed outputs off the sequential run")
+    cpu_params = _tree_map(run["params"], lambda t: t.cpu())
+    with torch.inference_mode():
+        cpu = cnn.apply_layers(run["layers"](cpu_params), torch.from_numpy(frames[:1]))[0].numpy()
+    err = rel_err(seq[0], cpu)
+    print(f"[place] {model} one frame, card vs CPU, same weights, TF32 off: max|d| / "
+          f"max|CPU| {err:.2e} (gate {EXEC_REL})", flush=True)
+    need(err <= EXEC_REL, f"{model}: card output off the CPU's")
+    walls = ", ".join(f"node {t.node} units [{t.layer_start},{t.layer_end}) x{t.batch} "
+                      f"{t.wall_s * 1e3:.3f} ms" for t in report.stage_timings)
+    print(f"[place] {model} stage walls: {walls}", flush=True)
+    print(f"[place] {model} executed_s (measured stage walls + modeled links) "
+          f"{[f'{x:.6f}' for x in report.executed_s]}; compute_s "
+          f"{[f'{x:.6f}' for x in report.compute_s]}; transfers' host walls "
+          f"{[f'{t.serialize_s * 1e3:.3f} ms' for t in report.transfers]}", flush=True)
+    cal, recon = X.calibrated_problem(run["prob"], report)
+    replan = C.get_planner("ould-dp").plan(cal, C.SnapshotView(cal.rates))
+    rereport = engine.run(X.compile_plan(replan), frames,
+                          predicted_s=replan.evaluate().per_request_s)
+    mae0 = report.abs_error_s[list(report.outputs)].mean()
+    mae1 = rereport.abs_error_s[list(rereport.outputs)].mean()
+    print(f"[place] {model} {recon.summary()}; predicted-vs-measured MAE "
+          f"{mae0 * 1e3:.3f} ms -> {mae1 * 1e3:.3f} ms after the calibrated re-solve "
+          f"(admitted {replan.n_admitted}/{FRAMES})", flush=True)
+    need(np.isfinite(mae0) and np.isfinite(mae1), f"{model}: MAE not finite")
+
+
+def placement_phase(torch) -> tuple[dict, list]:
+    """The placement path with every launch count at 0, then its gates.
+    Returns the path's launches by kernel and dp_sweep's records."""
+    from repro_torch import core as C
+    probs = {name: swarm_problem(*spec) for name, spec in SWARMS.items()}
+    runs = {model: placed_setup(torch, model) for model in PLACED}
+    batched = {name: C.get_planner("ould-dp-sparse", batch_solve=True, device="cuda")
+               for name in SWARMS}
+    kernels = all_kernels()
+    dp_sweep = kernels["dp_sweep"]
+    for fn in kernels.values():
+        fn.n_launches = 0
+    torch.cuda.synchronize()
+    first, per_solve = {}, {}
+    for name, prob in probs.items():  # the placement path: batched solves ...
+        n0 = dp_sweep.n_launches
+        t0 = time.perf_counter()
+        first[name] = batched[name].plan(prob, C.SnapshotView(prob.rates))
+        per_solve[name] = (dp_sweep.n_launches - n0, time.perf_counter() - t0)
+    for model, run in runs.items():   # ... and placed inference
+        run["report"] = run["engine"].run(
+            run["graph"], run["frames"], predicted_s=run["plan"].evaluate().per_request_s)
+    torch.cuda.synchronize()
+    launches = {name: fn.n_launches for name, fn in kernels.items()}
+    print(f"[place] launches on the placement path: {launches}", flush=True)
+    need(launches["dp_sweep"] > 0 and all(v == 0 for k, v in launches.items() if k != "dp_sweep"),
+         f"placement path launches {launches}")
+
+    for name, prob in probs.items():
+        seq = C.get_planner("ould-dp-sparse")
+        view = C.SnapshotView(prob.rates)
+        ps = seq.plan(prob, view)                        # first call off the clock
+        seq_s, bat_s, n_sweeps = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ps = seq.plan(prob, view)
+            seq_s.append(time.perf_counter() - t0)
+            n0 = dp_sweep.n_launches
+            t0 = time.perf_counter()
+            pb = batched[name].plan(prob, view)
+            bat_s.append(time.perf_counter() - t0)
+            n_sweeps.append(dp_sweep.n_launches - n0)
+            for got in (pb, first[name]):
+                need(np.array_equal(got.admitted, ps.admitted)
+                     and np.array_equal(got.assign, ps.assign) and got.objective == ps.objective,
+                     f"{name}: batched plan differs from the sequential one")
+        st = pb.solve_stats
+        print(f"[place] {name}: batched == sequential (admitted {ps.n_admitted}/"
+              f"{prob.n_requests}, objective {ps.objective!r}); wall min of 3: sequential "
+              f"{min(seq_s) * 1e3:.2f} ms, batched {min(bat_s) * 1e3:.2f} ms (first batched "
+              f"solve {per_solve[name][1] * 1e3:.2f} ms, {per_solve[name][0]} sweeps); "
+              f"n_batched {st.n_batched}/{prob.n_requests}, sweep launches a solve "
+              f"{n_sweeps}, k {st.k}", flush=True)
+
+    recs = [sweep_record(torch, first_rows(prob), name) for name, prob in probs.items()]
+    for model, run in runs.items():
+        placed_checks(torch, model, run)
+    return launches, recs
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -704,6 +992,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:24"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu", "src/repro/kernels/ssm_scan.py:25"),
+    "dp_sweep": ("src/repro_torch/kernels/csrc/dp_sweep.cu", "src/repro/core/batch_dp.py:75"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 EXTRAS = ("grid", "plan", "device_us")
@@ -720,28 +1009,42 @@ def main() -> int:
     from repro_torch.kernels import build
     card = card_line()
     print(card, flush=True)
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"[time] {name} phase {now - t_phase:.1f} s", flush=True)
+        t_phase = now
 
     resolve_device("cuda")  # TF32 off for the plain f32 comparisons
     print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
           f"{build.build_all():.1f} s", flush=True)
     tensor_core_count()
+    phase_done("build")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     recs = kernel_phase(torch, gen)
     torch.cuda.empty_cache()  # the serve phase times prefill: no allocator churn
+    phase_done("kernels")
     by_path = {}
     for arch in PATHS:
         by_path[arch] = serve_phase(torch, arch)
         torch.cuda.empty_cache()
+        phase_done(f"serve {arch}")
+    by_path["placement"], recs["dp_sweep"] = placement_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("place")
     for name in SOURCES:
-        need(any(by_path[arch][name] for arch in PATHS), f"{name} launched on no serving path")
+        need(any(launches[name] for launches in by_path.values()),
+             f"{name} launched on no path")
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": sum(by_path[arch][name] for arch in PATHS),
+         "launches": sum(launches[name] for launches in by_path.values()),
          **{k: recs[name][0][k] for k in TIMES},
-         "launches_by_path": {arch: by_path[arch][name] for arch in PATHS},
+         "launches_by_path": {path: launches[name] for path, launches in by_path.items()},
          "more_shapes": [{k: r[k] for k in TIMES + EXTRAS if k in r} for r in recs[name][1:]],
          **{k: recs[name][0][k] for k in EXTRAS if k in recs[name][0]}}
         for name in SOURCES]}

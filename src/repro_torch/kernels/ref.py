@@ -8,7 +8,8 @@ input dtype, and query head h reads KV head ``h // g``.  ``ssd_scan`` is the
 sequential oracle of the SSD scan; the plain version the CPU path runs is
 ``chunked.ssd_scan_chunked``.  The ``*_bf16_scheme`` functions are the
 arithmetic of a kernel's bf16 tensor-core path, in f32, to hold that kernel
-to within its output rounding.
+to within its output rounding.  ``dp_sweep`` is the placement path's
+batched min-plus sweep, in f64 and in the numpy oracle's operation order.
 """
 
 from __future__ import annotations
@@ -201,3 +202,42 @@ def ssd_scan_bf16_scheme(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: t
          + sum(torch.einsum("bgthn,bghpn->bgthp", u, v)
                for u, v in ((c_hi, h_hi), (c_hi, h_lo), (c_lo, h_hi))) * torch.exp(cum)[..., None])
     return y.reshape(B, -1, H, P)[:, :S], h
+
+
+def dp_sweep(spb: torch.Tensor, Kv: torch.Tensor, Ks: float, srcs: torch.Tensor,
+             cand: torch.Tensor, valid: torch.Tensor, cc: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pruned DP's min-plus sweep for S rows at once, all in f64.
+
+    spb (N, N) seconds per byte; Kv (>= M-1,) the bytes each layer ships;
+    Ks the source frame's bytes; srcs (S,) int64; cand (S, M, k) int64
+    candidate nodes in ascending order; valid (S, M, k) bool; cc (M, N)
+    per-layer compute cost or None.  Returns final (S, k) costs and backs
+    (M-1, S, k) int64 back-pointers.
+
+    Each element is formed in the order of ``repro/core/ould.py::_sparse_run``
+    (``c0 = (Ks·spb + pen) + cc``, ``step = c[a] + ((Kv·spb + pen) + cc)``,
+    each operation its own rounding), with pen = 0 where valid and +inf
+    where not.  A back-pointer is numpy's ``argmin``: the first minimum, or
+    the first NaN where a column holds one; the carried cost is the element
+    it points at."""
+    N = spb.shape[0]
+    S, M, k = cand.shape
+    flat = spb.reshape(-1)
+    pen = torch.where(valid, 0.0, float("inf")).to(torch.float64)
+    c = Ks * flat[srcs[:, None] * N + cand[:, 0, :]] + pen[:, 0]
+    if cc is not None:
+        c = c + cc[0, cand[:, 0, :]]
+    backs = torch.empty((max(M - 1, 0), S, k), dtype=torch.int64, device=spb.device)
+    for j in range(1, M):
+        tr = Kv[j - 1] * flat[cand[:, j - 1, :, None] * N + cand[:, j, None, :]]
+        tr = tr + pen[:, j, None, :]
+        if cc is not None:
+            tr = tr + cc[j, cand[:, j, :]][:, None, :]
+        step = c[:, :, None] + tr                      # (S, k prev, k cur)
+        nan = step.isnan()
+        b = torch.where(nan.any(dim=1), nan.to(torch.int8).argmax(dim=1),
+                        step.argmin(dim=1))
+        backs[j - 1] = b
+        c = step.gather(1, b[:, None, :])[:, 0, :]
+    return c, backs

@@ -10,7 +10,7 @@ Prints, for prefill and for decode, the host wall time (ended by a
 synchronise) with and without the profiler, the summed device time of all
 kernels, the device's idle share (1 - device / unprofiled wall: one stream,
 so kernels do not overlap) and the kernels' device time grouped as the
-port's four hand-written kernels, matrix products, and everything else.
+port's hand-written kernels, matrix products, and everything else.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ GROUPS = (("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
           ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
           ("ssd_scan", ("ssd_chunk_state_kernel", "ssd_carry_kernel", "ssd_output_kernel",
                         "ssd_output_tc_kernel", "ssd_step_kernel")),
+          ("dp_sweep", ("dp_sweep_kernel",)),
           ("matmul", ("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")))
 
 

@@ -4,7 +4,9 @@
 already numpy arrays (the caller ran ``jax.tree.map(np.asarray, params)``;
 this module never imports jax) and returns the port's per-layer dicts of
 tensors.  Weights keep the reference's (in, out) layout: a projection is
-``x @ w`` in both packages, so nothing is transposed.
+``x @ w`` in both packages, so nothing is transposed.  ``cnn_from_jax_params``
+does the same for LeNet and VGG-16, whose conv kernels it transposes from
+HWIO to OIHW.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from .cnn import conv_weight
 
 
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -44,3 +47,17 @@ def from_jax_params(tree: dict, cfg: ModelConfig,
     out["blocks"] = [_map(tree["blocks"][pp], lambda a, g=g: _tensor(a[g], dev))
                      for g in range(groups) for pp in range(len(pat))]
     return out
+
+
+def cnn_from_jax_params(name: str, params: dict,
+                        device: str | torch.device = "cuda") -> dict:
+    """The reference's LeNet or VGG-16 parameters (numpy leaves) as the
+    port's: conv kernels go from HWIO to the OIHW, channels-last tensors
+    ``models/cnn.py`` convolves with; biases and dense (in, out) weights are
+    copied as they are."""
+    if name not in ("lenet", "vgg16"):
+        raise ValueError(f"no CNN named {name!r} (lenet or vgg16)")
+    dev = resolve_device(device)
+    return {layer: {"w": conv_weight(_tensor(p["w"], dev)) if layer.startswith("conv")
+                    else _tensor(p["w"], dev), "b": _tensor(p["b"], dev)}
+            for layer, p in params.items()}

@@ -8,7 +8,8 @@ machine that has only PyTorch:
 Shapes and tolerances are the reference's sweep (``tests/test_kernels.py``:
 f32 3e-5, bf16 2e-2, SSD 5e-5), plus rows and caches with no valid key, and
 for the SSD scan a ragged last chunk, one decode step, no initial state and
-the production dtype mix.
+the production dtype mix.  The placement path's f64 DP sweep must equal its
+plain version bit for bit, and a batched solve the sequential one.
 """
 
 import dataclasses
@@ -19,13 +20,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as C
+from repro_torch import core as placement
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.chunked import ssd_scan_chunked
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.dp_sweep import dp_sweep
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssm_scan import ssd_scan
+from repro_torch.exec import ExecutionEngine, compile_plan, layer_fns_for
 from repro_torch.models import init_params
 from repro_torch.runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 
@@ -332,3 +336,101 @@ def test_server_kernel_path_matches_plain(cuda, dtype, arch):
             (kl, kc), (pl, pc) = kd(params, ids[:, i:i + 1], kc, S + i), \
                 pd(params, ids[:, i:i + 1], pc, S + i)
             check(kl, pl)
+
+
+# ---------------------------------------------------------------------------
+# the placement path: the DP sweep kernel, a batched solve, a placed run
+# ---------------------------------------------------------------------------
+
+def sweep_inputs(seed, N, S, M, k, with_cc, inf_share, device="cuda"):
+    """spb with _BIG-priced (disconnected) pairs and a zero diagonal, sorted
+    candidates, infeasible candidates in ``inf_share``, compute cost or None."""
+    rng = np.random.default_rng(seed)
+    spb = rng.uniform(0, 1e-6, (N, N))
+    spb[rng.random((N, N)) < 0.05] = 1e12
+    np.fill_diagonal(spb, 0.0)
+    arrays = (spb, rng.uniform(1e3, 1e7, M), rng.integers(0, N, S),
+              np.sort(rng.integers(0, N, (S, M, k)), axis=2), rng.random((S, M, k)) >= inf_share,
+              rng.uniform(0, 1e-3, (M, N)) if with_cc else None)
+    t = [None if a is None else torch.from_numpy(a).to(device) for a in arrays]
+    return t[0], t[1], float(rng.uniform(1e5, 1e6)), t[2], t[3], t[4], t[5]
+
+
+@pytest.mark.parametrize("with_cc", [False, True])
+@pytest.mark.parametrize("k", [4, 17, 32, 64])
+@pytest.mark.parametrize("M", [7, 18])
+def test_dp_sweep_kernel_equals_plain_bit_for_bit(cuda, M, k, with_cc):
+    for S, N, inf_share in ((8, 1024, 0.0), (64, 1024, 0.2), (1024, 256, 0.5), (16, 48, 1.0)):
+        args = sweep_inputs(S + k, N, S, M, k, with_cc, inf_share)
+        n0 = dp_sweep.n_launches
+        got = dp_sweep(*args)
+        want = ref.dp_sweep(*args)
+        torch.cuda.synchronize()
+        assert dp_sweep.n_launches == n0 + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (S, N, inf_share)
+
+
+def test_dp_sweep_kernel_takes_numpy_argmin_on_nan(cuda):
+    spb, Kv, Ks, srcs, cand, valid, cc = sweep_inputs(3, 64, 16, 7, 8, True, 0.2)
+    spb[torch.rand(spb.shape, device=cuda) < 0.2] = float("inf")
+    spb.fill_diagonal_(0.0)
+    Kv[2] = 0.0
+    got, want = dp_sweep(spb, Kv, Ks, srcs, cand, valid, cc), \
+        ref.dp_sweep(spb, Kv, Ks, srcs, cand, valid, cc)
+    assert bool(want[0].isnan().any())
+    assert torch.equal(got[0].isnan(), want[0].isnan())
+    assert torch.equal(got[0].nan_to_num(), want[0].nan_to_num())
+    assert torch.equal(got[1], want[1])
+
+
+def test_dp_sweep_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    spb, Kv, Ks, srcs, cand, valid, cc = sweep_inputs(0, 32, 8, 7, 4, True, 0.0)
+    with pytest.raises(TypeError):
+        dp_sweep(spb.float(), Kv, Ks, srcs, cand, valid, cc)
+    with pytest.raises(ValueError, match="k 65"):
+        dp_sweep(spb, Kv, Ks, srcs, cand[:, :, :1].expand(8, 7, 65).contiguous(),
+                 valid[:, :, :1].expand(8, 7, 65).contiguous(), cc)
+    with pytest.raises(ValueError):
+        dp_sweep(spb, Kv, Ks, srcs.cpu(), cand, valid, cc)
+
+
+def test_batched_solve_on_the_card_equals_sequential(cuda):
+    """N = 256 LeNet swarm: the card's batched solve admits and places
+    exactly as the sequential sparse solve, through the kernel."""
+    n = 256
+    mob = placement.RPGMobility(placement.RPGParams(n_uavs=n, area_m=300.0, homogeneous=True),
+                                seed=0)
+    rates = placement.rate_matrix(mob.positions(1, seed=0)[0])
+    src = np.random.default_rng(0).integers(0, 16, 128).astype(np.int64)
+    prob = placement.Problem(placement.lenet_profile(), np.full(n, 512e6), np.full(n, 95e9),
+                             rates, src, np.full(n, 9.5e9))
+    seq = placement.solve_ould(prob, solver="dp-sparse")
+    n0 = dp_sweep.n_launches
+    bat = placement.solve_ould(prob, solver="dp-sparse", batch_solve=True, device=cuda)
+    assert dp_sweep.n_launches > n0 and bat.dp_stats.n_batched > 0
+    np.testing.assert_array_equal(bat.admitted, seq.admitted)
+    np.testing.assert_array_equal(bat.assign, seq.assign)
+    assert bat.objective == seq.objective
+
+
+def test_placed_lenet_run_equals_sequential_on_the_card(cuda):
+    """LeNet placed by ould-dp over ten 96 MB nodes (its 108 MB cannot sit on
+    one, so every request crosses a link) runs on the card as the whole
+    model run on one node."""
+    n = 10
+    mob = placement.RPGMobility(placement.RPGParams(n_uavs=n, area_m=100.0, homogeneous=True),
+                                seed=0)
+    rates = placement.rate_matrix(mob.positions(1, seed=0)[0])
+    prob = placement.Problem(placement.lenet_profile(), np.full(n, 96e6), np.full(n, 1e13),
+                             rates, np.arange(4) % 2, compute_speed=np.full(n, 9.5e9))
+    plan = placement.get_planner("ould-dp").plan(prob, placement.SnapshotView(rates))
+    graph = compile_plan(plan)
+    assert plan.n_admitted == 4 and all(len(set(a)) >= 2 for a in plan.assign)
+    engine = ExecutionEngine(layer_fns_for(placement.lenet_profile(),
+                                           generator=torch.Generator(cuda).manual_seed(0),
+                                           device=cuda), device=cuda)
+    frames = np.random.default_rng(0).standard_normal((4, 326, 595, 3)).astype(np.float32)
+    report = engine.run(graph, frames)
+    seq = engine.sequential_reference(frames, graph.requests)
+    for r in graph.requests:
+        assert np.abs(report.outputs[r] - seq[r]).max() <= 1e-4 * np.abs(seq[r]).max()

@@ -26,7 +26,10 @@ from repro.models import init_params as jax_init_params
 from repro.runtime.serve import ServeConfig as JaxServeConfig
 from repro.runtime.serve import Server as JaxServer
 from repro_torch import configs as TC
+from repro_torch import core as placement
 from repro_torch import resolve_device
+from repro_torch.core import batch_dp
+from repro_torch.exec import ExecutionEngine, layer_fns_for
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -46,7 +49,9 @@ def small_cfg(**kw):
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, repro_torch.models, "
-            "repro_torch.runtime, repro_torch.launch.serve\n"
+            "repro_torch.runtime, repro_torch.launch.serve, repro_torch.core, "
+            "repro_torch.exec, repro_torch.models.cnn, repro_torch.obs, "
+            "repro_torch.transport\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -92,6 +97,30 @@ def test_entry_points_default_to_the_card():
         launch_serve.main(["--reduced", "--steps", "2", "--prompt-len", "4"])
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+    # the placement path: the engine, its layer functions, the batched sweep
+    # and a batch_solve planner
+    lenet = placement.lenet_profile()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ExecutionEngine([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        layer_fns_for(lenet)
+    prob = placement.Problem(lenet, np.full(8, 512e6), np.full(8, 95e9),
+                             np.full((8, 8), 1e8), np.zeros(3, np.int64))
+    with pytest.raises(RuntimeError, match="cuda"):
+        placement.get_planner("ould-dp-sparse", batch_solve=True).plan(
+            prob, placement.SnapshotView(prob.rates))
+    with pytest.raises(RuntimeError, match="cuda"):
+        batch_dp.solve_batch(np.zeros((8, 8)), 1.0, None, np.zeros(1, np.int64),
+                             np.zeros((1, 7, 4), np.int64), np.ones((1, 7, 4), bool),
+                             (np.ones(7),))
+    # ... and each runs when given the CPU by name
+    ExecutionEngine([], device="cpu")
+    assert len(layer_fns_for(lenet, device="cpu")) == 7
+    placement.get_planner("ould-dp-sparse", batch_solve=True, device="cpu").plan(
+        prob, placement.SnapshotView(prob.rates))
+    batch_dp.solve_batch(np.zeros((8, 8)), 1.0, None, np.zeros(1, np.int64),
+                         np.zeros((1, 7, 4), np.int64), np.ones((1, 7, 4), bool),
+                         (np.ones(7),), device="cpu")
 
 
 def test_launcher_runs_on_cpu_when_asked():
@@ -243,7 +272,8 @@ def test_profile_groups_name_every_kernel():
         assert names, src.name
         found[src.stem] = names
     want = {"rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
-            "decode_attention": "decode_attention", "ssm_scan": "ssd_scan"}
+            "decode_attention": "decode_attention", "ssm_scan": "ssd_scan",
+            "dp_sweep": "dp_sweep"}
     assert set(found) == set(want)
     for stem, names in found.items():
         for name in names:
