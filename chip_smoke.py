@@ -34,18 +34,20 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   5. place   — the paper's placement path.  With every launch count set to 0:
                the batched ``ould-dp-sparse`` planner on the card
                (``batch_solve=True``) on the S7 swarm (LeNet, N = 1024,
-               1024 requests; benchmarks/bench_swarm.py) and on VGG-16 at
-               N = 256, then LeNet and VGG-16 placed by ``ould-dp`` across
-               at least two nodes a request and run by ``ExecutionEngine`` on
-               four 326×595×3 frames; the counts are read just after.  Then
-               the gates: the batched plans equal the sequential planner's
-               (admission, assignment, objective), the DP sweep kernel equals
-               its plain version bit for bit on both instances' first-launch
-               rows (also with infeasible candidates, with and without
-               compute cost), the placed outputs match the sequential run on
-               the card and one frame the CPU run; and the walls, the sweep's
-               times and bound, per-stage walls and the calibrated re-solve's
-               MAE are printed.
+               1024 requests; benchmarks/bench_swarm.py), on VGG-16 at
+               N = 256 and on LeNet at N = 4097 (k = 65), then LeNet and
+               VGG-16 placed by ``ould-dp`` across at least two nodes a
+               request and run by ``ExecutionEngine`` on four 326×595×3
+               frames; the counts are read just after.  Then the gates: the
+               batched plans equal the sequential planner's (admission,
+               assignment, objective), the DP sweep kernel equals its plain
+               version bit for bit on each swarm's first-launch rows (also
+               with infeasible candidates, with and without compute cost),
+               the placed outputs match the sequential run on the card and
+               one frame the CPU run; and the walls, the sweep's plan as
+               launched, times, bound and critical-path floor, the host
+               stages of one sweep call, per-stage walls and the calibrated
+               re-solve's MAE are printed.
   6. report  — a ``kernels`` JSON line, the card line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -102,8 +104,19 @@ PATHS = {
 # S7's own instance (the paper's 95 GFLOP window).  VGG-16 gets 8 windows,
 # provisioned like the memory: one 326x595 frame is 117 GFLOP, so at one
 # window no node holds a frame's compute and the solve leaves S7's regime.
+# LeNet at N = 4097 (512 requests from the same 64 hotspots) is the first
+# swarm whose default budget, k = ceil(sqrt(N)) = 65, passes 64, and whose
+# spb (134 MB) outgrows the 50 MB L2.
 SWARMS = {"lenet N1024 (S7)": ("lenet", 1024, 1024, 64, 95e9),
-          "vgg16 N256": ("vgg16", 256, 256, 32, 8 * 95e9)}
+          "vgg16 N256": ("vgg16", 256, 256, 32, 8 * 95e9),
+          "lenet N4097": ("lenet", 4097, 512, 64, 95e9)}
+# The sweep's critical-path floor, an estimate in SM cycles (latencies of
+# one dependent step each, assumed, not measured here): one gather round
+# (the candidates, then the spb entries, each an L2 round trip), and per
+# layer a shared-memory read, an f64 add and compare for each of the
+# ceil(k / 32) predecessors a lane holds, five merges of a warp's lanes and
+# the owner's write with a barrier.
+FLOOR_CYCLES = dict(l2_round=300, smem=30, add_compare=16, merge=40, barrier=40)
 # Placed execution: four frames from two camera nodes over a pool whose
 # per-node memory is below the model's total, so every request spans two
 # nodes or more (LeNet 108 MB, VGG-16 1003 MB of which 480 MB is the folded
@@ -169,10 +182,14 @@ def time_ms(fns, reps: int = 7, inner: int = 10) -> float:
 
 
 def device_us(fns, calls: int = 30) -> dict:
-    """Mean device microseconds of one call by CUDA kernel name, from
-    ``torch.profiler``'s device rows over ``calls`` calls that cycle ``fns``
-    (so inputs can outgrow the 50 MB L2).  Unlike ``time_ms`` of an eager
-    call, no host work counts."""
+    """Device microseconds of one call by CUDA kernel name, from
+    ``torch.profiler``'s device events over ``calls`` calls that cycle
+    ``fns`` (so inputs can outgrow the 50 MB L2): a kernel's median launch
+    times its launches a call.  Unlike ``time_ms`` of an eager call, no host
+    work counts.  The profiler on the card's machine has returned profiles
+    with a few launches lost or left over from the profile before, which a
+    mean over ``calls`` would misstate (those are printed), and profiles
+    with no device rows, which are taken again, at most twice more."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -180,18 +197,25 @@ def device_us(fns, calls: int = 30) -> dict:
     for f in fns:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            m = re.search(r"\w+_kernel", e.key)
-            name = m.group(0) if m else e.key[:40]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
-    need(out != {}, "torch.profiler recorded no device time")
-    return out
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        launches = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                m = re.search(r"\w+_kernel", e.name)
+                launches.setdefault(m.group(0) if m else e.name[:40], []).append(
+                    e.self_device_time_total)
+        if launches:
+            if any(len(v) % calls for v in launches.values()):
+                print(f"[profiler] {calls} calls recorded as launches "
+                      f"{ {k: len(v) for k, v in launches.items()} }", flush=True)
+            return {k: statistics.median(v) * max(1, round(len(v) / calls))
+                    for k, v in launches.items()}
+        print(f"[profiler] no device time recorded (attempt {attempt + 1} of 3)", flush=True)
+    raise SmokeError("torch.profiler recorded no device time")
 
 
 def close(got, want, dtype_name: str, what: str, tol: float | None = None) -> float:
@@ -808,6 +832,121 @@ def sweep_bound_ms(rows: dict, with_cc: bool) -> tuple[float, float]:
     return nbytes / PEAK_BYTES * 1e3, ops / PEAK_F64 * 1e3
 
 
+GRID_KEYS = ("blocks", "threads", "rows", "stagers", "lanes", "tile", "slots", "ahead", "resident",
+             "smem")
+SM_CLOCK_GHZ = 1.98  # H100 SXM's top SM clock (data sheet); the floor assumes it
+
+
+def sweep_floor_us(M: int, k: int) -> float:
+    """The critical-path floor of one sweep (FLOOR_CYCLES): no serial DP on
+    this card finishes sooner, whatever its byte bound."""
+    c = FLOOR_CYCLES
+    layer = c["smem"] + -(-k // 32) * c["add_compare"] + 5 * c["merge"] + c["barrier"]
+    return (2 * c["l2_round"] + (M - 1) * layer) / (SM_CLOCK_GHZ * 1e3)
+
+
+def sweep_host_stages(torch, rows: dict, what: str) -> None:
+    """Where the host time of one batched sweep call goes, at these rows:
+    ``core/batch_dp.py::solve_batch``'s stages replayed (spb already on the
+    card, as within a solve), each ended by a synchronise -- the host-to-
+    device copies of the padded rows, the launch (the wrapper's host time),
+    the wait for the kernel, the copy back and the host backtrack -- and
+    the whole ``solve_batch`` call beside them; medians of 7.  The replay's
+    paths must equal ``solve_batch``'s."""
+    from repro_torch.core import batch_dp
+    from repro_torch.kernels.dp_sweep import dp_sweep
+    spb, Ks, Kv = rows["spb"], rows["Ks"], rows["Kv"]
+    srcs, cand, valid = rows["srcs"], rows["cand"], rows["valid"]
+    S, M, k = cand.shape
+    Sp = batch_dp.bucket_rows(S)
+    dev = torch.device("cuda")
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    want, _ = batch_dp.solve_batch(spb, Ks, None, srcs, cand, valid, (Kv,), device="cuda")
+    stages = {name: [] for name in ("copies in", "launch", "kernel wait", "copy back",
+                                    "backtrack", "solve_batch")}
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        pad = Sp - S
+        args = (batch_dp._device_spb(spb, dev), put(Kv, np.float64), float(Ks),
+                put(np.concatenate([srcs, np.zeros(pad, srcs.dtype)]), np.int64),
+                put(np.concatenate([cand, np.zeros((pad, M, k), cand.dtype)]), np.int64),
+                put(np.concatenate([valid, np.ones((pad, M, k), bool)]), bool), None)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        f, b = dp_sweep(*args)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        final, backs = f[:S].cpu().numpy(), b[:, :S].cpu().numpy()
+        t.append(time.perf_counter())
+        q = np.arange(S)
+        idx = np.argmin(final, axis=1)
+        finite = np.isfinite(final[q, idx])
+        nodes = np.empty((S, M), np.int64)
+        nodes[:, M - 1] = cand[q, M - 1, idx]
+        for j in range(M - 1, 0, -1):
+            idx = backs[j - 1, q, idx]
+            nodes[:, j - 1] = cand[q, j - 1, idx]
+        t.append(time.perf_counter())
+        batch_dp.solve_batch(spb, Ks, None, srcs, cand, valid, (Kv,), device="cuda")
+        t.append(time.perf_counter())
+        for name, dt in zip(stages, np.diff(t)):
+            stages[name].append(dt * 1e3)
+    need(all((w is None) == (not ok) and (w is None or np.array_equal(w, n))
+             for w, ok, n in zip(want, finite, nodes)),
+         f"{what}: the replayed sweep call's paths differ from solve_batch's")
+    print(f"[place] host stages of one sweep call at {what} ({S} rows padded to {Sp}, M {M}, "
+          f"k {k}), ms, median of 7: "
+          + ", ".join(f"{name} {statistics.median(v):.4f}" for name, v in stages.items()),
+          flush=True)
+
+
+def repeated_layers(planner, prob, what: str) -> dict:
+    """How many of the sweep's layers past layer 0 repeat the layer before, over
+    every launch of one batched solve: ``solve_batch``'s real rows (no
+    bucket padding) as the kernel sees them, layer j's transitions repeating
+    layer j-1's where cand_j = cand_{j-1} = cand_{j-2} (the kernel's mask,
+    layers j <= 63 only), in which case the kernel, staging the whole sweep
+    at once, gathers nothing for it."""
+    from repro_torch import core as C
+    from repro_torch.core import batch_dp
+    seen = []
+    real = batch_dp.solve_batch
+
+    def spy(spb, Ks, compute_cost, srcs, cand, valid, consts, device="cuda"):
+        seen.append(np.array(cand))
+        return real(spb, Ks, compute_cost, srcs, cand, valid, consts, device=device)
+
+    batch_dp.solve_batch = spy
+    try:
+        planner.plan(prob, C.SnapshotView(prob.rates))
+    finally:
+        batch_dp.solve_batch = real
+    rows = layers = reps = whole = 0
+    for cand in seen:
+        S, M, _ = cand.shape
+        same = np.all(cand[:, 1:] == cand[:, :-1], axis=2)  # (S, M-1): cand_j == cand_{j-1}
+        rep = same[:, 1:] & same[:, :-1]                     # layer j = 2..M-1 repeats j-1
+        rep[:, 62:] = False
+        rows, layers = rows + S, layers + S * (M - 1)
+        reps += int(rep.sum())
+        whole += int(np.sum(rep.sum(axis=1) == M - 2))
+    share = dict(launches=len(seen), rows=rows, layers=layers, repeated=reps,
+                 repeated_share=reps / max(layers, 1), rows_all_repeated=whole,
+                 rows_all_repeated_share=whole / max(rows, 1))
+    print(f"[place] {what}: repeated layers over the solve's {len(seen)} sweep launches "
+          f"({rows} rows, {layers} layers past layer 0 in all): {reps} repeat the layer "
+          f"before ({share['repeated_share']:.4f}), so the kernel gathers {layers - reps} "
+          f"layers of k^2 entries, not {layers}; rows whose every layer past "
+          f"the first repeats (k^2 gathers, not (M-1) k^2): {whole}/{rows} "
+          f"({share['rows_all_repeated_share']:.4f})", flush=True)
+    return share
+
+
 def sweep_record(torch, rows: dict, what: str) -> dict:
     """The sweep kernel against its plain version, bit for bit (torch.equal)
     on these rows as they are and with 30 % of the candidates infeasible,
@@ -834,15 +973,47 @@ def sweep_record(torch, rows: dict, what: str) -> dict:
     dp_sweep.last_grid = None
     ms = time_ms([lambda: dp_sweep(*args)], reps=7, inner=50)
     grid = dp_sweep.last_grid
+    need(grid is not None, f"dp_sweep {what}: no launch recorded")
     dev = device_us([lambda: dp_sweep(*args)], calls=50)
+    # The same rows cut to their first 1 and 2 layers: layer 0 alone (the
+    # launch, the candidates' staging, c0), then one gathered layer; the
+    # rest of the full sweep's time, spread over its M - 2 later layers.
+    depth_us = {}
+    for depth in (1, 2):
+        cut = tuple(a[:, :depth].contiguous() if torch.is_tensor(a) and a.dim() == 3 else a
+                    for a in args)
+        depth_us[depth] = sum(device_us([lambda: dp_sweep(*cut)], calls=50).values())
+    depth_us[M] = sum(dev.values())
+    per_layer_us = (depth_us[M] - depth_us[2]) / (M - 2)
+    # The same rows with layer j's candidates rotated by j places, so that no
+    # layer repeats the one before and the kernel gathers every layer: what
+    # the repeated layers save, on rows without that property.
+    turn = (torch.arange(k, device="cuda")[None, :]
+            - torch.arange(M, device="cuda")[:, None]) % k
+    spun = tuple(a.gather(2, turn.expand(S, M, k)).contiguous()
+                 if torch.is_tensor(a) and a.dim() == 3 else a for a in args)
+    got, want = dp_sweep(*spun), ref.dp_sweep(*spun)
+    need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+         f"dp_sweep {what}, candidates rotated by layer: kernel differs from its plain version")
+    norepeat_us = sum(device_us([lambda: dp_sweep(*spun)], calls=50).values())
     bytes_ms, ops_ms = sweep_bound_ms(rows, False)
-    print(f"[place] dp_sweep at {what}: grid (blocks, k, rows a block) {grid} as launched; "
+    plan = dict(zip(GRID_KEYS, grid))
+    floor_us = sweep_floor_us(M, k)
+    print(f"[place] dp_sweep at {what}: plan as launched {plan}; "
           f"device us a call {sum(dev.values()):.2f} ({dev}); bound the larger of bytes / "
           f"{PEAK_BYTES / 1e12:.2f} TB/s = {bytes_ms * 1e3:.3f} us and f64 operations / "
           f"{PEAK_F64 / 1e12:.0f} TFLOP/s (H100 SXM, outside the tensor cores) = "
-          f"{ops_ms * 1e3:.3f} us", flush=True)
+          f"{ops_ms * 1e3:.3f} us; critical-path floor (estimate, {FLOOR_CYCLES} cycles at "
+          f"{SM_CLOCK_GHZ} GHz) {floor_us:.2f} us", flush=True)
+    print(f"[place] dp_sweep at {what} by depth: device us M 1 {depth_us[1]:.2f}, M 2 "
+          f"{depth_us[2]:.2f}, M {M} {depth_us[M]:.2f}; each layer past the second "
+          f"{per_layer_us:.3f}; the same rows with no layer repeating the one before "
+          f"(candidates rotated by layer, == plain bit for bit) {norepeat_us:.2f}",
+          flush=True)
+    sweep_host_stages(torch, rows, what)
     return finish(dict(
-        name="dp_sweep", max_abs_err=0.0, grid=list(grid), device_us=dev,
+        name="dp_sweep", max_abs_err=0.0, grid=list(grid), device_us=dev, depth_us=depth_us,
+        norepeat_us=norepeat_us,
         shape=f"{S} rows x {M} layers x k {k}, spb {rows['spb'].shape} f64, "
               f"no compute cost [{what}]",
         ms=ms, plain_ms=time_ms([lambda: ref.dp_sweep(*args)], reps=5, inner=5),
@@ -978,6 +1149,7 @@ def placement_phase(torch) -> tuple[dict, list]:
               f"solve {per_solve[name][1] * 1e3:.2f} ms, {per_solve[name][0]} sweeps); "
               f"n_batched {st.n_batched}/{prob.n_requests}, sweep launches a solve "
               f"{n_sweeps}, k {st.k}", flush=True)
+        repeated_layers(batched[name], prob, name)
 
     recs = [sweep_record(torch, first_rows(prob), name) for name, prob in probs.items()]
     for model, run in runs.items():
@@ -995,7 +1167,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "dp_sweep": ("src/repro_torch/kernels/csrc/dp_sweep.cu", "src/repro/core/batch_dp.py:75"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-EXTRAS = ("grid", "plan", "device_us")
+EXTRAS = ("grid", "plan", "device_us", "depth_us", "norepeat_us")
 
 
 def main() -> int:

@@ -259,7 +259,9 @@ def _oracle_rows(spb, Ks, srcs, cc, cand, valid, Kv):
 
 SWEEP_CASES = [  # n, k, with compute cost, share of candidates made infeasible
     (40, 6, False, 0.0), (40, 6, True, 0.3), (30, 30, True, 0.0), (30, 40, False, 0.5),
-    (64, 17, True, 0.2), (12, 4, True, 1.0)]
+    (64, 17, True, 0.2), (12, 4, True, 1.0),
+    # k above the card's former cap of 64
+    (160, 65, True, 0.2), (300, 128, False, 0.3)]
 
 
 @pytest.mark.parametrize("n,k,with_cc,inf_share", SWEEP_CASES)

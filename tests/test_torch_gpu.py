@@ -25,7 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.chunked import ssd_scan_chunked
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.dp_sweep import dp_sweep
+from repro_torch.kernels.dp_sweep import MAX_K, dp_sweep, sm_count, sweep_plan
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssm_scan import ssd_scan
@@ -342,54 +342,135 @@ def test_server_kernel_path_matches_plain(cuda, dtype, arch):
 # the placement path: the DP sweep kernel, a batched solve, a placed run
 # ---------------------------------------------------------------------------
 
-def sweep_inputs(seed, N, S, M, k, with_cc, inf_share, device="cuda"):
+def sweep_inputs(seed, N, S, M, k, with_cc, inf_share, device="cuda", same=()):
     """spb with _BIG-priced (disconnected) pairs and a zero diagonal, sorted
-    candidates, infeasible candidates in ``inf_share``, compute cost or None."""
+    candidates (the layers in ``same`` keep the previous layer's),
+    infeasible candidates in ``inf_share``, compute cost or None."""
     rng = np.random.default_rng(seed)
     spb = rng.uniform(0, 1e-6, (N, N))
     spb[rng.random((N, N)) < 0.05] = 1e12
     np.fill_diagonal(spb, 0.0)
-    arrays = (spb, rng.uniform(1e3, 1e7, M), rng.integers(0, N, S),
-              np.sort(rng.integers(0, N, (S, M, k)), axis=2), rng.random((S, M, k)) >= inf_share,
+    cand = np.sort(rng.integers(0, N, (S, M, k)), axis=2)
+    for x in same:
+        cand[:, x] = cand[:, x - 1]
+    arrays = (spb, rng.uniform(1e3, 1e7, M), rng.integers(0, N, S), cand,
+              rng.random((S, M, k)) >= inf_share,
               rng.uniform(0, 1e-3, (M, N)) if with_cc else None)
     t = [None if a is None else torch.from_numpy(a).to(device) for a in arrays]
     return t[0], t[1], float(rng.uniform(1e5, 1e6)), t[2], t[3], t[4], t[5]
 
 
+SWEEP_SETS = ((8, 1024, 0.0), (64, 1024, 0.2), (1024, 256, 0.5), (16, 48, 1.0),
+              (64, 4097, 0.3))  # S, N, infeasible share; spb at N 4097 outgrows the L2
+WIDE_SETS = ((8, 1024, 0.2), (4, 4097, 0.3))  # fewer rows where k >= 257
+
+
 @pytest.mark.parametrize("with_cc", [False, True])
-@pytest.mark.parametrize("k", [4, 17, 32, 64])
+@pytest.mark.parametrize("k", [4, 17, 32, 64, 65, 128, 257, 1024])
 @pytest.mark.parametrize("M", [7, 18])
 def test_dp_sweep_kernel_equals_plain_bit_for_bit(cuda, M, k, with_cc):
-    for S, N, inf_share in ((8, 1024, 0.0), (64, 1024, 0.2), (1024, 256, 0.5), (16, 48, 1.0)):
+    for S, N, inf_share in (SWEEP_SETS if k < 257 else WIDE_SETS):
         args = sweep_inputs(S + k, N, S, M, k, with_cc, inf_share)
         n0 = dp_sweep.n_launches
         got = dp_sweep(*args)
         want = ref.dp_sweep(*args)
         torch.cuda.synchronize()
         assert dp_sweep.n_launches == n0 + 1
+        p = sweep_plan(S, M, k, with_cc, sm_count(torch.cuda.current_device()))
+        assert dp_sweep.last_grid == (p.grid, p.threads, p.rows, p.stagers, p.lanes, p.tile,
+                                      p.slots, p.ahead, p.resident, p.smem)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (S, N, inf_share)
 
 
-def test_dp_sweep_kernel_takes_numpy_argmin_on_nan(cuda):
-    spb, Kv, Ks, srcs, cand, valid, cc = sweep_inputs(3, 64, 16, 7, 8, True, 0.2)
-    spb[torch.rand(spb.shape, device=cuda) < 0.2] = float("inf")
+@pytest.mark.parametrize("with_cc", [False, True])
+@pytest.mark.parametrize("M,k,same", [(7, 32, (1, 2, 3, 4, 5, 6)), (18, 16, tuple(range(1, 18))),
+                                      (7, 65, (1, 2, 3, 4, 5, 6)), (7, 9, (1, 2, 4, 5)),
+                                      (8, 6, (2, 3, 4, 7)), (18, 64, (5, 6, 7, 8, 12, 17)),
+                                      (70, 5, tuple(range(1, 70)))])
+def test_dp_sweep_kernel_with_repeated_candidates_equals_plain(cuda, M, k, same, with_cc):
+    """Layers that repeat the previous layer's candidates gather nothing in
+    the kernel; their transitions are formed from the repeated entries."""
+    for S, N, inf_share in ((64, 1024, 0.3), (8, 4097, 0.0)):
+        args = sweep_inputs(S + k + M, N, S, M, k, with_cc, inf_share, same=same)
+        got, want = dp_sweep(*args), ref.dp_sweep(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (S, N, inf_share)
+
+
+@pytest.mark.parametrize("M,k,with_cc", [(39, 1024, False), (36, 1024, True),
+                                          (692, 65, False), (667, 65, True), (4816, 8, True)])
+def test_dp_sweep_kernel_past_the_resident_envelope_equals_plain(cuda, M, k, with_cc):
+    """One layer past what fits in shared memory beside the ring (and far
+    past it at k 8): the ring reads candidates, feasibility and Kv from
+    device memory."""
+    S = 8
+    n_sm = sm_count(torch.cuda.current_device())
+    assert not sweep_plan(S, M, k, with_cc, n_sm).resident
+    assert sweep_plan(S, M - 1, k, with_cc, n_sm).resident
+    args = sweep_inputs(M + k, 300, S, M, k, with_cc, 0.2)
+    got, want = dp_sweep(*args), ref.dp_sweep(*args)
+    torch.cuda.synchronize()
+    assert dp_sweep.last_grid[8] is False
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def assert_sweep_bits(got, want):
+    """final's NaNs where the plain version has them and every other entry
+    bit for bit (a NaN's payload is the platform's), backs equal."""
+    nan = want[0].isnan()
+    assert torch.equal(got[0].isnan(), nan)
+    assert torch.equal(got[0].masked_fill(nan, 0.0).view(torch.int64),
+                       want[0].masked_fill(nan, 0.0).view(torch.int64))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("with_cc", [False, True])
+@pytest.mark.parametrize("k", [8, 32, 64, 65, 257])
+@pytest.mark.parametrize("M", [7, 18])
+def test_dp_sweep_kernel_takes_numpy_argmin_on_nan(cuda, M, k, with_cc):
+    """NaNs from layer 3 on (0 x inf), so the pass turns to order keys
+    mid-sweep: one lane a column (k 8), the lanes' shuffle merges (k 32-65:
+    4 and 8 lanes), and the ring build (k 257)."""
+    spb, Kv, Ks, srcs, cand, valid, cc = sweep_inputs(3 + k + M, 300, 16, M, k, with_cc, 0.2)
+    spb[torch.rand(spb.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(k))
+        < 0.2] = float("inf")
     spb.fill_diagonal_(0.0)
     Kv[2] = 0.0
     got, want = dp_sweep(spb, Kv, Ks, srcs, cand, valid, cc), \
         ref.dp_sweep(spb, Kv, Ks, srcs, cand, valid, cc)
     assert bool(want[0].isnan().any())
-    assert torch.equal(got[0].isnan(), want[0].isnan())
-    assert torch.equal(got[0].nan_to_num(), want[0].nan_to_num())
-    assert torch.equal(got[1], want[1])
+    assert_sweep_bits(got, want)
+
+
+@pytest.mark.parametrize("with_cc", [False, True])
+@pytest.mark.parametrize("k", [8, 32, 65, 257])
+def test_dp_sweep_kernel_orders_negative_and_signed_zero_values(cuda, k, with_cc):
+    """A negative Kv entry makes negative transitions (and -inf, and NaN
+    beside an infeasible penalty), so the pass's order keys flip a
+    negative's magnitude bits; -0.0 spb entries sit beside +0.0 ones (their
+    products meet the feasible penalty's +0.0 and tie as +0)."""
+    spb, Kv, Ks, srcs, cand, valid, cc = sweep_inputs(7 + k, 300, 16, 18, k, with_cc, 0.2)
+    g = torch.Generator(cuda).manual_seed(k)
+    u = torch.rand(spb.shape, device=cuda, generator=g)
+    spb[u < 0.1] = -0.0
+    spb[(u >= 0.1) & (u < 0.15)] = 0.0
+    spb[u > 0.97] = float("inf")
+    Kv[1] = -Kv[1]
+    Kv[4] = -0.0
+    got, want = dp_sweep(spb, Kv, Ks, srcs, cand, valid, cc), \
+        ref.dp_sweep(spb, Kv, Ks, srcs, cand, valid, cc)
+    assert bool((want[0] < 0).any() or want[0].isnan().any())
+    assert_sweep_bits(got, want)
 
 
 def test_dp_sweep_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     spb, Kv, Ks, srcs, cand, valid, cc = sweep_inputs(0, 32, 8, 7, 4, True, 0.0)
     with pytest.raises(TypeError):
         dp_sweep(spb.float(), Kv, Ks, srcs, cand, valid, cc)
-    with pytest.raises(ValueError, match="k 65"):
-        dp_sweep(spb, Kv, Ks, srcs, cand[:, :, :1].expand(8, 7, 65).contiguous(),
-                 valid[:, :, :1].expand(8, 7, 65).contiguous(), cc)
+    over = MAX_K + 1  # the plan's cap + 1
+    with pytest.raises(ValueError, match=f"k {over} outside 1..{MAX_K}"):
+        dp_sweep(spb, Kv, Ks, srcs, cand[:, :, :1].expand(8, 7, over).contiguous(),
+                 valid[:, :, :1].expand(8, 7, over).contiguous(), cc)
     with pytest.raises(ValueError):
         dp_sweep(spb, Kv, Ks, srcs.cpu(), cand, valid, cc)
 
@@ -408,6 +489,26 @@ def test_batched_solve_on_the_card_equals_sequential(cuda):
     n0 = dp_sweep.n_launches
     bat = placement.solve_ould(prob, solver="dp-sparse", batch_solve=True, device=cuda)
     assert dp_sweep.n_launches > n0 and bat.dp_stats.n_batched > 0
+    np.testing.assert_array_equal(bat.admitted, seq.admitted)
+    np.testing.assert_array_equal(bat.assign, seq.assign)
+    assert bat.objective == seq.objective
+
+
+def test_batched_solve_above_k_64_on_the_card_equals_sequential(cuda):
+    """LeNet over 4097 nodes (spb 134 MB, past the L2), 512 requests from 64
+    hotspots: the default budget is k = 65, above the kernel's former cap,
+    and the card's batched solve still places as the sequential one."""
+    n = 4097
+    mob = placement.RPGMobility(placement.RPGParams(n_uavs=n, area_m=300.0, homogeneous=True),
+                                seed=0)
+    rates = placement.rate_matrix(mob.positions(1, seed=0)[0])
+    src = np.random.default_rng(0).integers(0, 64, 512).astype(np.int64)
+    prob = placement.Problem(placement.lenet_profile(), np.full(n, 8 * 512e6),
+                             np.full(n, 95e9), rates, src, np.full(n, 9.5e9))
+    seq = placement.solve_ould(prob, solver="dp-sparse")
+    n0 = dp_sweep.n_launches
+    bat = placement.solve_ould(prob, solver="dp-sparse", batch_solve=True, device=cuda)
+    assert dp_sweep.n_launches > n0 and bat.dp_stats.n_batched > 0 and bat.dp_stats.k == 65
     np.testing.assert_array_equal(bat.admitted, seq.admitted)
     np.testing.assert_array_equal(bat.assign, seq.assign)
     assert bat.objective == seq.objective
