@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and placement paths on one NVIDIA H100
-and check them.
+"""Drive the PyTorch/CUDA port's serving, placement and swarm paths on one
+NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -48,7 +48,21 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                launched, times, bound and critical-path floor, the host
                stages of one sweep call, per-stage walls and the calibrated
                re-solve's MAE are printed.
-  6. report  — a ``kernels`` JSON line, the card line, and as the last line
+  6. swarm   — the swarm serving runtime (``runtime/swarm.py``).  With every
+               launch count set to 0: benchmarks/bench_swarm.py's CHURN
+               under every policy, its OVERLOAD and an N = 1024 swarm under
+               ``incremental-sparse``, each with its epoch re-solves batched
+               on the card (``batch_solve=True``: the DP sweep kernel), and
+               executed mode measuring LeNet's stages on the card; the
+               counts are read just after.  Then the gates: each batched
+               run equals its sequential run field by field (walls
+               excepted), OULD-MP misses fewer deadlines than snapshot
+               OULD on CHURN (the benchmark's S1) and every epoch is
+               feasible (S3), executed mode serves as its analytic twin and
+               warms its engine on a churn rejoin; the policies' miss,
+               rejection and p99, the walls, and the sweeps' device µs are
+               printed.
+  7. report  — a ``kernels`` JSON line, the card line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each phase prints the seconds it took.
@@ -408,8 +422,14 @@ def rmsnorm_record(torch, randn, rows: int, d: int, what: str) -> dict:
                 sum(device_us([lambda x=x: rmsnorm(x, sc) for x in xx]).values()))
             dev.setdefault("F.rms_norm" + rs, []).append(
                 sum(device_us([lambda x=x: F.rms_norm(x, (d,), sc, 1e-5) for x in xx]).values()))
+    # A decode step's rows: x read and written once and the scale read once
+    # (bytes), or 4 operations an element at the f32 peak, the larger.
+    decode_bytes_us = (2 * 4 * d + d) * 2 / PEAK_BYTES * 1e6
+    decode_ops_us = 4 * 4 * d / PEAK_F32 * 1e6
     print(f"[kernels] rmsnorm device us a call at {what} ({rows}, {d}) and (4, {d}), two "
-          f"rounds: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in dev.items()),
+          f"rounds: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in dev.items())
+          + f"; decode rows' bound {max(decode_bytes_us, decode_ops_us):.4f} us ("
+          + ("bytes" if decode_bytes_us >= decode_ops_us else "operations") + ")",
           flush=True)
     return finish(dict(
         name="rmsnorm", shape=f"x ({rows}, {d}) bf16 [{what}]", max_abs_err=err,
@@ -1157,6 +1177,195 @@ def placement_phase(torch) -> tuple[dict, list]:
     return launches, recs
 
 
+# The swarm serving runtime (runtime/swarm.py): benchmarks/bench_swarm.py's
+# CHURN (S1: 10 UAVs in two RPG groups, churn mtbf 60 s / mttr 20 s,
+# bottleneck queues) and OVERLOAD (S6: one group, 360 ticks, 20 epochs, 4.5
+# arrivals/s held 240 ticks, over 1e5 frames), the S7 swarm's N (1024 UAVs,
+# 64 hotspots, 4 epochs, default budget k 32, per-hop queues), and
+# tests/test_swarm.py's SMALL with faster churn for executed mode.
+SWARM_CHURN = dict(arrival_rate_hz=0.3, mtbf_s=60.0, mttr_s=20.0, queue_model="bottleneck")
+SWARM_OVERLOAD = dict(n_groups=1, duration_ticks=360, epoch_ticks=18, arrival_rate_hz=4.5,
+                      hold_ticks_mean=240.0, mem_mb_hotspot_group=4096.0,
+                      mem_mb_other_groups=4096.0, comp_cap_flops=1e18, gflops=5e9,
+                      deadline_s=2.0, mtbf_s=float("inf"), queue_model="bottleneck")
+SWARM_N1024 = dict(n_uavs=1024, hotspots=64, duration_ticks=60, epoch_ticks=15,
+                   arrival_rate_hz=34.0, hold_ticks_mean=30.0)
+SWARM_EXEC = dict(duration_ticks=60, arrival_rate_hz=0.3, mtbf_s=40.0, mttr_s=10.0)
+# SimResult fields that are host walls, and the counter of sweep launches at
+# a shape new to the process, which a sequential run cannot have.
+SWARM_WALL_METRICS = ("solver.total_solve_s", "solver.jit_compiles")
+
+
+def same_sim(a, b, what: str) -> None:
+    """Two SimResults identical field by field: epoch logs with their solve
+    walls set aside, metrics without SWARM_WALL_METRICS."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "epochs":
+            x = [dataclasses.replace(e, solve_time_s=0.0) for e in x]
+            y = [dataclasses.replace(e, solve_time_s=0.0) for e in y]
+        elif f.name == "metrics":
+            x = {k: v for k, v in x.items() if k not in SWARM_WALL_METRICS}
+            y = {k: v for k, v in y.items() if k not in SWARM_WALL_METRICS}
+        same = (np.array_equal(x, y) and x.dtype == y.dtype if isinstance(x, np.ndarray)
+                else x == y)
+        need(same, f"{what}: field {f.name} differs between the batched and sequential runs")
+
+
+def timed_sim(scn, policy: str, seed: int = SEED, **kw):
+    from repro_torch.runtime.swarm import simulate
+    t0 = time.perf_counter()
+    r = simulate(scn, policy, seed, **kw)
+    return r, time.perf_counter() - t0
+
+
+def sweep_launch_us(torch, fn) -> list:
+    """Device microseconds of each dp_sweep kernel launch while ``fn`` runs
+    (``torch.profiler``'s device events); taken again, at most twice more,
+    when the profile holds no device rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        us = [e.self_device_time_total for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "dp_sweep_kernel" in e.name]
+        if us:
+            return out, us
+        print(f"[profiler] no dp_sweep launch recorded (attempt {attempt + 1} of 3)", flush=True)
+    raise SmokeError("torch.profiler recorded no dp_sweep launch in the swarm run")
+
+
+def solve_batch_walls(run) -> tuple:
+    """``run()``'s result and the host wall of each ``batch_dp.solve_batch``
+    call it made (copies in, the sweep, copy back, backtrack; synchronised
+    by the copy back), by a spy around the function the solvers call."""
+    from repro_torch.core import batch_dp
+    real, walls = batch_dp.solve_batch, []
+
+    def spy(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    batch_dp.solve_batch = spy
+    try:
+        return run(), walls
+    finally:
+        batch_dp.solve_batch = real
+
+
+def swarm_phase(torch) -> dict:
+    """The swarm serving runtime with every launch count at 0: CHURN over
+    every policy, OVERLOAD and N 1024 under incremental-sparse, each with its
+    epoch re-solves batched on the card (batch_solve=True), and executed mode
+    measuring LeNet's stages on the card; the counts are read just after.
+    Then the gates: each batched run equals its sequential run
+    (batch_solve=False) field by field, walls excepted; S1 and S3 on CHURN;
+    executed mode serves as its analytic twin and warms on a churn rejoin."""
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime.swarm import PLANNER_POLICIES, SwarmScenario
+    kernels = all_kernels()
+    dp_sweep = kernels["dp_sweep"]
+
+    def scn(base, **kw):
+        return SwarmScenario(**base, **kw)
+
+    card = dict(batch_solve=True, device="cuda")
+    for fn in kernels.values():
+        fn.n_launches = 0
+    torch.cuda.synchronize()
+    bat, walls, sweeps_by_run = {}, {}, {}
+    for policy in PLANNER_POLICIES:               # the main path: CHURN ...
+        n0 = dp_sweep.n_launches
+        bat[f"churn {policy}"], walls[f"churn {policy}"] = timed_sim(scn(SWARM_CHURN, **card),
+                                                                     policy)
+        sweeps_by_run[f"churn {policy}"] = dp_sweep.n_launches - n0
+    for name, base in (("overload", SWARM_OVERLOAD), ("n1024", SWARM_N1024)):  # ... the large
+        n0 = dp_sweep.n_launches
+        bat[name], walls[name] = timed_sim(scn(base, **card), "incremental-sparse")
+        sweeps_by_run[name] = dp_sweep.n_launches - n0
+    tracer = Tracer()                             # ... and executed mode
+    executed, walls["executed"] = timed_sim(scn(SWARM_EXEC, execute=True, device="cuda"),
+                                            "incremental", 3, tracer=tracer)
+    torch.cuda.synchronize()
+    launches = {name: fn.n_launches for name, fn in kernels.items()}
+    print(f"[swarm] launches on the swarm path: {launches}; sweeps by run {sweeps_by_run}",
+          flush=True)
+    need(launches["dp_sweep"] > 0 and all(v == 0 for k, v in launches.items() if k != "dp_sweep"),
+         f"swarm path launches {launches}")
+
+    # CHURN: the policy table, S1 and S3, batched == sequential
+    for policy in PLANNER_POLICIES:
+        r = bat[f"churn {policy}"]
+        print(f"[swarm] churn {policy}: miss {r.deadline_miss_rate:.4f} (late "
+              f"{r.over_deadline_miss_rate:.4f}, outage {r.outage_rate:.4f}), rejection "
+              f"{r.rejection_rate:.4f}, p99 {r.p99_latency_s:.4f} s, served {r.served}, "
+              f"resolve wall {r.total_resolve_s * 1e3:.3f} ms over {len(r.epochs)} epochs, "
+              f"sim wall {walls[f'churn {policy}']:.3f} s, sweeps "
+              f"{sweeps_by_run[f'churn {policy}']}",
+              flush=True)
+        need(all(e.feasible for e in r.epochs), f"S3: churn {policy} broke a capacity")
+    mp, inc = bat["churn ould-mp"], bat["churn incremental"]
+    print(f"[swarm] S1: ould-mp miss {mp.deadline_miss_rate:.4f} < incremental "
+          f"{inc.deadline_miss_rate:.4f}", flush=True)
+    need(mp.deadline_miss_rate < inc.deadline_miss_rate, "S1: ould-mp does not out-serve "
+         "snapshot incremental under churn")
+    need(sweeps_by_run["churn incremental-sparse"] > 0, "churn: no sweep launched")
+    seq, _ = timed_sim(scn(SWARM_CHURN), "incremental-sparse")
+    same_sim(bat["churn incremental-sparse"], seq, "churn incremental-sparse")
+    print(f"[swarm] churn incremental-sparse: batched on the card == sequential (served "
+          f"{seq.served}, missed {seq.missed}, {len(seq.epochs)} epochs); resolve wall batched "
+          f"{bat['churn incremental-sparse'].total_resolve_s * 1e3:.3f} ms, sequential "
+          f"{seq.total_resolve_s * 1e3:.3f} ms", flush=True)
+
+    # OVERLOAD and N 1024: batched == sequential, walls and device times
+    for name, base in (("overload", SWARM_OVERLOAD), ("n1024", SWARM_N1024)):
+        b = bat[name]
+        need(sweeps_by_run[name] > 0, f"{name}: no sweep launched")
+        seq, seq_s = timed_sim(scn(base), "incremental-sparse")
+        same_sim(b, seq, name)
+        (again, _), us = sweep_launch_us(
+            torch, lambda: timed_sim(scn(base, **card), "incremental-sparse"))
+        same_sim(again, seq, f"{name} (profiled run)")
+        spied, calls = solve_batch_walls(
+            lambda: timed_sim(scn(base, **card), "incremental-sparse")[0])
+        same_sim(spied, seq, f"{name} (run with solve_batch timed)")
+        st = [e for e in b.epochs if e.n_active]
+        print(f"[swarm] {name}: batched on the card == sequential; sim wall batched "
+              f"{walls[name]:.3f} s, sequential {seq_s:.3f} s; total_resolve_s batched "
+              f"{b.total_resolve_s:.6f}, sequential {seq.total_resolve_s:.6f}; sweeps "
+              f"{sweeps_by_run[name]} (profiled run {len(us)}), device us a sweep median "
+              f"{statistics.median(us):.2f} (min {min(us):.2f}, max {max(us):.2f}); served "
+              f"{b.served}, missed {b.missed}, p99 {b.p99_latency_s:.4f} s; epochs with "
+              f"streams {len(st)}, active {[e.n_active for e in st]}, admitted "
+              f"{[e.n_admitted for e in st]}", flush=True)
+        print(f"[swarm] {name}: a third batched run with each solve_batch call timed: "
+              f"{len(calls)} calls, {sum(calls):.6f} s in them (median "
+              f"{statistics.median(calls) * 1e3:.4f} ms a call) of total_resolve_s "
+              f"{spied.total_resolve_s:.6f}; the rest of the re-solves (candidate "
+              f"selection, commits, the ladder) {spied.total_resolve_s - sum(calls):.6f} s",
+              flush=True)
+
+    # executed mode: the stages measured on the card, the analytic twin
+    twin, _ = timed_sim(scn(SWARM_EXEC), "incremental", 3)
+    sm = tracer.select("stage_measure")
+    ranges = [f"[{int(a)},{int(e)}) {d * 1e3:.3f} ms" for a, e, d in zip(sm["a0"], sm["a1"],
+                                                                       sm["dur"])]
+    print(f"[swarm] executed (LeNet stages measured on the card): served {executed.served} "
+          f"(analytic twin {twin.served}), warm starts {executed.warm_starts}, p99 "
+          f"{executed.p99_latency_s:.4f} s, sim wall {walls['executed']:.3f} s; "
+          f"{len(ranges)} stage ranges measured: {', '.join(ranges)}", flush=True)
+    need(executed.served == twin.served and executed.served > 0,
+         "executed mode: served differs from its analytic twin")
+    need(executed.warm_starts >= 1, "executed mode: no churn rejoin warmed the engine")
+    need(len(ranges) > 0 and bool(np.isfinite(executed.latencies).all()),
+         "executed mode: no stage measured or a latency not finite")
+    return launches
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1207,6 +1416,9 @@ def main() -> int:
     by_path["placement"], recs["dp_sweep"] = placement_phase(torch)
     torch.cuda.empty_cache()
     phase_done("place")
+    by_path["swarm"] = swarm_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("swarm")
     for name in SOURCES:
         need(any(launches[name] for launches in by_path.values()),
              f"{name} launched on no path")

@@ -10,16 +10,20 @@ placed CNN inference over a simulated pool with any registered planner.
         --planner ould-dp --pool-nodes 8
 
 ``--reduced`` runs the reference's small f32 shrink instead (the CPU path:
-``--reduced --device cpu``).  ``--execute`` places LeNet's requests (two
-hotspot camera nodes, 128 MB a node, so requests offload part of their
-path) over ``--pool-nodes`` nodes with ``--planner`` (``--sparse-k`` for the
-``*-sparse`` planners), runs the placed inference on ``--device`` through
-the execution engine with the in-process transport, then re-solves on the
-measured-calibrated profile and prints the predicted-vs-measured MAE before
-and after.  Waiting for the runtime slice (ROADMAP): the reference's
-LM-pool ``schedule_requests`` placement print (``runtime/serve.py``),
-``--transport loopback|multiproc``, ``--compile-cache`` and
-``--trace-out`` (which routes placement through ``AdmissionController``).
+``--reduced --device cpu``).  After generating, the launcher places the
+batch's requests (the model's full-width layer groups) over a simulated
+pool of ``--pool-nodes`` nodes with ``--planner`` (``--sparse-k`` for the
+``*-sparse`` planners) through ``schedule_requests`` and prints the plan.
+``--execute`` places LeNet's requests (two hotspot camera nodes, 128 MB a
+node, so requests offload part of their path) over the same pool, runs the
+placed inference on ``--device`` through the execution engine with the
+in-process transport, then re-solves on the measured-calibrated profile and
+prints the predicted-vs-measured MAE before and after.  ``--trace-out PATH``
+writes a Chrome/Perfetto trace of the run: under ``--execute`` the placement
+goes through ``AdmissionController`` (its solver span and per-request
+admission verdicts) and the engine's stage walls are traced, and the run's
+metrics are printed.  Waiting for their slices (ROADMAP):
+``--transport loopback|multiproc`` and ``--compile-cache``.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ import torch
 
 from .. import configs as C
 from ..device import resolve_device
+from ..core.radio import TpuLinkModel
 from ..models import init_params
-from ..runtime.serve import ServeConfig, Server
+from ..runtime.serve import AdmissionController, ServeConfig, Server, schedule_requests
 
 
 def main(argv: list[str] | None = None) -> np.ndarray:
@@ -56,7 +61,17 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     ap.add_argument("--execute", action="store_true",
                     help="run a placed LeNet inference through the execution engine and "
                          "report predicted vs measured latency (plus a calibrated re-solve)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto-loadable trace of this run "
+                         "(repro_torch.obs): solver/admission spans for the pool "
+                         "placement and engine stage walls under --execute")
     args = ap.parse_args(argv)
+
+    tracer = metrics = None
+    if args.trace_out:
+        from ..obs import MetricsRegistry, Tracer
+        tracer = Tracer()
+        metrics = MetricsRegistry()
 
     dev = resolve_device(args.device)
     cfg = C.get_config(args.arch)
@@ -73,23 +88,55 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] arch={args.arch} device={name} generated {out.shape} in "
           f"{wall:.3f}s: {out[0].tolist()}")
-    if args.execute:
-        execute_placed(args, dev)
-    return out
 
-
-def execute_placed(args, dev: torch.device) -> None:
-    """Plan-faithful execution: place LeNet over the pool with the chosen
-    planner, run it through the execution engine on ``dev``, then re-solve
-    on the measured-calibrated profile."""
-    from ..core import Problem, SnapshotView, get_planner, lenet_profile
-    from ..core.radio import TpuLinkModel
-    from ..exec import ExecutionEngine, calibrated_problem, compile_plan, layer_fns_for
-
+    # Place the batch's requests over a simulated pool with the chosen
+    # planner — provenance comes from the Plan, not a hard-coded label.
     link = TpuLinkModel()
     n = args.pool_nodes
     coords = np.stack([np.arange(n) % link.torus[0], np.arange(n) // link.torus[0]], -1)
     rates_bits = link.rate_matrix(coords, np.zeros(n, np.int64)) * 8.0
+    plan, ev = schedule_requests(
+        C.get_config(args.arch), n_nodes=n, requests=args.batch,
+        hbm_bytes=16e9 * 16, flops_budget=197e12 * 10,
+        rates_bits=rates_bits, planner=args.planner, sparse_k=args.sparse_k)
+    sparse = ""
+    if plan.solve_stats is not None and plan.solve_stats.k:
+        st = plan.solve_stats
+        sparse = (f" sparse[k={st.k} pruned={st.pruned_fraction:.2f} "
+                  f"dense_fallbacks={st.n_dense_fallback}]")
+    print(f"[serve] placement planner={plan.planner_name} "
+          f"view={plan.view_kind} status={plan.status} "
+          f"admitted={plan.n_admitted}/{args.batch} "
+          f"comm={ev.comm_latency_s * 1e6:.1f}us "
+          f"stages(req0)={len(plan.stages(0)) if plan.admitted[0] else 0}"
+          + sparse)
+
+    if args.execute:
+        execute_placed(args, dev, rates_bits, tracer, metrics)
+    if tracer is not None:
+        n_ev = tracer.export_chrome(args.trace_out)
+        print(f"[trace] wrote {n_ev} events to {args.trace_out} "
+              f"(n_dropped={tracer.n_dropped}) — load in ui.perfetto.dev")
+        if metrics.names():
+            snap = metrics.snapshot()
+            print("[trace] metrics: " + ", ".join(
+                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in snap.items() if not isinstance(v, dict)))
+    return out
+
+
+def execute_placed(args, dev: torch.device, rates_bits: np.ndarray,
+                   tracer=None, metrics=None) -> None:
+    """Plan-faithful execution: place LeNet over the pool with the chosen
+    planner (through ``AdmissionController`` when tracing), run it through
+    the execution engine on ``dev``, then re-solve on the measured-calibrated
+    profile."""
+    from ..core import Problem, SnapshotView, get_planner, lenet_profile
+    from ..exec import ExecutionEngine, calibrated_problem, compile_plan, layer_fns_for
+    from ..exec.stage_graph import trace_args
+    from ..obs import ENGINE
+
+    n = args.pool_nodes
     profile = lenet_profile()
     # Hotspot the frames on two camera nodes: lenet wants ~108 MB end to
     # end, so at 128 MB/node the co-sourced requests must offload part of
@@ -98,16 +145,33 @@ def execute_placed(args, dev: torch.device) -> None:
     prob = Problem(profile, np.full(n, 128e6), np.full(n, 95e9), rates_bits, sources,
                    compute_speed=np.full(n, 9.5e9))
     opts = dict(sparse_k=args.sparse_k, device=dev)
-    plan = get_planner(args.planner, **opts).plan(prob, SnapshotView(rates_bits))
+    if tracer is not None:
+        # Route placement through the controller so the trace carries the
+        # solver span + per-request admission verdicts.
+        plan = AdmissionController(args.planner, tracer=tracer, **opts).admit(
+            prob, SnapshotView(rates_bits), request_ids=list(range(args.batch)))
+    else:
+        plan = get_planner(args.planner, **opts).plan(prob, SnapshotView(rates_bits))
     graph = compile_plan(plan)
-    engine = ExecutionEngine(layer_fns_for(profile, device=dev), device=dev)
+    engine = ExecutionEngine(layer_fns_for(profile, device=dev), tracer=tracer,
+                             device=dev)
     frames = np.random.default_rng(0).standard_normal(
         (args.batch, 326, 595, 3)).astype(np.float32)
+    if tracer is not None:
+        t_round = tracer.now()
     report = engine.run(graph, frames, predicted_s=plan.evaluate().per_request_s)
+    if tracer is not None:
+        tracer.span(ENGINE, "execute_round", t_round, tracer.now() - t_round,
+                    args=trace_args(graph))
     cal_prob, recon = calibrated_problem(prob, report)
     replan = get_planner(args.planner, **opts).plan(cal_prob, SnapshotView(cal_prob.rates))
-    rereport = engine.run(compile_plan(replan), frames,
-                          predicted_s=replan.evaluate().per_request_s)
+    regraph = compile_plan(replan)
+    if tracer is not None:
+        t_round = tracer.now()
+    rereport = engine.run(regraph, frames, predicted_s=replan.evaluate().per_request_s)
+    if tracer is not None:
+        tracer.span(ENGINE, "execute_recal", t_round, tracer.now() - t_round,
+                    args=trace_args(regraph))
     mae0 = report.abs_error_s[list(report.outputs)].mean()
     mae1 = rereport.abs_error_s[list(rereport.outputs)].mean()
     print(f"[exec] planner={plan.planner_name} admitted={plan.n_admitted}/{args.batch} "
@@ -117,6 +181,16 @@ def execute_placed(args, dev: torch.device) -> None:
     print(f"[exec] {recon.summary()}")
     print(f"[exec] predicted-vs-measured MAE {mae0 * 1e3:.2f}ms -> "
           f"{mae1 * 1e3:.2f}ms after calibrated re-solve")
+    if metrics is not None:
+        metrics.counter("exec.tasks").inc(len(graph.tasks))
+        metrics.counter("exec.transfers").inc(len(graph.transfers))
+        metrics.counter("exec.admitted").inc(int(plan.n_admitted))
+        metrics.gauge("exec.executed_avg_s").set(
+            float(report.executed_s[list(report.outputs)].mean()))
+        metrics.gauge("exec.mae_s").set(float(mae0))
+        metrics.gauge("exec.mae_recal_s").set(float(mae1))
+        for (s, d), ls in sorted(engine.transport.link_stats.items()):
+            metrics.gauge(f"transport.link.{s}-{d}.bytes_per_s").set(ls.bytes_per_s)
 
 
 if __name__ == "__main__":

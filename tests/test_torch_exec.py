@@ -318,3 +318,23 @@ def test_launcher_executes_placed_lenet_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[exec] planner=ould-dp admitted=4/4" in out
     assert "after calibrated re-solve" in out
+
+
+def test_launcher_pool_placement_and_trace_out_on_cpu(capsys, tmp_path):
+    """The launcher prints the LM pool's placement (``schedule_requests``)
+    and, with ``--trace-out``, routes the placed run's placement through
+    ``AdmissionController`` and writes a trace holding its solver span,
+    admission verdicts and the engine's stage walls."""
+    import json
+    path = tmp_path / "trace.json"
+    launch_serve.main(["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "4",
+                       "--steps", "2", "--execute", "--pool-nodes", "8",
+                       "--planner", "ould-dp-sparse", "--trace-out", str(path)])
+    out = capsys.readouterr().out
+    assert "[serve] placement planner=ould-dp-sparse view=snapshot" in out
+    assert "admitted=2/2" in out and "sparse[k=4 " in out
+    assert "[trace] wrote" in out and "exec.mae_s=" in out
+    events = json.loads(path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    names = {e.get("name") for e in events}
+    assert {"solve", "admit", "stage", "execute_round", "execute_recal"} <= names

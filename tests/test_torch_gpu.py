@@ -535,3 +535,27 @@ def test_placed_lenet_run_equals_sequential_on_the_card(cuda):
     seq = engine.sequential_reference(frames, graph.requests)
     for r in graph.requests:
         assert np.abs(report.outputs[r] - seq[r]).max() <= 1e-4 * np.abs(seq[r]).max()
+
+
+def test_churn_swarm_batched_on_the_card_equals_sequential(cuda):
+    """benchmarks/bench_swarm.py's CHURN scenario (10 UAVs in two RPG groups,
+    churn, bottleneck queues) under incremental-sparse: the epoch re-solves
+    batched through the kernel serve exactly as the sequential ones, wall
+    fields and the first-launch count excepted."""
+    from repro_torch.runtime.swarm import SwarmScenario, simulate
+    churn = dict(arrival_rate_hz=0.3, mtbf_s=60.0, mttr_s=20.0, queue_model="bottleneck")
+    seq = simulate(SwarmScenario(**churn), "incremental-sparse", 0)
+    n0 = dp_sweep.n_launches
+    bat = simulate(SwarmScenario(**churn, batch_solve=True, device="cuda"),
+                   "incremental-sparse", 0)
+    assert dp_sweep.n_launches > n0
+    for f in ("n_arrivals", "n_never_admitted", "served", "missed", "outages", "dropped",
+              "degraded", "frames_rejected", "wait_total_s"):
+        assert getattr(bat, f) == getattr(seq, f), f
+    np.testing.assert_array_equal(bat.latencies, seq.latencies)
+    np.testing.assert_array_equal(bat.queue_demand_s, seq.queue_demand_s)
+    assert ([dataclasses.replace(e, solve_time_s=0.0) for e in bat.epochs]
+            == [dataclasses.replace(e, solve_time_s=0.0) for e in seq.epochs])
+    skip = ("solver.total_solve_s", "solver.jit_compiles")
+    assert ({k: v for k, v in bat.metrics.items() if k not in skip}
+            == {k: v for k, v in seq.metrics.items() if k not in skip})

@@ -51,7 +51,8 @@ def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, repro_torch.models, "
             "repro_torch.runtime, repro_torch.launch.serve, repro_torch.core, "
             "repro_torch.exec, repro_torch.models.cnn, repro_torch.obs, "
-            "repro_torch.transport\n"
+            "repro_torch.transport, repro_torch.core.events, repro_torch.core.ould_mp, "
+            "repro_torch.runtime.queueing, repro_torch.runtime.swarm\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
