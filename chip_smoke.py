@@ -60,9 +60,29 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                OULD on CHURN (the benchmark's S1) and every epoch is
                feasible (S3), executed mode serves as its analytic twin and
                warms its engine on a churn rejoin; the policies' miss,
-               rejection and p99, the walls, and the sweeps' device µs are
-               printed.
-  7. report  — a ``kernels`` JSON line, the card line, and as the last line
+               rejection and p99, the walls, the sweeps' device µs and the
+               bound of each batched call's sweep are printed.
+  7. transport — the byte-moving transports.  With every launch count set
+               to 0: executed mode (``SWARM_EXEC``, seed 3) under
+               ``incremental-sparse`` with its re-solves batched on the card,
+               over ``loopback`` (plain worker processes) and ``multiproc``
+               (torch workers landing each activation on the card); the
+               counts are read just after.  Then the gates: each run equals
+               its ``inproc`` twin and its sequential twin field by field
+               (walls, the transport's name and bandwidths excepted), links
+               are sampled at rates above 0, the worker pids differ from
+               ours, the multiproc workers report ``cuda`` and the card's
+               name, placed LeNet through both transports equals the
+               in-process run bit for bit on four 326×595×3 frames, and the
+               transport CLI round-trips f32, bf16 and int32 tensors through
+               multiproc workers on the card byte for byte.  Printed: the
+               realized MB/s per link, ship walls by payload, the workers'
+               recv and echo shares and startup, and from a child process
+               (``chip_smoke.py --warm-child``) pointed at the populated
+               build directory the CUDA context, ``measure_warm_start`` over
+               LeNet's [(0, 3), (3, 7)] and the first ``dp_sweep`` launch (a
+               load, no nvcc) beside the build phase's nvcc wall.
+  8. report  — a ``kernels`` JSON line, the card line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each phase prints the seconds it took.
@@ -74,6 +94,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1238,23 +1259,33 @@ def sweep_launch_us(torch, fn) -> list:
 
 
 def solve_batch_walls(run) -> tuple:
-    """``run()``'s result and the host wall of each ``batch_dp.solve_batch``
+    """``run()``'s result, the host wall of each ``batch_dp.solve_batch``
     call it made (copies in, the sweep, copy back, backtrack; synchronised
-    by the copy back), by a spy around the function the solvers call."""
+    by the copy back), by a spy around the function the solvers call, and
+    each call's sweep as (bound us, rows, M, k, its rows for ``sweep_args``),
+    sorted by bound: the larger of ``sweep_bound_ms``'s bytes and operations
+    times over the rows the call was given (its padding rows are no work the
+    solve needs)."""
     from repro_torch.core import batch_dp
-    real, walls = batch_dp.solve_batch, []
+    real, walls, sweeps = batch_dp.solve_batch, [], []
 
-    def spy(*args, **kw):
+    def spy(spb, Ks, cc, srcs, cand, valid, consts, *args, **kw):
         t0 = time.perf_counter()
-        out = real(*args, **kw)
+        out = real(spb, Ks, cc, srcs, cand, valid, consts, *args, **kw)
         walls.append(time.perf_counter() - t0)
+        sweeps.append(dict(spb=spb, Kv=consts[0], Ks=float(Ks), srcs=srcs.copy(),
+                           cand=cand.copy(), valid=np.array(valid, bool), cc=cc))
         return out
 
     batch_dp.solve_batch = spy
     try:
-        return run(), walls
+        result = run()
     finally:
         batch_dp.solve_batch = real
+    # bounds after the run: the re-solve walls it measures must not hold them
+    return result, walls, sorted(
+        ((max(sweep_bound_ms(rows, rows["cc"] is not None)) * 1e3, *rows["cand"].shape, rows)
+         for rows in sweeps), key=lambda x: x[0])
 
 
 def swarm_phase(torch) -> dict:
@@ -1264,7 +1295,10 @@ def swarm_phase(torch) -> dict:
     measuring LeNet's stages on the card; the counts are read just after.
     Then the gates: each batched run equals its sequential run
     (batch_solve=False) field by field, walls excepted; S1 and S3 on CHURN;
-    executed mode serves as its analytic twin and warms on a churn rejoin."""
+    executed mode serves as its analytic twin and warms on a churn rejoin;
+    the median-bound batched call's rows of OVERLOAD and N 1024 are swept
+    again, kernel against plain, and timed."""
+    from repro_torch.kernels import ref
     from repro_torch.obs import Tracer
     from repro_torch.runtime.swarm import PLANNER_POLICIES, SwarmScenario
     kernels = all_kernels()
@@ -1330,9 +1364,17 @@ def swarm_phase(torch) -> dict:
         (again, _), us = sweep_launch_us(
             torch, lambda: timed_sim(scn(base, **card), "incremental-sparse"))
         same_sim(again, seq, f"{name} (profiled run)")
-        spied, calls = solve_batch_walls(
+        spied, calls, shapes = solve_batch_walls(
             lambda: timed_sim(scn(base, **card), "incremental-sparse")[0])
         same_sim(spied, seq, f"{name} (run with solve_batch timed)")
+        mid = shapes[len(shapes) // 2]
+        # the median-bound call's rows again, kernel against plain (off the path's counts)
+        args = sweep_args(torch, mid[4], mid[4]["cc"] is not None)
+        got, want = dp_sweep(*args), ref.dp_sweep(*args)
+        need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+             f"{name}: the median call's sweep differs from its plain version")
+        mid_ms = time_ms([lambda: dp_sweep(*args)], reps=7, inner=50)
+        mid_plain = time_ms([lambda: ref.dp_sweep(*args)], reps=5, inner=5)
         st = [e for e in b.epochs if e.n_active]
         print(f"[swarm] {name}: batched on the card == sequential; sim wall batched "
               f"{walls[name]:.3f} s, sequential {seq_s:.3f} s; total_resolve_s batched "
@@ -1348,6 +1390,13 @@ def swarm_phase(torch) -> dict:
               f"{spied.total_resolve_s:.6f}; the rest of the re-solves (candidate "
               f"selection, commits, the ladder) {spied.total_resolve_s - sum(calls):.6f} s",
               flush=True)
+        print(f"[swarm] {name}: sweep bound a call (bytes / {PEAK_BYTES / 1e12:.2f} TB/s or "
+              f"f64 operations / {PEAK_F64 / 1e12:.0f} TFLOP/s, the larger, over the rows "
+              f"each call was given): median {mid[0]:.4g} us at {mid[1]} rows x M {mid[2]} x "
+              f"k {mid[3]}, min {shapes[0][0]:.4g} us ({shapes[0][1]} rows), max "
+              f"{shapes[-1][0]:.4g} us ({shapes[-1][1]} rows); that call's rows again: "
+              f"kernel == plain bit for bit, kernel {mid_ms:.4f} ms, plain {mid_plain:.4f} ms "
+              f"(eager, CUDA events)", flush=True)
 
     # executed mode: the stages measured on the card, the analytic twin
     twin, _ = timed_sim(scn(SWARM_EXEC), "incremental", 3)
@@ -1363,6 +1412,253 @@ def swarm_phase(torch) -> dict:
     need(executed.warm_starts >= 1, "executed mode: no churn rejoin warmed the engine")
     need(len(ranges) > 0 and bool(np.isfinite(executed.latencies).all()),
          "executed mode: no stage measured or a latency not finite")
+    return launches
+
+
+# The transport phase: SWARM_EXEC (seed 3, whose churn rejoins warm the
+# engine) under incremental-sparse with its re-solves batched on the card
+# and executed mode, over each byte-moving transport.  Executed mode serves
+# on stage walls measured on the card, so there the latencies and what is
+# computed from them (over-deadline misses, queue waits, node demand) are
+# walls too.
+TRANSPORT_RUNS = ("loopback", "multiproc")
+EXEC_WALL_FIELDS = ("latencies", "missed", "wait_total_s", "queue_demand_s")
+EXEC_WALL_METRICS = ("sim.latency_s", "sim.missed", "sim.wait_total_s", "queue.max_demand_s")
+# Ship walls by payload (bytes, f32 tensors on the card), each the median
+# of SHIP_REPS ships; LeNet's boundary activations at 326x595 run from 480 B
+# (fc1) to 4.57 MB (conv1's output).
+SHIP_BYTES = (4 << 10, 64 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20)
+SHIP_REPS = 5
+WARM_RANGES = ((0, 3), (3, 7))
+
+
+def same_executed(a, b, what: str, links: bool = True) -> None:
+    """Two executed-mode SimResults equal field by field but for walls, the
+    transport's name and bandwidth values: the same completions, decisions
+    and counters, and, where ``links`` (both runs moved bytes), the same
+    sampled links."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name in EXEC_WALL_FIELDS + ("transport",):
+            if f.name == "latencies":
+                need(x.size == y.size and bool(np.isfinite(x).all()),
+                     f"{what}: {x.size} completions against {y.size}")
+            continue
+        if f.name == "link_bytes_per_s":
+            need(not links or x.keys() == y.keys(), f"{what}: links {sorted(x)} against "
+                 f"{sorted(y)}")
+            continue
+        if f.name == "epochs":
+            x = [dataclasses.replace(e, solve_time_s=0.0) for e in x]
+            y = [dataclasses.replace(e, solve_time_s=0.0) for e in y]
+        elif f.name == "metrics":
+            need(x["sim.latency_s"]["count"] == y["sim.latency_s"]["count"],
+                 f"{what}: latency histogram counts differ")
+
+            def keep(m):
+                return {k: v for k, v in m.items()
+                        if k not in SWARM_WALL_METRICS + EXEC_WALL_METRICS
+                        and not k.startswith("transport.link.")}
+            x, y = keep(x), keep(y)
+        same = (np.array_equal(x, y) and x.dtype == y.dtype if isinstance(x, np.ndarray)
+                else x == y)
+        need(same, f"{what}: field {f.name} differs")
+
+
+def ship_table(torch, tp, what: str) -> None:
+    """Start ``tp`` (timed: the workers' startup), ship 4 KB once to each
+    worker, then f32 tensors on the card of each SHIP_BYTES size; print the
+    median wall and rate by size and the workers' recv/echo shares of all
+    the ship walls."""
+    t0 = time.perf_counter()
+    tp.start()
+    startup = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    try:
+        for w in range(tp.n_workers):          # each connection's first ship, off the table
+            tp.ship(0, w, torch.zeros(1024, device="cuda"))
+        for nb in SHIP_BYTES:
+            x = torch.randn(nb // 4, generator=gen, device="cuda")
+            walls = []
+            for i in range(SHIP_REPS):
+                res = tp.ship(0, 1 + i % tp.n_workers, x)
+                need(res.array.device == x.device and torch.equal(res.array, x),
+                     f"{what}: a {nb} B ship came back different")
+                walls.append(res.wall_s)
+            med = statistics.median(walls)
+            rows.append(f"{nb} B {med * 1e3:.3f} ms ({nb / med / 1e6:.0f} MB/s)")
+        ws = tp.worker_stats.values()
+        wall = sum(ls.wall_s for ls in tp.link_stats.values())
+        recv, echo = sum(w.recv_s for w in ws), sum(w.echo_s for w in ws)
+        backends = f", backends {tp.worker_backends} {tp.worker_devices}" if tp.device else ""
+    finally:
+        tp.close()
+    print(f"[transport] {what}: {tp.n_workers} workers (pids {tp.worker_pids}, parent "
+          f"{os.getpid()}{backends}) started in {startup:.3f} s; ship wall median of "
+          f"{SHIP_REPS} by payload (card -> host -> worker -> host -> card): {', '.join(rows)}; "
+          f"worker recv {recv / wall:.3f} and echo {echo / wall:.3f} of {wall:.3f} s of ship "
+          f"walls", flush=True)
+
+
+def warm_child() -> int:
+    """``chip_smoke.py --warm-child``: a fresh process on the card, its build
+    directory already populated by the parent.  Times the CUDA context,
+    measure_warm_start over LeNet's WARM_RANGES, and the first dp_sweep
+    launch (a library load, no nvcc) beside a second one; prints one JSON
+    line."""
+    import torch
+    from repro_torch.exec import measure_warm_start
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.dp_sweep import dp_sweep
+    from repro_torch.models import cnn
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    context_s = time.perf_counter() - t0
+    missing = [s.name for s in build.CSRC.glob("*.cu") if not build._lib_path(s).exists()]
+    need(not missing, f"warm child: {missing} not built in {build.BUILD_DIR}")
+    params = cnn.lenet_init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    frame = np.random.default_rng(SEED).standard_normal(FRAME_HW).astype(np.float32)
+    rep = measure_warm_start(cnn.lenet_layers(params), WARM_RANGES, frame,
+                             cache_dir=build.BUILD_DIR)
+    args = sweep_args(torch, first_rows(swarm_problem(*SWARMS["lenet N1024 (S7)"])), False)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dp_sweep(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    want = ref.dp_sweep(*args)
+    need(torch.equal(out[0], want[0]) and torch.equal(out[1], want[1]),
+         "warm child: dp_sweep differs from its plain version")
+    print(json.dumps({"context_s": context_s, "cold_s": rep.cold_s, "warm_s": rep.warm_s,
+                      "first_sweep_s": walls[0], "second_sweep_s": walls[1]}), flush=True)
+    return 0
+
+
+def transport_phase(torch, build_s: float) -> dict:
+    """Executed mode over the byte-moving transports with every launch count
+    at 0: SWARM_EXEC under incremental-sparse, re-solves batched on the card,
+    over loopback and multiproc; the counts are read just after.  Then the
+    gates: each run equal to its inproc twin and to its sequential twin
+    (walls, transport and bandwidths excepted), links sampled, worker pids
+    apart from ours, multiproc workers on the card; placed LeNet through both
+    transports bitwise equal to inproc; the transport CLI's f32 / bf16 /
+    int32 round trips through multiproc workers on the card.  Then the
+    figures: bandwidth per link, ship walls by payload, worker shares and
+    startup, and the warm-start child."""
+    from repro_torch import exec as X
+    from repro_torch import transport as TT
+    from repro_torch.runtime.swarm import SwarmScenario
+    kernels = all_kernels()
+    dp_sweep = kernels["dp_sweep"]
+    made: list = []                          # (transport name, object) the swarm built
+    real = TT.make_transport
+
+    def spy(name, **kw):
+        tp = real(name, **kw)
+        made.append((name, tp))
+        return tp
+
+    def scn(name, batched=True):
+        return SwarmScenario(**SWARM_EXEC, execute=True, batch_solve=batched, device="cuda",
+                             transport=name)
+
+    TT.make_transport = spy
+    try:
+        for fn in kernels.values():
+            fn.n_launches = 0
+        torch.cuda.synchronize()
+        runs, walls, sweeps_by_run = {}, {}, {}
+        for name in TRANSPORT_RUNS:                 # the main path
+            n0 = dp_sweep.n_launches
+            runs[name], walls[name] = timed_sim(scn(name), "incremental-sparse", 3)
+            sweeps_by_run[name] = dp_sweep.n_launches - n0
+        torch.cuda.synchronize()
+        launches = {name: fn.n_launches for name, fn in kernels.items()}
+        swarm_tps = dict(made)
+        print(f"[transport] launches on the transport path: {launches}; sweeps by run "
+              f"{sweeps_by_run}", flush=True)
+        need(launches["dp_sweep"] > 0 and all(sweeps_by_run.values())
+             and all(v == 0 for k, v in launches.items() if k != "dp_sweep"),
+             f"transport path launches {launches}, sweeps by run {sweeps_by_run}")
+        twin, twin_s = timed_sim(scn("inproc"), "incremental-sparse", 3)
+        for name in TRANSPORT_RUNS:
+            r, tp = runs[name], swarm_tps[name]
+            seq, seq_s = timed_sim(scn(name, batched=False), "incremental-sparse", 3)
+            same_executed(r, twin, f"{name} against its inproc twin", links=False)
+            same_executed(r, seq, f"{name} against its sequential twin")
+            need(r.transport == name and r.link_bytes_per_s
+                 and all(bw > 0 for bw in r.link_bytes_per_s.values()),
+                 f"{name}: transport {r.transport}, links {r.link_bytes_per_s}")
+            need(len(set(tp.worker_pids)) == tp.n_workers and os.getpid() not in tp.worker_pids,
+                 f"{name}: worker pids {tp.worker_pids}, parent {os.getpid()}")
+            if name == "multiproc":
+                need(tp.worker_backends == ["cuda"] * tp.n_workers and tp.worker_devices
+                     == [torch.cuda.get_device_name(0)] * tp.n_workers,
+                     f"multiproc workers reached {tp.worker_backends} {tp.worker_devices}")
+            ws = tp.worker_stats.values()
+            print(f"[transport] swarm {name}: == inproc twin and == sequential twin (served "
+                  f"{r.served}, {r.latencies.size} completions, {len(r.epochs)} epochs, warm "
+                  f"starts {r.warm_starts}); sim wall {walls[name]:.3f} s (inproc twin "
+                  f"{twin_s:.3f}, sequential {seq_s:.3f}); {tp.n_workers} workers, pids "
+                  f"{tp.worker_pids} (parent {os.getpid()}), backends {tp.worker_backends} "
+                  f"{tp.worker_devices}; realized MB/s by link "
+                  f"{ {k: round(v / 1e6, 1) for k, v in r.link_bytes_per_s.items()} }; "
+                  f"{sum(w.n for w in ws)} ships, worker recv {sum(w.recv_s for w in ws):.6f} "
+                  f"s, echo {sum(w.echo_s for w in ws):.6f} s", flush=True)
+    finally:
+        TT.make_transport = real
+
+    # placed LeNet through both transports, bitwise equal to inproc
+    run = placed_setup(torch, "lenet")
+    ref = run["engine"].run(run["graph"], run["frames"])
+    for name in TRANSPORT_RUNS:
+        with real(name, n_workers=2, device="cuda") as tp:
+            eng = X.ExecutionEngine(run["layers"](run["params"]), transport=tp, device="cuda")
+            rep = eng.run(run["graph"], run["frames"])
+            bw = {k: round(v.bytes_per_s / 1e6, 1) for k, v in sorted(tp.link_stats.items())}
+        need(sorted(rep.outputs) == sorted(ref.outputs)
+             and all(np.array_equal(rep.outputs[r], ref.outputs[r]) for r in ref.outputs),
+             f"placed lenet over {name}: outputs differ from inproc")
+        print(f"[transport] placed lenet over {name}: {len(rep.transfers)} transfers, outputs "
+              f"bitwise equal to inproc on {FRAMES} frames {FRAME_HW}; hop walls "
+              f"{[f'{t.serialize_s * 1e3:.3f} ms' for t in rep.transfers]} (inproc "
+              f"{[f'{t.serialize_s * 1e3:.3f} ms' for t in ref.transfers]}); MB/s by link "
+              f"{bw}", flush=True)
+
+    # the CLI's round trips through multiproc workers on the card
+    cmd = [sys.executable, "-m", "repro_torch.transport", "--multiproc", "--device", "cuda",
+           "--workers", "2", "--mb", "4", "--ships", "3"]
+    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=300)
+    print("\n".join(f"[transport] cli: {s}" for s in r.stdout.splitlines()), flush=True)
+    need(r.returncode == 0 and "byte-exact" in r.stdout
+         and "(float32, bfloat16, int32)" in r.stdout
+         and "worker backends: ['cuda', 'cuda']" in r.stdout,
+         f"transport CLI failed (rc {r.returncode}): {r.stderr[-2000:]}")
+
+    # figures: ship walls by payload, worker shares and startup
+    ship_table(torch, real("loopback", n_workers=2), "loopback (plain workers)")
+    ship_table(torch, real("multiproc", n_workers=2, device="cuda"),
+               "multiproc (torch workers on the card)")
+
+    # the warm-start layer in a fresh process
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--warm-child"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    need(r.returncode == 0, f"warm child failed (rc {r.returncode}): {r.stderr[-2000:]}")
+    w = json.loads(r.stdout.strip().splitlines()[-1])
+    built = (f"this run's nvcc build took {build_s:.1f} s" if build_s > 0 else
+             "the build phase found every library already built, so this run has no nvcc "
+             "wall to set beside it")
+    print(f"[transport] warm child: CUDA context {w['context_s']:.3f} s; measure_warm_start "
+          f"LeNet {list(WARM_RANGES)}: cold {[round(x * 1e3, 3) for x in w['cold_s']]} ms, warm "
+          f"(after clear_in_memory) {[round(x * 1e3, 3) for x in w['warm_s']]} ms; first "
+          f"dp_sweep launch from the populated build directory (load, no nvcc) "
+          f"{w['first_sweep_s'] * 1e3:.3f} ms, second {w['second_sweep_s'] * 1e3:.3f} ms; "
+          f"{built}", flush=True)
     return launches
 
 
@@ -1399,8 +1695,9 @@ def main() -> int:
         t_phase = now
 
     resolve_device("cuda")  # TF32 off for the plain f32 comparisons
-    print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
-          f"{build.build_all():.1f} s", flush=True)
+    build_s = build.build_all()
+    print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: {build_s:.1f} s"
+          + ("" if build_s > 0 else " (every library already built)"), flush=True)
     tensor_core_count()
     phase_done("build")
 
@@ -1419,6 +1716,9 @@ def main() -> int:
     by_path["swarm"] = swarm_phase(torch)
     torch.cuda.empty_cache()
     phase_done("swarm")
+    by_path["transport"] = transport_phase(torch, build_s)
+    torch.cuda.empty_cache()
+    phase_done("transport")
     for name in SOURCES:
         need(any(launches[name] for launches in by_path.values()),
              f"{name} launched on no path")
@@ -1441,4 +1741,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(warm_child() if sys.argv[1:] == ["--warm-child"] else main())

@@ -16,6 +16,10 @@ tick by tick in topological order, on one device (the card by default):
   ``InProcTransport`` adds the analytic link delay
   (``Problem.transfer_cost()`` — the exact coefficient OULD minimized) to
   the *measured* host serialization wall (synchronise and copy to host).
+  The ``loopback`` / ``multiproc`` backends move the real activation bytes
+  through worker OS processes and hand the consuming stage the
+  reconstructed tensor, so the measured hop wall is a realized link sample
+  (per-link bandwidth accumulates on the transport for comm calibration).
 
 Walls are host clock readings between ``torch.cuda.synchronize()`` calls
 (the reference's ``block_until_ready``).  ``executed latency`` of a request
@@ -65,7 +69,9 @@ class TransferRecord:
     layer: int
     nbytes: float
     delay_s: float        # modeled: nbytes × spb[src, dst]
-    serialize_s: float    # measured: the transport hop wall
+    serialize_s: float    # measured: the transport hop wall (host copy
+                          #   for inproc; serialize + socket round trip +
+                          #   reconstruct + device copy for loopback/multiproc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,7 +257,7 @@ class ExecutionEngine:
                 if tr is None:
                     continue
                 res = self.transport.ship(tr.src_node, tr.dst_node, acts[r])
-                acts[r] = res.array
+                acts[r] = self._put(res.array)   # a no-op for a tensor on the device
                 records.append(TransferRecord(
                     tr.request, tr.src_node, tr.dst_node, tr.layer,
                     tr.nbytes, tr.delay_s, res.wall_s))

@@ -6,6 +6,10 @@ source, so an edited source is rebuilt and a stale library is never loaded).
 All missing libraries are built together, one ``nvcc`` process per source, the
 first time any kernel is launched.  Nothing here runs at import time: the CPU
 tests import every module on a machine with no ``nvcc``.
+
+The build directory is the kernels' only compile cache that persists on disk
+(the warm-start layer, ``exec/compile_cache.py``): :func:`set_build_dir`
+re-points it and drops the handles loaded from the old one.
 """
 
 from __future__ import annotations
@@ -23,12 +27,28 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
-BUILD_DIR = pathlib.Path(__file__).with_name("_build")
+DEFAULT_BUILD_DIR = pathlib.Path(__file__).with_name("_build")   # gitignored
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def set_build_dir(path: str | os.PathLike) -> pathlib.Path:
+    """Build and load the libraries in ``path`` from now on.  Drops the
+    loaded libraries (``load``'s table) and the declared functions
+    (``function``'s cache): a handle kept from the old directory would go on
+    serving every launch, and the re-point would be a silent no-op.  ``path``
+    equal to the current directory only drops them."""
+    global BUILD_DIR
+    path = pathlib.Path(path)
+    with _lock:
+        BUILD_DIR = path
+        _libs.clear()
+        function.cache_clear()
+    return path
 
 
 def _nvcc() -> str:

@@ -16,14 +16,19 @@ pool of ``--pool-nodes`` nodes with ``--planner`` (``--sparse-k`` for the
 ``*-sparse`` planners) through ``schedule_requests`` and prints the plan.
 ``--execute`` places LeNet's requests (two hotspot camera nodes, 128 MB a
 node, so requests offload part of their path) over the same pool, runs the
-placed inference on ``--device`` through the execution engine with the
-in-process transport, then re-solves on the measured-calibrated profile and
-prints the predicted-vs-measured MAE before and after.  ``--trace-out PATH``
-writes a Chrome/Perfetto trace of the run: under ``--execute`` the placement
-goes through ``AdmissionController`` (its solver span and per-request
-admission verdicts) and the engine's stage walls are traced, and the run's
-metrics are printed.  Waiting for their slices (ROADMAP):
-``--transport loopback|multiproc`` and ``--compile-cache``.
+placed inference on ``--device`` through the execution engine, its
+boundary transfers routed through ``--transport`` (``inproc``: modeled
+delay, the default; ``loopback``: ``--transport-workers`` worker OS
+processes over sockets; ``multiproc``: torch worker processes landing each
+activation on ``--device``), then re-solves on the measured-calibrated
+profile — and, with a byte-moving transport, on the realized link bandwidth
+— and prints the predicted-vs-measured MAE before and after.
+``--compile-cache DIR`` points the kernels' build directory at ``DIR``
+(``exec/compile_cache.py``).  ``--trace-out PATH`` writes a Chrome/Perfetto
+trace of the run: under ``--execute`` the placement goes through
+``AdmissionController`` (its solver span and per-request admission
+verdicts), the engine's stage walls and the transport's shipments are
+traced, and the run's metrics are printed.
 """
 
 from __future__ import annotations
@@ -61,10 +66,24 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     ap.add_argument("--execute", action="store_true",
                     help="run a placed LeNet inference through the execution engine and "
                          "report predicted vs measured latency (plus a calibrated re-solve)")
+    ap.add_argument("--transport", default="inproc",
+                    choices=("inproc", "loopback", "multiproc"),
+                    help="byte-moving backend for --execute transfers: inproc = "
+                         "modeled delay (default), loopback = worker OS processes "
+                         "over sockets, multiproc = torch worker processes landing "
+                         "each activation on --device; non-inproc backends also "
+                         "calibrate the rates from realized bandwidth before the "
+                         "re-solve")
+    ap.add_argument("--transport-workers", type=int, default=2)
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="the kernels' build directory (repro_torch.exec.compile_cache): "
+                         "a later run loads the built kernels from it instead of "
+                         "compiling them")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto-loadable trace of this run "
                          "(repro_torch.obs): solver/admission spans for the pool "
-                         "placement and engine stage walls under --execute")
+                         "placement, engine stage walls and transport shipments "
+                         "under --execute")
     args = ap.parse_args(argv)
 
     tracer = metrics = None
@@ -129,13 +148,18 @@ def execute_placed(args, dev: torch.device, rates_bits: np.ndarray,
                    tracer=None, metrics=None) -> None:
     """Plan-faithful execution: place LeNet over the pool with the chosen
     planner (through ``AdmissionController`` when tracing), run it through
-    the execution engine on ``dev``, then re-solve on the measured-calibrated
-    profile."""
+    the execution engine on ``dev`` with every transfer routed through
+    ``--transport``, then re-solve on the measured-calibrated profile (and,
+    with a byte-moving transport, on realized link bandwidth)."""
     from ..core import Problem, SnapshotView, get_planner, lenet_profile
-    from ..exec import ExecutionEngine, calibrated_problem, compile_plan, layer_fns_for
+    from ..exec import (ExecutionEngine, calibrated_problem, compile_cache, compile_plan,
+                        layer_fns_for)
     from ..exec.stage_graph import trace_args
     from ..obs import ENGINE
+    from ..transport import make_transport
 
+    if args.compile_cache:
+        compile_cache.enable(args.compile_cache)
     n = args.pool_nodes
     profile = lenet_profile()
     # Hotspot the frames on two camera nodes: lenet wants ~108 MB end to
@@ -153,25 +177,32 @@ def execute_placed(args, dev: torch.device, rates_bits: np.ndarray,
     else:
         plan = get_planner(args.planner, **opts).plan(prob, SnapshotView(rates_bits))
     graph = compile_plan(plan)
-    engine = ExecutionEngine(layer_fns_for(profile, device=dev), tracer=tracer,
-                             device=dev)
+    transport = make_transport(args.transport, n_workers=args.transport_workers, device=dev)
+    engine = ExecutionEngine(layer_fns_for(profile, device=dev), transport=transport,
+                             tracer=tracer, device=dev)
     frames = np.random.default_rng(0).standard_normal(
         (args.batch, 326, 595, 3)).astype(np.float32)
-    if tracer is not None:
-        t_round = tracer.now()
-    report = engine.run(graph, frames, predicted_s=plan.evaluate().per_request_s)
-    if tracer is not None:
-        tracer.span(ENGINE, "execute_round", t_round, tracer.now() - t_round,
-                    args=trace_args(graph))
-    cal_prob, recon = calibrated_problem(prob, report)
-    replan = get_planner(args.planner, **opts).plan(cal_prob, SnapshotView(cal_prob.rates))
-    regraph = compile_plan(replan)
-    if tracer is not None:
-        t_round = tracer.now()
-    rereport = engine.run(regraph, frames, predicted_s=replan.evaluate().per_request_s)
-    if tracer is not None:
-        tracer.span(ENGINE, "execute_recal", t_round, tracer.now() - t_round,
-                    args=trace_args(regraph))
+    moving = args.transport != "inproc"
+    try:
+        if tracer is not None:
+            t_round = tracer.now()
+        report = engine.run(graph, frames, predicted_s=plan.evaluate().per_request_s)
+        if tracer is not None:
+            tracer.span(ENGINE, "execute_round", t_round, tracer.now() - t_round,
+                        args=trace_args(graph))
+        cal_prob, recon = calibrated_problem(prob, report,
+                                             transport=transport if moving else None)
+        replan = get_planner(args.planner, **opts).plan(cal_prob,
+                                                        SnapshotView(cal_prob.rates))
+        regraph = compile_plan(replan)
+        if tracer is not None:
+            t_round = tracer.now()
+        rereport = engine.run(regraph, frames, predicted_s=replan.evaluate().per_request_s)
+        if tracer is not None:
+            tracer.span(ENGINE, "execute_recal", t_round, tracer.now() - t_round,
+                        args=trace_args(regraph))
+    finally:
+        transport.close()
     mae0 = report.abs_error_s[list(report.outputs)].mean()
     mae1 = rereport.abs_error_s[list(rereport.outputs)].mean()
     print(f"[exec] planner={plan.planner_name} admitted={plan.n_admitted}/{args.batch} "
@@ -179,6 +210,13 @@ def execute_placed(args, dev: torch.device, rates_bits: np.ndarray,
           f"transfers={len(graph.transfers)} "
           f"executed_avg={report.executed_s[list(report.outputs)].mean():.4f}s")
     print(f"[exec] {recon.summary()}")
+    if moving:
+        bw = ", ".join(f"{s}->{d}: {ls.bytes_per_s / 1e6:.0f} MB/s"
+                       for (s, d), ls in sorted(transport.link_stats.items()))
+        print(f"[exec] transport={args.transport} "
+              f"workers={sorted(set(transport.worker_pids))} "
+              f"moved={transport.moved_bytes / 1e6:.1f}MB ({bw})")
+        print(f"[exec] re-solve priced comm from {replan.problem.comm_source!r}")
     print(f"[exec] predicted-vs-measured MAE {mae0 * 1e3:.2f}ms -> "
           f"{mae1 * 1e3:.2f}ms after calibrated re-solve")
     if metrics is not None:
@@ -189,7 +227,7 @@ def execute_placed(args, dev: torch.device, rates_bits: np.ndarray,
             float(report.executed_s[list(report.outputs)].mean()))
         metrics.gauge("exec.mae_s").set(float(mae0))
         metrics.gauge("exec.mae_recal_s").set(float(mae1))
-        for (s, d), ls in sorted(engine.transport.link_stats.items()):
+        for (s, d), ls in sorted(transport.link_stats.items()):
             metrics.gauge(f"transport.link.{s}-{d}.bytes_per_s").set(ls.bytes_per_s)
 
 

@@ -65,19 +65,19 @@ horizon for ``ould-mp``, the fresh snapshot otherwise) and calls ``plan()``
 through one :class:`~repro_torch.runtime.serve.AdmissionController`.
 
 The port's copy of ``repro/runtime/swarm.py``.  The simulation is numpy on
-the host, as in the reference, and differs from it only where the card or
-an unported module is involved:
+the host, as in the reference, and differs from it only where the card is
+involved:
 
 * :attr:`SwarmScenario.device` (default ``"cuda"``) is read only where a run
   needs the card: the epoch re-solves' batched sweep (``batch_solve=True``:
-  the hand-written ``dp_sweep`` kernel, through the planner) and executed
-  mode's stage measurements (the engine and its layer functions).  A run
+  the hand-written ``dp_sweep`` kernel, through the planner), executed
+  mode's stage measurements (the engine and its layer functions) and its
+  ``multiproc`` workers, which land each shipped activation there.  A run
   with neither flag needs no card; with either, ``"cuda"`` raises where
   there is none and ``"cpu"`` runs the plain versions;
-* ``compile_cache_dir`` and executed mode with a ``transport`` other than
-  ``"inproc"`` raise :class:`NotImplementedError` before anything runs: the
-  compile cache and the byte-moving transports are not ported yet (ROADMAP
-  Queue 1).  Neither falls back to the in-process path;
+* ``compile_cache_dir`` re-points the kernels' build directory
+  (:mod:`repro_torch.exec.compile_cache`), where the port's only compile
+  that persists on disk lives;
 * the ``solver.jit_compiles`` metric keeps its name and counts the epoch
   re-solves' sweep launches at a padded shape not launched before
   (``ResolveStats.n_jit_compiles``).
@@ -186,14 +186,18 @@ class SwarmScenario:
     # analytic c_j/speed term; link delays stay priced per realized tick.
     execute: bool = False
     frame_hw: tuple[int, int, int] = (326, 595, 3)
-    # Byte-moving substrate for executed mode: "inproc" keeps the
-    # modeled-delay path.  The reference's "loopback"/"multiproc" (worker OS
-    # processes shipping each newly-seen stage-boundary activation, so
-    # SimResult carries realized substrate bandwidth per link) are not
-    # ported yet: executed mode raises on them.
+    # Byte-moving substrate for executed mode (repro_torch.transport):
+    # "inproc" keeps the modeled-delay path; "loopback"/"multiproc" spawn
+    # worker OS processes (multiproc: one torch process per mobility group,
+    # landing each buffer on ``device``) and ship each newly-seen
+    # stage-boundary activation through them, so SimResult carries realized
+    # substrate bandwidth per link.  (Simulated radio delays still price
+    # serving — localhost sockets are not a UAV link; the full
+    # rate-substitution loop is the serve CLI / calibrate_rates path, where
+    # the pool IS the substrate.)
     transport: str = "inproc"
-    # The reference's persistent compile cache dir (executed mode's engine
-    # warms from disk); not ported yet: any value raises.
+    # The kernels' build directory (repro_torch.exec.compile_cache): executed
+    # mode's process builds and loads the hand-written kernels there.
     compile_cache_dir: str | None = None
     # Per-epoch slack-capacity DP lower bound (core.ould.placement_drift):
     # logs how far kept placements drifted from their per-request optimum.
@@ -479,14 +483,17 @@ def _stage_measurer(scn: SwarmScenario, profile: ModelProfile, seed: int,
     ``scn.device`` per simulation, one warm-up + one measurement per unique
     (start, end) range — hotspot plans collapse to a handful of timings.
 
-    With a byte-moving ``transport``, each newly-seen stage-boundary
-    activation is additionally shipped once through it, sampling the
-    substrate's realized bandwidth at that payload size
-    (SimResult.link_bytes_per_s)."""
+    With ``scn.compile_cache_dir`` the kernels' build directory points
+    there (compile_cache.enable).  With a byte-moving ``transport``, each
+    newly-seen stage-boundary activation is additionally shipped once
+    through a worker process pair, sampling the substrate's realized
+    bandwidth at that payload size (SimResult.link_bytes_per_s)."""
     import torch
 
-    from ..exec import ExecutionEngine, layer_fns_for
+    from ..exec import ExecutionEngine, compile_cache, layer_fns_for
 
+    if scn.compile_cache_dir is not None:
+        compile_cache.enable(scn.compile_cache_dir)
     dev = resolve_device(scn.device)
     engine = ExecutionEngine(layer_fns_for(profile, device=dev),
                              transport=transport, tracer=tracer, device=dev)
@@ -661,15 +668,6 @@ class _Simulation:
         if policy not in available_planners():
             raise ValueError(f"unknown policy {policy!r}; one of "
                              f"{available_planners()}")
-        if scn.compile_cache_dir is not None:
-            raise NotImplementedError(
-                "compile_cache_dir: the compile cache (exec/compile_cache.py) "
-                "is not ported yet (ROADMAP Queue 1)")
-        if scn.execute and scn.transport != "inproc":
-            raise NotImplementedError(
-                f"transport {scn.transport!r}: the byte-moving transports "
-                "are not ported yet (ROADMAP Queue 1); executed mode runs "
-                "on 'inproc'")
         if scn.batch_solve or scn.execute:
             resolve_device(scn.device)   # raises where the card is missing
         self.scn = scn
@@ -718,6 +716,11 @@ class _Simulation:
                                      "snapshot") == "horizon"
         self.degradation = _parse_degradation(scn.view_degradation)
         self.transport = None
+        if scn.execute and scn.transport != "inproc":
+            from ..transport import make_transport
+            self.transport = make_transport(scn.transport,
+                                            group_of=mob.group_of,
+                                            device=scn.device)
         measure = (_stage_measurer(scn, profile, seed,
                                    transport=self.transport,
                                    tracer=self.trace)

@@ -9,7 +9,8 @@ Shapes and tolerances are the reference's sweep (``tests/test_kernels.py``:
 f32 3e-5, bf16 2e-2, SSD 5e-5), plus rows and caches with no valid key, and
 for the SSD scan a ragged last chunk, one decode step, no initial state and
 the production dtype mix.  The placement path's f64 DP sweep must equal its
-plain version bit for bit, and a batched solve the sequential one.
+plain version bit for bit, and a batched solve the sequential one; the
+byte-moving transports echo tensors on the card byte for byte.
 """
 
 import dataclasses
@@ -559,3 +560,46 @@ def test_churn_swarm_batched_on_the_card_equals_sequential(cuda):
     skip = ("solver.total_solve_s", "solver.jit_compiles")
     assert ({k: v for k, v in bat.metrics.items() if k not in skip}
             == {k: v for k, v in seq.metrics.items() if k not in skip})
+
+
+def test_multiproc_ship_lands_on_the_card(cuda):
+    """Two torch workers on the card (a CUDA context each) echo a bf16 and
+    an int32 tensor byte for byte, back on the card."""
+    from repro_torch.transport import MultiProcTransport
+    gen = torch.Generator(cuda).manual_seed(0)
+    xs = [torch.randn(256, 1024, generator=gen, device=cuda).to(torch.bfloat16),
+          torch.randint(-2 ** 31, 2 ** 31 - 1, (4099,), generator=gen, device=cuda,
+                        dtype=torch.int32)]
+    with MultiProcTransport(n_workers=2, device=cuda) as tp:
+        assert tp.worker_backends == ["cuda", "cuda"]
+        assert tp.worker_devices == [torch.cuda.get_device_name(cuda)] * 2
+        for i, x in enumerate(xs):
+            res = tp.ship(0, i, x)
+            assert res.array.device == x.device and res.array.dtype == x.dtype
+            assert torch.equal(res.array, x)
+        assert set(tp.worker_stats) == {0, 1}
+
+
+def test_placed_lenet_over_loopback_on_the_card_equals_inproc(cuda):
+    """The placed LeNet run with every transfer shipped through worker
+    processes gives the in-process run's outputs bit for bit."""
+    from repro_torch.transport import LoopbackTransport
+    n = 10
+    mob = placement.RPGMobility(placement.RPGParams(n_uavs=n, area_m=100.0, homogeneous=True),
+                                seed=0)
+    rates = placement.rate_matrix(mob.positions(1, seed=0)[0])
+    prob = placement.Problem(placement.lenet_profile(), np.full(n, 96e6), np.full(n, 1e13),
+                             rates, np.arange(4) % 2, compute_speed=np.full(n, 9.5e9))
+    graph = compile_plan(placement.get_planner("ould-dp").plan(prob,
+                                                               placement.SnapshotView(rates)))
+    assert graph.transfers
+    fns = layer_fns_for(placement.lenet_profile(),
+                        generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    frames = np.random.default_rng(0).standard_normal((4, 326, 595, 3)).astype(np.float32)
+    ref = ExecutionEngine(fns, device=cuda).run(graph, frames)
+    with LoopbackTransport(n_workers=2) as tp:
+        report = ExecutionEngine(fns, transport=tp, device=cuda).run(graph, frames)
+        assert tp.moved_bytes > 0
+    assert report.transport == "loopback" and len(report.transfers) == len(graph.transfers)
+    for r in graph.requests:
+        assert np.array_equal(report.outputs[r], ref.outputs[r]), r

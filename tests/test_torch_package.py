@@ -52,7 +52,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.runtime, repro_torch.launch.serve, repro_torch.core, "
             "repro_torch.exec, repro_torch.models.cnn, repro_torch.obs, "
             "repro_torch.transport, repro_torch.core.events, repro_torch.core.ould_mp, "
-            "repro_torch.runtime.queueing, repro_torch.runtime.swarm\n"
+            "repro_torch.runtime.queueing, repro_torch.runtime.swarm, "
+            "repro_torch.transport.loopback, repro_torch.transport.multiproc, "
+            "repro_torch.transport.__main__, repro_torch.exec.compile_cache, "
+            "repro_torch.launch.uav_surveillance\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -114,6 +117,17 @@ def test_entry_points_default_to_the_card():
         batch_dp.solve_batch(np.zeros((8, 8)), 1.0, None, np.zeros(1, np.int64),
                              np.zeros((1, 7, 4), np.int64), np.ones((1, 7, 4), bool),
                              (np.ones(7),))
+    # the byte-moving transports' card workers, their CLI and the scenario
+    from repro_torch.launch import uav_surveillance
+    from repro_torch.transport import MultiProcTransport, make_transport
+    from repro_torch.transport.__main__ import main as transport_cli
+    for tp in (MultiProcTransport(n_workers=1), make_transport("multiproc", n_workers=1)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            tp.start()
+    with pytest.raises(RuntimeError, match="cuda"):
+        transport_cli(["--multiproc", "--workers", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        uav_surveillance.main([])
     # ... and each runs when given the CPU by name
     ExecutionEngine([], device="cpu")
     assert len(layer_fns_for(lenet, device="cpu")) == 7

@@ -13,7 +13,10 @@ jax without ``jax.experimental.enable_x64``, so the port's batched runs
 (``batch_solve=True, device="cpu"``: the sweep's plain version) are held to
 the reference's sequential runs, with a spy on the sweep showing it ran;
 there ``solver.jit_compiles`` (sweep launches at a shape new to the
-process) is excepted too, since a sequential run makes none.
+process) is excepted too, since a sequential run makes none.  Executed
+mode serves on measured stage walls, so there the latencies and what is
+computed from them are excepted as well, and of the realized link
+bandwidths only the set of links is compared.
 """
 
 import dataclasses
@@ -275,7 +278,7 @@ def test_churn_rejoin_fires_warm_start_on_cpu():
 
 
 # ---------------------------------------------------------------------------
-# entry points: the card by default, unported options raise
+# entry points: the card by default; executed transports and the compile cache
 # ---------------------------------------------------------------------------
 
 def test_card_bound_runs_need_the_card_unless_asked():
@@ -288,17 +291,107 @@ def test_card_bound_runs_need_the_card_unless_asked():
     assert TS.simulate(_scn("port", SMALL, duration_ticks=10), "incremental").served >= 0
 
 
-@pytest.mark.parametrize("kw", [dict(compile_cache_dir="cache"),
-                                dict(compile_cache_dir="cache", execute=True, device="cpu"),
-                                dict(execute=True, transport="loopback", device="cpu"),
-                                dict(execute=True, transport="multiproc", device="cpu")],
-                         ids=["cache", "cache-executed", "loopback", "multiproc"])
-def test_unported_options_raise(kw, tmp_path):
-    if "compile_cache_dir" in kw:
-        kw = dict(kw, compile_cache_dir=str(tmp_path / "cache"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TS.simulate(_scn("port", SMALL, **kw), "incremental")
-    assert not (tmp_path / "cache").exists()
+# Executed mode serves on measured stage walls: there the latencies and
+# what is computed from them (over-deadline misses, queue waits, node
+# demand) are wall fields too, and so are the realized link bandwidths.
+EXEC_WALL_FIELDS = ("latencies", "missed", "wait_total_s", "queue_demand_s")
+EXEC_WALL_METRICS = ("sim.missed", "sim.wait_total_s", "queue.max_demand_s", "sim.latency_s")
+# tests/test_swarm.py's executed loopback scenario
+EXEC_SMALL = dict(SMALL, n_uavs=8, duration_ticks=16, epoch_ticks=8)
+
+
+def _same_executed(ref, port):
+    """Two executed-mode SimResults identical but for wall fields and
+    bandwidth values: the same completions, every decision and counter, and
+    the same sampled links."""
+    for f in dataclasses.fields(ref):
+        a, b = getattr(ref, f.name), getattr(port, f.name)
+        if f.name in EXEC_WALL_FIELDS:
+            if f.name == "latencies":
+                assert a.size == b.size and np.isfinite(b).all() and (b > 0).all()
+        elif f.name == "link_bytes_per_s":
+            assert a.keys() == b.keys(), (a, b)
+            assert all(bw > 0 for bw in b.values())
+        elif f.name == "epochs":
+            _same([dataclasses.replace(e, solve_time_s=0.0) for e in a],
+                  [dataclasses.replace(e, solve_time_s=0.0) for e in b], "epochs")
+        elif f.name == "metrics":
+            def keep(m):
+                return {k: v for k, v in m.items() if k not in WALL_METRICS + EXEC_WALL_METRICS
+                        and not k.startswith("transport.link.")}
+            _same(keep(a), keep(b), "metrics")
+            assert a["sim.latency_s"]["count"] == b["sim.latency_s"]["count"]
+            assert ({k for k in a if k.startswith("transport.link.")}
+                    == {k for k in b if k.startswith("transport.link.")})
+        else:
+            _same(a, b, f.name)
+    assert ref.served > 0 and ref.epochs
+
+
+@pytest.fixture
+def restore_caches():
+    """The reference's compile cache and the port's build directory as they
+    were before the test (a scenario's compile_cache_dir re-points both for
+    the process)."""
+    from repro.exec import compile_cache as jcc
+    from repro_torch.exec import compile_cache as tcc
+    from repro_torch.kernels import build
+    prev_ref, prev_port = jcc.cache_dir(), build.BUILD_DIR
+    yield
+    if prev_ref is None:
+        jcc.disable()
+    else:
+        jcc.enable(prev_ref)
+    build.set_build_dir(prev_port)
+    assert tcc.cache_dir() is None or tcc.cache_dir() == prev_port
+
+
+@pytest.mark.parametrize("case", ["cache", "cache-executed", "loopback", "multiproc",
+                                  "churn-rejoin"])
+def test_ported_options_equal_reference(case, tmp_path, restore_caches):
+    """Each option held to the reference's run on the same scenario and
+    seed: the compile cache (analytic and executed),
+    executed mode over the loopback and multiproc transports
+    (tests/test_swarm.py::test_executed_loopback_transport_samples_substrate)
+    and the churn-rejoin warm start in executed mode
+    (::test_churn_rejoin_fires_warm_start_in_executed_mode)."""
+    from repro.exec import compile_cache as jcc
+    from repro_torch.exec import compile_cache as tcc
+    base, seed, kw = EXEC_SMALL, 0, dict(execute=True)
+    if case == "cache":
+        base, kw = SMALL, dict(duration_ticks=20)
+    elif case in ("loopback", "multiproc"):
+        kw = dict(kw, transport=case)
+    elif case == "churn-rejoin":
+        base, seed, kw = SMALL, 3, dict(kw, mtbf_s=40.0, mttr_s=10.0)
+    caches = {}
+    if case.startswith("cache"):
+        caches = {pkg: str(tmp_path / pkg) for pkg in ("ref", "port")}
+    ref = JS.simulate(_scn("ref", base, compile_cache_dir=caches.get("ref"), **kw),
+                      "incremental", seed)
+    port = TS.simulate(_scn("port", base, compile_cache_dir=caches.get("port"), device="cpu",
+                            **kw), "incremental", seed)
+    if case == "cache":
+        _same_sim(ref, port)             # analytic: the cache is never touched
+        assert not any(tmp_path.iterdir())
+        return
+    _same_executed(ref, port)
+    twin = TS.simulate(_scn("port", base, device="cpu", **dict(kw, execute=False,
+                                                                 transport="inproc")),
+                       "incremental", seed)
+    assert twin.served == port.served and twin.warm_starts == 0
+    if case == "cache-executed":
+        assert jcc.cache_dir() == tmp_path / "ref"
+        assert tcc.cache_dir() == tmp_path / "port" and (tmp_path / "port").is_dir()
+    elif case == "churn-rejoin":
+        assert port.warm_starts >= 1 and port.metrics["solver.warm_starts"] == port.warm_starts
+    else:
+        assert port.transport == ref.transport == case
+        assert port.link_bytes_per_s, "no substrate links sampled"
+        inproc = TS.simulate(_scn("port", base, device="cpu", **dict(kw, transport="inproc")),
+                             "incremental", seed)
+        assert inproc.transport == "inproc" and inproc.link_bytes_per_s == {}
+        assert inproc.served == port.served
 
 
 def test_transport_is_ignored_without_execute_as_in_reference():
