@@ -2,7 +2,10 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py::decode_attention.
-//   q (B,Hq,D), k_cache and v_cache (B,Smax,Hkv,D), lengths -> o (B,Hq,D).
+//   q (B,Hq,DK), k_cache (B,Smax,Hkv,DK), v_cache (B,Smax,Hkv,DV), lengths
+//   -> o (B,Hq,DV).  (DK, DV) is (32,32), (64,64), (128,128) or MLA's (96,64).
+//   The caches are read through their (batch, slot, head) strides, the head
+//   dim contiguous, so MLA's v may stay a slice of the re-expanded latent.
 //   Slot s of sequence b is valid iff s < min(len_b, Smax): validity is by
 //   slot, so ring-buffer (sliding-window) caches work unchanged.  Masked
 //   logits are -1e30 and the denominator is clamped at 1e-30, as in the
@@ -23,19 +26,23 @@
 //     (b*Hkv + kvh, s) walks the contiguous slots [s*chunk, (s+1)*chunk) of
 //     its sequence's valid range.  The host picks `splits` so that the grid
 //     fills the SMs four times over with no split shorter than ~64 slots.
-//   - Each K and V row is read by D/8 lanes (bf16; D/4 for f32) with one
-//     16-byte load each.  Every lane keeps its 8 (4) columns of the g query
-//     rows of its KV head in registers, in f32 and pre-scaled by
-//     scale*log2(e); dot products reduce across the lanes of a row by xor
-//     shuffles.  Each group of lanes keeps (m, l, acc) for its own slots in
-//     registers, and the groups, then the warps, merge them at the end.
+//   - Each K and V row is read by LPS lanes with 16-byte loads (8 bf16 or 4
+//     f32 values): LPS is the largest power of two that divides both rows'
+//     16-byte chunk counts, so each lane takes one chunk of a row where DK =
+//     DV, and at MLA's (96,64) in bf16 4 lanes take 3 K chunks and 2 V chunks
+//     each.  Every lane keeps its columns of the g query rows of its KV head
+//     in registers, in f32 and pre-scaled by scale*log2(e); dot products
+//     reduce across the lanes of a row by xor shuffles.  Each group of lanes
+//     keeps (m, l, acc) for its own slots in registers, and the groups, then
+//     the warps, merge them at the end.
 //   - Loads in flight: each lane issues the K and V loads of U slots (4, or 2
-//     when g > 4) before it uses any of them, so a block of 4 warps has
-//     4*32*U*32 bytes in flight and a few blocks per SM reach the ~25 KB
-//     that Little's law asks at 3.35 TB/s and ~1 us.  Independent loads
+//     when g > 4; KPL + VPL chunks a slot) before it uses any of them, so a
+//     block of 4 warps has 4*32*U*32 bytes in flight (more at (96,64)) and
+//     a few blocks per SM reach the ~25 KB that Little's law asks at 3.35
+//     TB/s and ~1 us.  Independent loads
 //     were chosen over a cp.async ring: every byte is used once, by the lane
 //     that loaded it, so staging through shared memory buys nothing.
-//   - The block writes its partial (m, l, acc[g, D]) in f32 to a scratch
+//   - The block writes its partial (m, l, acc[g, DV]) in f32 to a scratch
 //     tensor; a split wholly past the valid length writes m = -1e30, l = 0,
 //     acc = 0, which the combine weighs at exactly 0.
 //   - decode_combine_kernel, launched by the same entry point, computes for
@@ -93,21 +100,36 @@ __device__ __forceinline__ void merge(float& m, float& l, float (&acc)[NV], floa
   for (int e = 0; e < NV; ++e) acc[e] = acc[e] * a + acc_o[e] * a_o;
 }
 
-// Partials: acc (B*Hq, splits, D) and ml (B*Hq, splits, 2), f32.
-template <typename T, int D, int G>
+// The largest power of two, at most 32, that divides both a and b.
+__host__ __device__ constexpr int pow2_gcd(int a, int b) {
+  int p = 1;
+  while (p < 32 && a % (2 * p) == 0 && b % (2 * p) == 0) p *= 2;
+  return p;
+}
+
+// Cache strides in elements; the head dim is contiguous.
+struct Strides {
+  long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+};
+
+// Partials: acc (B*Hq, splits, DV) and ml (B*Hq, splits, 2), f32.
+template <typename T, int DK, int DV, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                     const int* __restrict__ lens, int len_all, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int Hq, int Hkv, int Smax, int chunk,
-                    float sl2) {
+                    float sl2, const Strides st) {
   constexpr int NV = Vec<T>::N;        // elements per 16-byte load
-  constexpr int LPS = D / NV;          // lanes per slot
+  constexpr int LPS = pow2_gcd(DK / NV, DV / NV);  // lanes per slot
+  constexpr int KPL = DK / NV / LPS;   // 16-byte K chunks per lane
+  constexpr int VPL = DV / NV / LPS;   // 16-byte V chunks per lane
   constexpr int SPW = 32 / LPS;        // slots per warp per step
   constexpr int U = G <= 4 ? 4 : 2;    // steps whose loads are in flight together
   constexpr int STEP = kWarps * SPW * U;
   static_assert(LPS <= 32 && 32 % LPS == 0, "a slot's lanes share one warp");
+  static_assert(KPL * LPS * NV == DK && VPL * LPS * NV == DV, "rows split into whole chunks");
 
-  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G], sm_acc[kWarps][G][D];
+  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G], sm_acc[kWarps][G][DV];
 
   const int g = Hq / Hkv, splits = gridDim.y, split = blockIdx.y;
   const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
@@ -119,55 +141,70 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   if (none) L = Smax;
   const int s0 = split * chunk, s1 = min(s0 + chunk, L);
 
-  // This lane's columns [li*NV, li*NV + NV) of the group's query rows.
-  float qr[G][NV];
+  // This lane's chunks c*LPS + li (c < KPL) of the group's query rows:
+  // columns [(c*LPS + li)*NV, (c*LPS + li)*NV + NV).
+  float qr[G][KPL][NV];
   #pragma unroll
   for (int hh = 0; hh < G; ++hh) {
     #pragma unroll
-    for (int e = 0; e < NV; ++e) qr[hh][e] = 0.f;
-    if (hh < g) {
-      const T* qrow = q + (static_cast<long long>(b) * Hq + kvh * g + hh) * D + li * NV;
-      Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(qrow)), qr[hh]);
+    for (int c = 0; c < KPL; ++c) {
       #pragma unroll
-      for (int e = 0; e < NV; ++e) qr[hh][e] *= sl2;
+      for (int e = 0; e < NV; ++e) qr[hh][c][e] = 0.f;
+      if (hh < g) {
+        const T* qrow =
+            q + (static_cast<long long>(b) * Hq + kvh * g + hh) * DK + (c * LPS + li) * NV;
+        Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(qrow)), qr[hh][c]);
+        #pragma unroll
+        for (int e = 0; e < NV; ++e) qr[hh][c][e] *= sl2;
+      }
     }
   }
-  float m[G], l[G], acc[G][NV];
+  // acc[hh][c*NV + e]: column (c*LPS + li)*NV + e of query row hh.
+  float m[G], l[G], acc[G][VPL * NV];
   #pragma unroll
   for (int hh = 0; hh < G; ++hh) {
     m[hh] = kNegInf;
     l[hh] = 0.f;
     #pragma unroll
-    for (int e = 0; e < NV; ++e) acc[hh][e] = 0.f;
+    for (int e = 0; e < VPL * NV; ++e) acc[hh][e] = 0.f;
   }
 
-  const long long row = static_cast<long long>(Hkv) * D;  // one cache slot
-  const T* kb = kc + static_cast<long long>(b) * Smax * row + kvh * D + li * NV;
-  const T* vb = vc + static_cast<long long>(b) * Smax * row + kvh * D + li * NV;
+  const T* kb = kc + b * st.k_sb + kvh * st.k_sh + li * NV;
+  const T* vb = vc + b * st.v_sb + kvh * st.v_sh + li * NV;
 
   for (int base = s0; base < s1; base += STEP) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][KPL], vr[U][VPL];
     bool in[U];
     #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int s = base + (u * kWarps + warp) * SPW + sub;
       in[u] = s < s1;
-      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      #pragma unroll
+      for (int c = 0; c < KPL; ++c) kr[u][c] = make_uint4(0, 0, 0, 0);
+      #pragma unroll
+      for (int c = 0; c < VPL; ++c) vr[u][c] = make_uint4(0, 0, 0, 0);
       if (in[u]) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + s * row));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + s * row));
+        #pragma unroll
+        for (int c = 0; c < KPL; ++c)
+          kr[u][c] = __ldg(reinterpret_cast<const uint4*>(kb + s * st.k_ss + c * LPS * NV));
+        #pragma unroll
+        for (int c = 0; c < VPL; ++c)
+          vr[u][c] = __ldg(reinterpret_cast<const uint4*>(vb + s * st.v_ss + c * LPS * NV));
       }
     }
     float sc[U][G];
     #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[NV];
-      Vec<T>::unpack(kr[u], kf);
+      float kf[KPL][NV];
+      #pragma unroll
+      for (int c = 0; c < KPL; ++c) Vec<T>::unpack(kr[u][c], kf[c]);
       #pragma unroll
       for (int hh = 0; hh < G; ++hh) {
         float dot = 0.f;
         #pragma unroll
-        for (int e = 0; e < NV; ++e) dot = fmaf(qr[hh][e], kf[e], dot);
+        for (int c = 0; c < KPL; ++c)
+          #pragma unroll
+          for (int e = 0; e < NV; ++e) dot = fmaf(qr[hh][c][e], kf[c][e], dot);
         #pragma unroll
         for (int o = LPS / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
         sc[u][hh] = !in[u] ? kAbsent : (none ? kNegInf : dot);
@@ -182,15 +219,19 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       m[hh] = mx;
       l[hh] *= alpha;
       #pragma unroll
-      for (int e = 0; e < NV; ++e) acc[hh][e] *= alpha;
+      for (int e = 0; e < VPL * NV; ++e) acc[hh][e] *= alpha;
       #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float pu = exp2f(sc[u][hh] - mx);
-        float vf[NV];
-        Vec<T>::unpack(vr[u], vf);
         l[hh] += pu;
         #pragma unroll
-        for (int e = 0; e < NV; ++e) acc[hh][e] = fmaf(pu, vf[e], acc[hh][e]);
+        for (int c = 0; c < VPL; ++c) {
+          float vf[NV];
+          Vec<T>::unpack(vr[u][c], vf);
+          #pragma unroll
+          for (int e = 0; e < NV; ++e)
+            acc[hh][c * NV + e] = fmaf(pu, vf[e], acc[hh][c * NV + e]);
+        }
       }
     }
   }
@@ -200,9 +241,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   for (int o = LPS; o < 32; o <<= 1) {
     #pragma unroll
     for (int hh = 0; hh < G; ++hh) {
-      float acc_o[NV];
+      float acc_o[VPL * NV];
       #pragma unroll
-      for (int e = 0; e < NV; ++e) acc_o[e] = __shfl_xor_sync(0xffffffffu, acc[hh][e], o);
+      for (int e = 0; e < VPL * NV; ++e) acc_o[e] = __shfl_xor_sync(0xffffffffu, acc[hh][e], o);
       const float m_o = __shfl_xor_sync(0xffffffffu, m[hh], o);
       const float l_o = __shfl_xor_sync(0xffffffffu, l[hh], o);
       merge(m[hh], l[hh], acc[hh], m_o, l_o, acc_o);
@@ -216,12 +257,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
         sm_l[warp][hh] = l[hh];
       }
       #pragma unroll
-      for (int e = 0; e < NV; ++e) sm_acc[warp][hh][li * NV + e] = acc[hh][e];
+      for (int c = 0; c < VPL; ++c)
+        #pragma unroll
+        for (int e = 0; e < NV; ++e)
+          sm_acc[warp][hh][(c * LPS + li) * NV + e] = acc[hh][c * NV + e];
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < g * D; idx += kThreads) {
-    const int hh = idx / D, d = idx % D;
+  for (int idx = tid; idx < g * DV; idx += kThreads) {
+    const int hh = idx / DV, d = idx % DV;
     float mx = sm_m[0][hh];
     #pragma unroll
     for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][hh]);
@@ -233,7 +277,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       at += sm_acc[w][hh][d] * a;
     }
     const long long ph = (static_cast<long long>(b) * Hq + kvh * g + hh) * splits + split;
-    part_acc[ph * D + d] = at;
+    part_acc[ph * DV + d] = at;
     if (d == 0) {
       part_ml[2 * ph] = mx;
       part_ml[2 * ph + 1] = lt;
@@ -258,7 +302,7 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return v;
 }
 
-// One block of D threads per (b, query head): the weighted sum of the splits.
+// One block of DV threads per (b, query head): the weighted sum of the splits.
 // The threads share out the splits' (m, l) to form M, the weights 2^(m_s - M)
 // and the denominator; then thread d sums column d.  A split with l = 0 saw no
 // slot and weighs exactly 0.
@@ -289,29 +333,30 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   o[bh * D + d] = from_f<T>(num / fmaxf(den, 1e-30f));
 }
 
-template <typename T, int D, int G>
+template <typename T, int DK, int DV, int G>
 int launch(const void* q, const void* kc, const void* vc, const int* lens, int len_all, void* o,
            float* part, int B, int Hq, int Hkv, int Smax, int splits, int chunk, float scale,
-           cudaStream_t stream) {
+           const Strides& st, cudaStream_t stream) {
   float* part_acc = part;
-  float* part_ml = part + static_cast<long long>(B) * Hq * splits * D;
-  decode_split_kernel<T, D, G><<<dim3(B * Hkv, splits), kThreads, 0, stream>>>(
+  float* part_ml = part + static_cast<long long>(B) * Hq * splits * DV;
+  decode_split_kernel<T, DK, DV, G><<<dim3(B * Hkv, splits), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), lens,
-      len_all, part_acc, part_ml, Hq, Hkv, Smax, chunk, scale * kLog2e);
+      len_all, part_acc, part_ml, Hq, Hkv, Smax, chunk, scale * kLog2e, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_combine_kernel<T><<<B * Hq, D, splits * sizeof(float), stream>>>(
-      part_acc, part_ml, static_cast<T*>(o), splits, D);
+  decode_combine_kernel<T><<<B * Hq, DV, splits * sizeof(float), stream>>>(
+      part_acc, part_ml, static_cast<T*>(o), splits, DV);
   return static_cast<int>(cudaGetLastError());
 }
 
-// G: the group size rounded up to 1, 2, 4, 5 (hymba's) or 8.
-template <typename T, int D>
+// G: the group size rounded up to 1, 2, 4 (granite's 3 too), 5 (hymba's) or 8.
+template <typename T, int DK, int DV>
 int dispatch_g(int g, const void* q, const void* kc, const void* vc, const int* lens,
                int len_all, void* o, float* part, int B, int Hq, int Hkv, int Smax, int splits,
-               int chunk, float scale, cudaStream_t s) {
-#define DECODE_LAUNCH(G_) \
-  launch<T, D, G_>(q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits, chunk, scale, s)
+               int chunk, float scale, const Strides& st, cudaStream_t s) {
+#define DECODE_LAUNCH(G_)                                                                   \
+  launch<T, DK, DV, G_>(q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits, chunk, \
+                        scale, st, s)
   if (g <= 1) return DECODE_LAUNCH(1);
   if (g <= 2) return DECODE_LAUNCH(2);
   if (g <= 4) return DECODE_LAUNCH(4);
@@ -320,35 +365,37 @@ int dispatch_g(int g, const void* q, const void* kc, const void* vc, const int* 
 #undef DECODE_LAUNCH
 }
 
+// (DK, DV): (32,32), (64,64), (128,128) or MLA's (96,64).
 template <typename T>
-int dispatch_d(int D, int g, const void* q, const void* kc, const void* vc, const int* lens,
-               int len_all, void* o, float* part, int B, int Hq, int Hkv, int Smax, int splits,
-               int chunk, float scale, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return dispatch_g<T, 32>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits,
-                               chunk, scale, s);
-    case 64:
-      return dispatch_g<T, 64>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits,
-                               chunk, scale, s);
-    case 128:
-      return dispatch_g<T, 128>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits,
-                                chunk, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int dispatch_d(int DK, int DV, int g, const void* q, const void* kc, const void* vc,
+               const int* lens, int len_all, void* o, float* part, int B, int Hq, int Hkv,
+               int Smax, int splits, int chunk, float scale, const Strides& st, cudaStream_t s) {
+#define DECODE_DISPATCH(DK_, DV_)                                                             \
+  dispatch_g<T, DK_, DV_>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits, chunk, \
+                          scale, st, s)
+  if (DK == 32 && DV == 32) return DECODE_DISPATCH(32, 32);
+  if (DK == 64 && DV == 64) return DECODE_DISPATCH(64, 64);
+  if (DK == 128 && DV == 128) return DECODE_DISPATCH(128, 128);
+  if (DK == 96 && DV == 64) return DECODE_DISPATCH(96, 64);
+  return static_cast<int>(cudaErrorInvalidValue);
+#undef DECODE_DISPATCH
 }
 
 }  // namespace
 
-// All tensors contiguous and 16-byte aligned.  lens: int32 (B,) on the device,
-// or null, and then every sequence has len_all valid slots.  part: f32 scratch
-// of B*Hq*splits*(D+2) elements.  Split s covers slots [s*chunk, (s+1)*chunk).
-// dtype: 0 = float32, 1 = bfloat16.  Launches the split and combine kernels;
-// returns a cudaError_t.
+// q (B,Hq,DK) and o (B,Hq,DV) contiguous; the caches read through their
+// (batch, slot, head) element strides, the head dim contiguous.  Every base
+// is 16-byte aligned and every cache stride a multiple of 16 bytes.  lens:
+// int32 (B,) on the device, or null, and then every sequence has len_all
+// valid slots.  part: f32 scratch of B*Hq*splits*(DV+2) elements.  Split s
+// covers slots [s*chunk, (s+1)*chunk).  dtype: 0 = float32, 1 = bfloat16.
+// Launches the split and combine kernels; returns a cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const void* v_cache,
                                     const void* lens, int len_all, void* o, void* part, int B,
-                                    int Hq, int Hkv, int Smax, int D, int splits, int chunk,
-                                    float scale, int dtype, void* stream) {
+                                    int Hq, int Hkv, int Smax, int DK, int DV, int splits,
+                                    int chunk, long long k_sb, long long k_ss, long long k_sh,
+                                    long long v_sb, long long v_ss, long long v_sh, float scale,
+                                    int dtype, void* stream) {
   if (B == 0 || Hkv == 0) return 0;
   if (Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || Smax <= 0 || splits <= 0 || splits > 8192 ||
       chunk <= 0)
@@ -357,15 +404,20 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const vo
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
+  const int nv = dtype == 1 ? 8 : 4;  // elements per 16 bytes
+  const Strides st{k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  const long long strides[6] = {k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  for (long long x : strides)
+    if (x % nv != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
   float* pt = static_cast<float*>(part);
   const int g = Hq / Hkv;
   if (dtype == 0)
-    return dispatch_d<float>(D, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq, Hkv, Smax,
-                             splits, chunk, scale, s);
+    return dispatch_d<float>(DK, DV, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq, Hkv,
+                             Smax, splits, chunk, scale, st, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq,
-                                     Hkv, Smax, splits, chunk, scale, s);
+    return dispatch_d<__nv_bfloat16>(DK, DV, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq,
+                                     Hkv, Smax, splits, chunk, scale, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::flash_attention.
-//   q (B,Sq,Hq,D), k and v (B,Skv,Hkv,D) -> o (B,Sq,Hq,D) in q's dtype.
+//   q and k (B,Sq|Skv,Hq|Hkv,DK), v (B,Skv,Hkv,DV) -> o (B,Sq,Hq,DV) in q's dtype.
+//   The K head dim and the V head dim are separate template parameters:
+//   (32,32), (64,64), (128,128) for the GQA models, and MLA's (96,64)
+//   (minicpm3: q and k of qk_nope 64 + qk_rope 32, v of 64).  Q.K^T runs over
+//   DK, P.V over DV; nothing is padded to a common width.
 //   Online softmax in f32; causal, sliding `window` and `kv_offset` masks;
 //   masked logits are -1e30 (not -inf) and the denominator is clamped at 1e-30,
 //   so a row with no valid key averages V exactly as the plain version does.
@@ -105,18 +109,18 @@ constexpr int kThreads = 128;
 constexpr int BQ = 64;
 constexpr int BK = 32;
 
-template <int D>
+template <int DK, int DV>
 constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
+  return BQ * (DK + 1) + BK * (DK + 1) + BK * DV + BQ * (BK + 1);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p) {
   extern __shared__ float smem[];
-  float* Qs = smem;                 // BQ x (D+1), pre-scaled
-  float* Ks = Qs + BQ * (D + 1);    // BK x (D+1)
-  float* Vs = Ks + BK * (D + 1);    // BK x D
-  float* Ps = Vs + BK * D;          // BQ x (BK+1)
+  float* Qs = smem;                 // BQ x (DK+1), pre-scaled
+  float* Ks = Qs + BQ * (DK + 1);   // BK x (DK+1)
+  float* Vs = Ks + BK * (DK + 1);   // BK x DV
+  float* Ps = Vs + BK * DV;         // BQ x (BK+1)
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
@@ -127,30 +131,45 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D, i = q0 + r;
-    Qs[r * (D + 1) + c] = i < p.Sq ? q[i * p.q_ss + c] * p.scale : 0.f;
+  for (int idx = tid; idx < BQ * DK; idx += kThreads) {
+    const int r = idx / DK, c = idx % DK, i = q0 + r;
+    Qs[r * (DK + 1) + c] = i < p.Sq ? q[i * p.q_ss + c] * p.scale : 0.f;
   }
   int kt_begin, kt_end;
   tile_range(p, q0, BQ, BK, &kt_begin, &kt_end);
 
-  float m[4], l[4], acc[4][D / 8];
+  float m[4], l[4], acc[4][DV / 8];
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
     #pragma unroll
-    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < DV / 8; ++c) acc[i][c] = 0.f;
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's Ks/Vs/Ps reads are done
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D, j = k0 + r;
-      const bool in = j < p.Skv;
-      Ks[r * (D + 1) + c] = in ? k[j * p.k_ss + c] : 0.f;
-      Vs[r * D + c] = in ? v[j * p.v_ss + c] : 0.f;
+    // One pass for K and V rows of one width, two where they differ.  On an
+    // H100 (launch/ab_flash.py) two passes took 2-12 % longer at DK == DV,
+    // and one pass over the wider row with the narrower one's columns
+    // tested took 53 % longer at (96, 64).
+    if constexpr (DK == DV) {
+      for (int idx = tid; idx < BK * DK; idx += kThreads) {
+        const int r = idx / DK, c = idx % DK, j = k0 + r;
+        const bool in = j < p.Skv;
+        Ks[r * (DK + 1) + c] = in ? k[j * p.k_ss + c] : 0.f;
+        Vs[r * DV + c] = in ? v[j * p.v_ss + c] : 0.f;
+      }
+    } else {
+      for (int idx = tid; idx < BK * DK; idx += kThreads) {
+        const int r = idx / DK, c = idx % DK, j = k0 + r;
+        Ks[r * (DK + 1) + c] = j < p.Skv ? k[j * p.k_ss + c] : 0.f;
+      }
+      for (int idx = tid; idx < BK * DV; idx += kThreads) {
+        const int r = idx / DV, c = idx % DV, j = k0 + r;
+        Vs[r * DV + c] = j < p.Skv ? v[j * p.v_ss + c] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -160,12 +179,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
       #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float qv[4], kv[4];
       #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * (D + 1) + d];
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * (DK + 1) + d];
       #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 8 * j) * (D + 1) + d];
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 8 * j) * (DK + 1) + d];
       #pragma unroll
       for (int i = 0; i < 4; ++i)
         #pragma unroll
@@ -199,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
       #pragma unroll
-      for (int c = 0; c < D / 8; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < DV / 8; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
 
@@ -209,8 +228,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
       #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * (BK + 1) + kk];
       #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
-        const float vv = Vs[kk * D + tx + 8 * c];
+      for (int c = 0; c < DV / 8; ++c) {
+        const float vv = Vs[kk * DV + tx + 8 * c];
         #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -223,22 +242,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * D;
+    float* orow = o + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * DV;
     #pragma unroll
-    for (int c = 0; c < D / 8; ++c) orow[tx + 8 * c] = acc[i][c] / denom;
+    for (int c = 0; c < DV / 8; ++c) orow[tx + 8 * c] = acc[i][c] / denom;
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * sizeof(float);
+  constexpr int bytes = smem_floats<DK, DV>() * sizeof(float);
   if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid(p.B * p.Hq, (p.Sq + BQ - 1) / BQ);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, bytes, stream>>>(p);
+  flash_fwd_f32_kernel<DK, DV><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,15 +280,20 @@ constexpr float kAbsent = -__builtin_huge_valf();  // a key past Skv: exp2 gives
 // every key: the plain version's uniform softmax over -1e30.  With any valid
 // key in the row its weight is exp2(-huge) = 0, as exp(-1e30 - m) is in f32.
 constexpr float kMaskRaw = -0x1p100f;
-static_assert(BQ <= 2 * BK, "Q is staged through one stage's K and V buffers");
+static_assert(BQ <= BK, "Q is staged through one stage's K buffer");
 
 // Shared-memory row pitch in bf16 elements: D plus 16 bytes, so the eight
-// 16-byte rows of an ldmatrix 8x8 matrix start in distinct bank quads.
+// 16-byte rows of an ldmatrix 8x8 matrix start in distinct bank quads.  K
+// rows take DK's pitch and V rows DV's.
 template <int D> __host__ __device__ constexpr int pitch() { return D + 8; }
 template <int D> __host__ __device__ constexpr int tile_elems() { return BK * pitch<D>(); }
+// One stage: a K tile, then a V tile.
+template <int DK, int DV> __host__ __device__ constexpr int stage_elems() {
+  return tile_elems<DK>() + tile_elems<DV>();
+}
 // kStages stages of a K and a V tile.
-template <int D> __host__ __device__ constexpr int smem_bytes() {
-  return 2 * kStages * tile_elems<D>() * 2;
+template <int DK, int DV> __host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_elems<DK, DV>() * 2;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
@@ -340,16 +364,17 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// Three blocks per SM at D 128 (168 registers), four below.
-template <int D>
-__global__ void __launch_bounds__(kThreads, D >= 128 ? 3 : 4)
+// Three blocks per SM at (128,128) (168 registers), four below.
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads, DK + DV >= 256 ? 3 : 4)
 flash_fwd_bf16_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  constexpr int P = pitch<D>(), TILE = tile_elems<D>();
-  // Stage s holds K at smem + 2s*TILE and V at smem + (2s+1)*TILE.  Q is
-  // staged through the last stage, which the key loop fills first.
-  __nv_bfloat16* q_stage = smem + 2 * (kStages - 1) * TILE;
+  constexpr int PK = pitch<DK>(), PV = pitch<DV>(), TK = tile_elems<DK>(),
+                STAGE = stage_elems<DK, DV>();
+  // Stage s holds K at smem + s*STAGE and V at smem + s*STAGE + TK.  Q is
+  // staged through the last stage's K tile, which the key loop fills first.
+  __nv_bfloat16* q_stage = smem + (kStages - 1) * STAGE;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
@@ -363,13 +388,13 @@ flash_fwd_bf16_kernel(const Params p) {
   tile_range(p, q0, BQ, BK, &kt_begin, &kt_end);
 
   // Prologue: Q, then the first kStages - 1 K/V tiles, one cp.async group each.
-  load_rows<D>(q_stage, q, p.q_ss, q0, BQ, p.Sq, tid);
+  load_rows<DK>(q_stage, q, p.q_ss, q0, BQ, p.Sq, tid);
   cp_async_commit();
   #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (kt_begin + i < kt_end) {
-      load_rows<D>(smem + 2 * i * TILE, k, p.k_ss, (kt_begin + i) * BK, BK, p.Skv, tid);
-      load_rows<D>(smem + (2 * i + 1) * TILE, v, p.v_ss, (kt_begin + i) * BK, BK, p.Skv, tid);
+      load_rows<DK>(smem + i * STAGE, k, p.k_ss, (kt_begin + i) * BK, BK, p.Skv, tid);
+      load_rows<DV>(smem + i * STAGE + TK, v, p.v_ss, (kt_begin + i) * BK, BK, p.Skv, tid);
     }
     cp_async_commit();
   }
@@ -377,14 +402,14 @@ flash_fwd_bf16_kernel(const Params p) {
   __syncthreads();
 
   // A fragments of the warp's 16 rows: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15).
-  unsigned qf[D / 16][4];
+  unsigned qf[DK / 16][4];
   {
     const int row = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
     const int col = (lane >> 4) << 3;
     const unsigned sign = p.scale < 0.f ? 0x80008000u : 0u;  // -q.k |scale| = q.k scale
     #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      ldsm_x4(qf[kk], smem_addr(q_stage + row * P + kk * 16 + col));
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      ldsm_x4(qf[kk], smem_addr(q_stage + row * PK + kk * 16 + col));
       #pragma unroll
       for (int i = 0; i < 4; ++i) qf[kk][i] ^= sign;
     }
@@ -394,9 +419,9 @@ flash_fwd_bf16_kernel(const Params p) {
   const int row0 = q0 + warp * 16 + (lane >> 2);
   const int qpos[2] = {row0 + p.kv_offset, row0 + 8 + p.kv_offset};
   const float sl2 = fabsf(p.scale) * kLog2e;  // exp(scale (s - m)) = exp2(sl2 s - sl2 m)
-  float o_acc[D / 8][4];
+  float o_acc[DV / 8][4];
   #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
     #pragma unroll
     for (int e = 0; e < 4; ++e) o_acc[j][e] = 0.f;
   float m[2] = {kMaskRaw, kMaskRaw}, l[2] = {0.f, 0.f};  // row max in unscaled units
@@ -410,12 +435,12 @@ flash_fwd_bf16_kernel(const Params p) {
     __syncthreads();  // ... and for all; every thread is done with tile kt - 1's stage
     if (kt + kStages - 1 < kt_end) {  // refill that stage, kStages - 1 tiles ahead
       const int st = (it + kStages - 1) % kStages, kn = k0 + (kStages - 1) * BK;
-      load_rows<D>(smem + 2 * st * TILE, k, p.k_ss, kn, BK, p.Skv, tid);
-      load_rows<D>(smem + (2 * st + 1) * TILE, v, p.v_ss, kn, BK, p.Skv, tid);
+      load_rows<DK>(smem + st * STAGE, k, p.k_ss, kn, BK, p.Skv, tid);
+      load_rows<DV>(smem + st * STAGE + TK, v, p.v_ss, kn, BK, p.Skv, tid);
     }
     cp_async_commit();
-    const __nv_bfloat16* sK = smem + 2 * (it % kStages) * TILE;
-    const __nv_bfloat16* sV = sK + TILE;
+    const __nv_bfloat16* sK = smem + (it % kStages) * STAGE;
+    const __nv_bfloat16* sV = sK + TK;
 
     // S = Q K^T: 8 n-tiles of 8 keys; one ldmatrix.x4 gives b0/b1 of two.
     float s[BK / 8][4];
@@ -426,11 +451,11 @@ flash_fwd_bf16_kernel(const Params p) {
     {
       const int key = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) << 3;
       #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         #pragma unroll
         for (int np = 0; np < BK / 16; ++np) {
           unsigned kb[4];
-          ldsm_x4(kb, smem_addr(sK + (np * 16 + key) * P + kk * 16 + col));
+          ldsm_x4(kb, smem_addr(sK + (np * 16 + key) * PK + kk * 16 + col));
           mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
           mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
         }
@@ -475,7 +500,7 @@ flash_fwd_bf16_kernel(const Params p) {
       l[r] = l[r] * alpha + rs;  // this thread's partial row sum, from the f32 p
       if (__any_sync(0xffffffffu, alpha != 1.f)) {  // skipped when no row max of the warp moved
         #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o_acc[j][2 * r] *= alpha;
           o_acc[j][2 * r + 1] *= alpha;
         }
@@ -494,9 +519,9 @@ flash_fwd_bf16_kernel(const Params p) {
         split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
         split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
         #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           unsigned vb[4];
-          ldsm_x4_trans(vb, smem_addr(sV + (kk * 16 + key) * P + dp * 16 + col));
+          ldsm_x4_trans(vb, smem_addr(sV + (kk * 16 + key) * PV + dp * 16 + col));
           mma_bf16(o_acc[2 * dp], ph, vb[0], vb[1]);
           mma_bf16(o_acc[2 * dp + 1], ph, vb[2], vb[3]);
           mma_bf16(o_acc[2 * dp], pl, vb[0], vb[1]);
@@ -517,45 +542,46 @@ flash_fwd_bf16_kernel(const Params p) {
     if (row >= p.Sq) continue;
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     __nv_bfloat16* orow =
-        o + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * D + ((lane & 3) << 1);
+        o + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * DV + ((lane & 3) << 1);
     #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
           __floats2bfloat162_rn(o_acc[j][2 * r] * inv, o_acc[j][2 * r + 1] * inv);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+  constexpr int bytes = smem_bytes<DK, DV>();
   if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid(p.B * p.Hq, (p.Sq + BQ - 1) / BQ);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(p);
+  flash_fwd_bf16_kernel<DK, DV><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
-template <int D>
+template <int DK, int DV>
 int launch_d(const Params& p, int dtype, cudaStream_t s) {
-  if (dtype == 0) return f32::launch<D>(p, s);
-  if (dtype == 1) return tc::launch<D>(p, s);
+  if (dtype == 0) return f32::launch<DK, DV>(p, s);
+  if (dtype == 1) return tc::launch<DK, DV>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  The output is contiguous (B,Sq,Hq,D).
+// dtype: 0 = float32, 1 = bfloat16.  The output is contiguous (B,Sq,Hq,DV).
+// (DK, DV) is one of (32,32), (64,64), (128,128) and (96,64).
 // bf16 operands are read by 16-byte copies: their base pointers must be
 // 16-byte aligned and their (b, s, h) strides multiples of 8 elements.
 // Returns a cudaError_t.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
-    int B, int Sq, int Skv, int Hq, int Hkv, int D,
+    int B, int Sq, int Skv, int Hq, int Hkv, int DK, int DV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -573,10 +599,14 @@ extern "C" int flash_attention_fwd(
   Params p{q, k, v, o, B, Sq, Skv, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
            v_sb, v_ss, v_sh, scale, causal, window, kv_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch_d<32>(p, dtype, s);
-    case 64: return launch_d<64>(p, dtype, s);
-    case 128: return launch_d<128>(p, dtype, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (DK == DV) {
+    switch (DK) {
+      case 32: return launch_d<32, 32>(p, dtype, s);
+      case 64: return launch_d<64, 64>(p, dtype, s);
+      case 128: return launch_d<128, 128>(p, dtype, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  if (DK == 96 && DV == 64) return launch_d<96, 64>(p, dtype, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,11 @@ its slots across a grid of (B*Hkv, splits) blocks that stream K and V with
 16-byte loads and write partial softmax sums; a second kernel, launched by
 the same C entry point, combines them.  The number of splits comes from the
 host alone (``num_splits``): the device lengths are never read back.  See the
-source note in the ``.cu`` file.
+source note in the ``.cu`` file.  The K head dim and the V head dim may
+differ (MLA: 96 and 64), and the caches are read through their strides, so
+MLA's v stays a slice of its re-expanded latent: a contiguous copy would move
+about 22 MB a layer a step at B 4, 1089 slots, about as much again as the
+kernel reads.
 
 A CPU tensor goes to the plain version (``ref.decode_attention``); a CUDA
 tensor launches the kernels or raises.
@@ -24,14 +28,16 @@ import torch
 from . import build
 from .ref import decode_attention as plain
 
-HEAD_DIMS = (32, 64, 128)
+# (K head dim, V head dim) pairs (csrc: dispatch_d): the GQA models' and MLA's.
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
 MAX_GROUP = 8      # query heads per KV head (csrc: kMaxGroup)
 MIN_SPLIT = 64     # slots: no split is shorter when the length allows
 BLOCKS_PER_SM = 4  # the grid's target: four blocks per SM
-# q, k_cache, v_cache, lens, len_all, o, part, B, Hq, Hkv, Smax, D, splits,
-# chunk, scale, dtype, stream
+# q, k_cache, v_cache, lens, len_all, o, part, B, Hq, Hkv, Smax, DK, DV,
+# splits, chunk, (b, s, h) strides of k_cache and v_cache, scale, dtype, stream
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 2
-             + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+             + (ctypes.c_int,) * 8 + (ctypes.c_longlong,) * 6
+             + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def num_splits(bh: int, length: int, n_sm: int) -> int:
@@ -58,6 +64,29 @@ def split_plan(B: int, Hkv: int, Smax: int, cache_len: torch.Tensor | int,
     return -(-n // chunk), chunk  # no split starts past n
 
 
+def head_dims(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
+              ) -> tuple[int, int]:
+    """(DK, DV) of q (B,Hq,DK), k_cache (B,Smax,Hkv,DK) and v_cache
+    (B,Smax,Hkv,DV), or a ValueError where the shapes do not fit together, the
+    kernel has no instantiation for the pair, or the group exceeds
+    ``MAX_GROUP``."""
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4 \
+            or k_cache.shape[:3] != v_cache.shape[:3]:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
+                         f"caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, Hq, DK = q.shape
+    _, Smax, Hkv, Dk = k_cache.shape
+    if k_cache.shape[0] != B or Dk != DK or Hkv == 0 or Hq % Hkv or Smax == 0:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
+                         f"cache {tuple(k_cache.shape)}")
+    DV = v_cache.shape[-1]
+    if (DK, DV) not in HEAD_DIMS or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention: head dims (k {DK}, v {DV}) (in {HEAD_DIMS}) or "
+                         f"group {Hq // Hkv} exceeds the kernel's {MAX_GROUP} query heads "
+                         "per KV head")
+    return DK, DV
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -66,45 +95,45 @@ def _sm_count(index: int) -> int:
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: torch.Tensor | int, *, window: int | None = None,
                      scale: float | None = None) -> torch.Tensor:
-    """q: (B,Hq,D); caches: (B,Smax,Hkv,D); cache_len: valid slots, an int
-    or a (B,) tensor -> (B,Hq,D) in q's dtype.  ``window`` is accepted and
-    unused, as in the reference: validity is by slot."""
+    """q: (B,Hq,DK); k_cache: (B,Smax,Hkv,DK); v_cache: (B,Smax,Hkv,DV);
+    cache_len: valid slots, an int or a (B,) tensor -> (B,Hq,DV) in q's
+    dtype, (DK, DV) one of ``HEAD_DIMS``.  ``window`` is accepted and
+    unused, as in the reference: validity is by slot.  q must be contiguous;
+    the caches may have any (batch, slot, head) strides that are multiples
+    of 16 bytes, the head dim contiguous."""
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, cache_len, window=window, scale=scale)
     dev = q.device
     if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
         raise ValueError(f"decode_attention: q {dev}, caches {k_cache.device}, "
                          f"{v_cache.device}")
-    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
-        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
-                         f"caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
-    B, Hq, D = q.shape
-    _, Smax, Hkv, Dk = k_cache.shape
-    if k_cache.shape[0] != B or Dk != D or Hkv == 0 or Hq % Hkv or Smax == 0:
-        raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
-                         f"cache {tuple(k_cache.shape)}")
-    if D not in HEAD_DIMS or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention: head dim {D} (in {HEAD_DIMS}) or group "
-                         f"{Hq // Hkv} exceeds the kernel's {MAX_GROUP} query heads per KV head")
+    DK, DV = head_dims(q, k_cache, v_cache)
+    B, Hq, _ = q.shape
+    _, Smax, Hkv, _ = k_cache.shape
     if not (q.dtype == k_cache.dtype == v_cache.dtype):
         raise ValueError(f"decode_attention: dtypes {q.dtype}, {k_cache.dtype}, "
                          f"{v_cache.dtype}")
-    if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("decode_attention: q and caches must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("decode_attention: q and caches must be 16-byte aligned")
+    if not q.is_contiguous() or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
+        raise ValueError("decode_attention: q must be contiguous and the caches' head dim "
+                         "contiguous")
+    per16 = 16 // q.element_size()
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)) or any(
+            st % per16 for t in (k_cache, v_cache) for st in t.stride()[:3]):
+        raise ValueError("decode_attention: q and caches must be 16-byte aligned, and the "
+                         "caches' (batch, slot, head) strides multiples of 16 bytes")
     if isinstance(cache_len, torch.Tensor):
         lens = cache_len.to(device=dev, dtype=torch.int32).broadcast_to((B,)).contiguous()
         lens_ptr, len_all = lens.data_ptr(), 0
     else:  # one length for the batch, passed by value: no tensor, no fill
         lens_ptr, len_all = None, max(min(int(cache_len), Smax), 0)
     splits, chunk = split_plan(B, Hkv, Smax, cache_len, _sm_count(dev.index or 0))
-    scale = scale if scale is not None else D ** -0.5
-    o = torch.empty_like(q)
-    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=dev)
+    scale = scale if scale is not None else DK ** -0.5
+    o = torch.empty((B, Hq, DV), dtype=q.dtype, device=dev)
+    part = torch.empty(B * Hq * splits * (DV + 2), dtype=torch.float32, device=dev)
     kernel = build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     rc = kernel(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens_ptr, len_all,
-                o.data_ptr(), part.data_ptr(), B, Hq, Hkv, Smax, D, splits, chunk, float(scale),
+                o.data_ptr(), part.data_ptr(), B, Hq, Hkv, Smax, DK, DV, splits, chunk,
+                *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
                 build.dtype_code(q), build.stream_of(q))
     build.check(rc, "decode_attention")
     decode_attention.n_launches += 1

@@ -9,7 +9,8 @@ inputs run on the bf16 tensor cores (``mma.sync``, K and V staged by
 remainder for P·V); f32 inputs keep exact f32 arithmetic on the CUDA cores.  Both read KV head ``h // g`` in
 place instead of copying K and V per group, mask the ragged edges in the
 kernel instead of padding, and skip key tiles the mask empties.  See the
-source note in the ``.cu`` file.
+source note in the ``.cu`` file.  The K head dim and the V head dim may
+differ: MLA's q and k have 96 (qk_nope 64 + qk_rope 32) and its v 64.
 
 A CPU tensor goes to the plain version (``ref.attention``); a CUDA tensor
 launches the kernel or raises.
@@ -24,17 +25,37 @@ import torch
 from . import build
 from .ref import attention as plain
 
-HEAD_DIMS = (32, 64, 128)
-# q, k, v, o, B, Sq, Skv, Hq, Hkv, D, (b, s, h) strides of q, k and v, scale,
-# causal, window, kv_offset, dtype, stream
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 9
+# (K head dim, V head dim) pairs the kernel is instantiated for (csrc:
+# flash_attention_fwd's switch): the GQA models' and MLA's.
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
+# q, k, v, o, B, Sq, Skv, Hq, Hkv, DK, DV, (b, s, h) strides of q, k and v,
+# scale, causal, window, kv_offset, dtype, stream
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 9
              + (ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+
+
+def head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int]:
+    """(DK, DV) of q (B,Sq,Hq,DK), k (B,Skv,Hkv,DK) and v (B,Skv,Hkv,DV), or a
+    ValueError where the shapes do not fit together or the kernel has no
+    instantiation for the pair."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, _, Hq, DK = q.shape
+    _, Skv, Hkv, Dk = k.shape
+    if k.shape[0] != B or Dk != DK or Hkv == 0 or Hq % Hkv or Skv == 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
+    if (DK, v.shape[-1]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (k {DK}, v {v.shape[-1]}) not in "
+                         f"{HEAD_DIMS}")
+    return DK, v.shape[-1]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None, kv_offset: int = 0) -> torch.Tensor:
-    """q: (B,Sq,Hq,D); k, v: (B,Skv,Hkv,D) -> (B,Sq,Hq,D) in q's dtype.
+    """q: (B,Sq,Hq,DK); k: (B,Skv,Hkv,DK); v: (B,Skv,Hkv,DV) -> (B,Sq,Hq,DV)
+    in q's dtype, (DK, DV) one of ``HEAD_DIMS``.
 
     Any strides are taken as long as the head dim is contiguous (v may be a
     slice of a fused qkv projection); bf16 operands are copied 16 bytes at a
@@ -45,15 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_offset=kv_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q {q.device}, k {k.device}, v {v.device}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    B, Sq, Hq, D = q.shape
-    _, Skv, Hkv, Dk = k.shape
-    if k.shape[0] != B or Dk != D or Hkv == 0 or Hq % Hkv or Skv == 0:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    DK, DV = head_dims(q, k, v)
+    B, Sq, Hq, _ = q.shape
+    _, Skv, Hkv, _ = k.shape
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -64,15 +79,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "(batch, seq, head) strides that are multiples of 8")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window {window} must be positive")
-    scale = scale if scale is not None else D ** -0.5
+    scale = scale if scale is not None else DK ** -0.5
     if scale == 0 and q.dtype == torch.bfloat16:  # the bf16 kernel keeps its row max unscaled
         raise ValueError("flash_attention: a bf16 scale must be non-zero")
-    o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, Hq, DV), dtype=q.dtype, device=q.device)
     kernel = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
-    rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale), int(causal),
-                -1 if window is None else int(window), int(kv_offset), build.dtype_code(q),
-                build.stream_of(q))
+    rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv, Hq, Hkv,
+                DK, DV, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+                int(causal), -1 if window is None else int(window), int(kv_offset),
+                build.dtype_code(q), build.stream_of(q))
     build.check(rc, "flash_attention")
     flash_attention.n_launches += 1
     return o

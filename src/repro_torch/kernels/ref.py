@@ -31,12 +31,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float | None = None, kv_offset: int = 0) -> torch.Tensor:
     """Full attention with GQA head broadcast.
 
-    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0.
+    q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) with
+    Hq % Hkv == 0 (MLA: D 96, Dv 64).  Returns (B, Sq, Hq, Dv).
     ``kv_offset``: absolute position of q[0] minus that of k[0].
     window: sliding-window size (attend to positions in (i-window, i]).
-    The reference routes long sliding-window inputs to a banded form that
-    equals this masked form on the band; the port keeps the masked form.
+    Causal sliding-window prefill longer than twice the window (Sq == Skv,
+    kv_offset 0) goes to :func:`attention_banded`, O(S·window) instead of
+    O(S²), as in the reference.
     """
+    if (causal and window is not None and kv_offset == 0
+            and q.shape[1] == k.shape[1] and q.shape[1] > 2 * window):
+        return attention_banded(q, k, v, window=window, scale=scale)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     g = Hq // Hkv
@@ -56,6 +61,44 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
+def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int, scale: float | None = None) -> torch.Tensor:
+    """Causal sliding-window attention in O(S·window) (the reference's
+    ``attention_banded``): the sequence, zero-padded to whole blocks of
+    ``window``, is cut into such blocks, and each query block attends to its
+    own block and the one before it, which hold its whole (i-window, i]
+    band.  Keys outside the band, and block -1's zeros, are masked to -1e30;
+    each row has its own key, so they weigh exactly 0 and the result is the
+    masked form's up to summation order."""
+    B, S, Hq, D = q.shape
+    _, _, Hkv, Dv = v.shape
+    g = Hq // Hkv
+    w = window
+    scale = scale if scale is not None else D ** -0.5
+    pad = -S % w
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    nc = (S + pad) // w
+    qf = q.float().mul(scale).reshape(B, nc, w, Hkv, g, D)
+    kc = k.float().reshape(B, nc, w, Hkv, D)
+    vc = v.float().reshape(B, nc, w, Hkv, Dv)
+
+    def prev(t):  # block c-1 beside block c; block -1 is zeros
+        return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+
+    kb = torch.cat([prev(kc), kc], dim=2)                      # (B, nc, 2w, Hkv, D)
+    vb = torch.cat([prev(vc), vc], dim=2)
+    logits = torch.einsum("bcqhgd,bckhd->bchgqk", qf, kb)      # (B, nc, Hkv, g, w, 2w)
+    q_pos = torch.arange(w, device=q.device)[:, None] + w      # within-band positions
+    k_pos = torch.arange(2 * w, device=q.device)[None, :]
+    first = torch.arange(nc, device=q.device)[:, None, None] == 0
+    mask = ((k_pos <= q_pos) & (k_pos > q_pos - w))[None] & ~(first & (k_pos < w))
+    logits = logits.masked_fill(~mask[None, :, None, None], _NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bchgqk,bckhd->bcqhgd", p, vb)
+    return out.reshape(B, nc * w, Hq, Dv)[:, :S].to(q.dtype)
+
+
 def _split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """A bf16 high part and the bf16 of the remainder, both as f32."""
     hi = t.bfloat16().float()
@@ -64,17 +107,23 @@ def _split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def attention_bf16_scheme(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int | None = None,
-                          kv_offset: int = 0, bk: int = 64) -> torch.Tensor:
+                          scale: float | None = None, kv_offset: int = 0,
+                          bk: int = 64) -> torch.Tensor:
     """``attention`` in the arithmetic of the flash kernel's bf16 path, in
     f32: Q.K^T of the operands accumulated in f32, the scale (times log2 e)
     applied to S in f32, an online softmax over ``bk``-key tiles with l
     summed from the f32 p, and P split into a bf16 high part and the bf16 of
-    its remainder for P.V.  Returns f32, before the kernel's one rounding of
-    the output to bf16, so the kernel can be held to it within that rounding.
+    its remainder for P.V.  v may be narrower than q and k (MLA's 64 against
+    96): the output has v's head dim.  Returns f32, before the kernel's one
+    rounding of the output to bf16, so the kernel can be held to it within
+    that rounding.  A negative ``scale`` is the kernel's sign-flipped Q times
+    |scale|: the same products.
     """
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
+    Dv = v.shape[-1]
     g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
     qf = q.float().reshape(B, Sq, Hkv, g, D)
     kf, vf = k.float(), v.float()
     q_pos = torch.arange(Sq, device=q.device)[:, None] + kv_offset
@@ -86,9 +135,9 @@ def attention_bf16_scheme(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid &= k_pos > q_pos - window
     m = torch.full((B, Hkv, g, Sq), _NEG_INF, device=q.device)
     l = torch.zeros((B, Hkv, g, Sq), device=q.device)
-    acc = torch.zeros((B, Hkv, g, Sq, D), device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, Dv), device=q.device)
     for k0 in range(0, Skv, bk):
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf[:, k0:k0 + bk]) * (D ** -0.5 * _LOG2E)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf[:, k0:k0 + bk]) * (scale * _LOG2E)
         s = s.masked_fill(~valid[:, k0:k0 + bk], _NEG_INF)
         mx = torch.maximum(m, s.amax(-1))
         alpha, p = torch.exp2(m - mx), torch.exp2(s - mx[..., None])
@@ -97,7 +146,7 @@ def attention_bf16_scheme(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", hi + lo, vf[:, k0:k0 + bk])
         m = mx
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dv)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -105,9 +154,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      scale: float | None = None) -> torch.Tensor:
     """Single-token attention over a (possibly ring-buffered) KV cache.
 
-    q: (B, Hq, D); caches: (B, Smax, Hkv, D); cache_len: number of valid
-    slots (scalar or (B,)).  Validity is by slot, so ring order does not
-    matter; ``window`` is accepted and unused, as in the reference.
+    q: (B, Hq, D); k_cache: (B, Smax, Hkv, D); v_cache: (B, Smax, Hkv, Dv);
+    cache_len: number of valid slots (scalar or (B,)).  Returns (B, Hq, Dv).
+    Validity is by slot, so ring order does not matter; ``window`` is
+    accepted and unused, as in the reference.
     """
     B, Hq, D = q.shape
     _, Smax, Hkv, _ = k_cache.shape

@@ -5,6 +5,10 @@ steps of the full-width bf16 model under ``torch.profiler``.
         --arch internlm2_1p8b --batch 4 --prompt-len 1024 --steps 16
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch hymba_1p5b --batch 4 --prompt-len 1536 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch minicpm3_4b --batch 4 --prompt-len 1024 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch granite_moe_3b --batch 4 --prompt-len 1024 --steps 16
 
 Prints, for prefill and for decode, the host wall time (ended by a
 synchronise) with and without the profiler, the summed device time of all

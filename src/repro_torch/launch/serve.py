@@ -6,6 +6,10 @@ placed CNN inference over a simulated pool with any registered planner.
         --batch 4 --prompt-len 1024 --steps 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1p5b \\
         --batch 4 --prompt-len 1536 --steps 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3_4b \\
+        --batch 4 --prompt-len 1024 --steps 64      # MLA
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_3b \\
+        --batch 4 --prompt-len 1024 --steps 64      # MoE
     PYTHONPATH=src python -m repro_torch.launch.serve --execute \\
         --planner ould-dp --pool-nodes 8
 

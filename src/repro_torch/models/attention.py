@@ -1,8 +1,13 @@
-"""GQA attention, with an optional sliding window (port of the GQA half of
-``repro.models.attention``; MLA is a later slice).
+"""Attention variants (port of ``repro.models.attention``): GQA with an
+optional sliding window, and MLA (multi-head latent attention, minicpm3).
 
-KV caches per layer: k and v, each (B, Smax, n_kv, hd); a sliding-window
-(SWA) cache is a ring buffer of Smax = window slots.
+Caches per layer:
+  gqa/swa: k and v, each (B, Smax, n_kv, hd); a sliding-window (SWA) cache is
+           a ring buffer of Smax = window slots.
+  mla:     the latent, (B, Smax, kv_lora_rank + qk_rope_head_dim): the
+           normalised compressed KV beside the roped shared key part.  The
+           reference's layer cache is this bare array; the port keeps it as
+           ``{"latent": array}`` so every layer's cache is a dict.
 """
 
 from __future__ import annotations
@@ -11,7 +16,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .common import dense_init, rope
+from .common import dense_init, rmsnorm, rope
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
@@ -66,3 +71,95 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos: in
 def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> tuple[int, ...]:
     smax = min(seq, cfg.window) if cfg.attn == "swa" and cfg.window else seq
     return (batch, smax, cfg.n_kv, cfg.hd)
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
+    m = cfg.mla
+    d, hq = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = gen.device
+    return {"wq_a": dense_init(gen, d, (d, m.q_lora_rank), dtype),
+            "wq_b": dense_init(gen, m.q_lora_rank, (m.q_lora_rank, hq * qk), dtype),
+            "wkv_a": dense_init(gen, d, (d, m.kv_lora_rank + m.qk_rope_head_dim), dtype),
+            "wkv_b": dense_init(gen, m.kv_lora_rank,
+                                (m.kv_lora_rank, hq * (m.qk_nope_head_dim + m.v_head_dim)),
+                                dtype),
+            "wo": dense_init(gen, hq * m.v_head_dim, (hq * m.v_head_dim, d), dtype),
+            "norm_q": {"scale": torch.ones(m.q_lora_rank, dtype=dtype, device=dev)},
+            "norm_kv": {"scale": torch.ones(m.kv_lora_rank, dtype=dtype, device=dev)}}
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def _expand_kv(p: dict, cfg: ModelConfig, c_kv: torch.Tensor, k_rope: torch.Tensor):
+    """k (B, S, hq, nope + rope) and v (B, S, hq, v_head_dim) from the
+    normalised latent c_kv (B, S, kv_lora) and the roped shared key part
+    k_rope (B, S, rope).  v stays a slice of the ``wkv_b`` product: both
+    attention kernels take its strides."""
+    m = cfg.mla
+    B, S, _ = c_kv.shape
+    kvb = (c_kv @ p["wkv_b"]).reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kvb, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)], dim=-1)
+    return k, v
+
+
+def _mla_q_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                  plain: bool):
+    """q (B, S, hq, nope + rope) for x's positions, the normalised latent
+    c_kv (B, S, kv_lora), the roped shared key part k_rope (B, S, rope), and
+    the latent (B, S, kv_lora + rope) the cache keeps.  Both low-rank norms
+    (norm_q over q_lora_rank, norm_kv over kv_lora_rank) go through the
+    RMSNorm kernel; c_kv, a slice of the ``wkv_a`` product, is made
+    contiguous for it."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = rmsnorm(x @ p["wq_a"], p["norm_q"]["scale"], cfg.norm_eps, plain=plain) @ p["wq_b"]
+    q = q.reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q = torch.cat([q_nope, rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+
+    c_kv, k_rope = torch.split(x @ p["wkv_a"], [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rmsnorm(c_kv.contiguous(), p["norm_kv"]["scale"], cfg.norm_eps, plain=plain)
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q, c_kv, k_rope, torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
+              plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal MLA (prefill).  Returns (y, latent)."""
+    B, S, _ = x.shape
+    q, c_kv, k_rope, latent = _mla_q_latent(p, cfg, x, positions, plain)
+    k, v = _expand_kv(p, cfg, c_kv, k_rope)
+    y = ops.attention(q, k, v, causal=True, scale=_mla_scale(cfg), plain=plain)
+    return y.reshape(B, S, cfg.n_heads * cfg.mla.v_head_dim) @ p["wo"], latent
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: torch.Tensor, pos: int, *,
+               plain: bool = False) -> torch.Tensor:
+    """x: (B, 1, d); cache: the latent (B, Smax, kv_lora + rope); pos: the
+    current cache length.  Writes the new latent into slot ``pos`` in place,
+    then re-expands k and v from the whole latent cache, as the reference
+    does (``wkv_b`` is not absorbed into q), and attends over its first
+    pos + 1 slots.  Returns y."""
+    m = cfg.mla
+    B = x.shape[0]
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    q, _, _, latent = _mla_q_latent(p, cfg, x, positions, plain)
+    cache[:, pos] = latent[:, 0].to(cache.dtype)
+    c_kv, k_rope = torch.split(cache, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    k_all, v_all = _expand_kv(p, cfg, c_kv, k_rope)
+    y = ops.decode_attention(q[:, 0], k_all, v_all, pos + 1, scale=_mla_scale(cfg),
+                             plain=plain)
+    return y.reshape(B, 1, cfg.n_heads * m.v_head_dim) @ p["wo"]
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> tuple[int, ...]:
+    m = cfg.mla
+    return (batch, seq, m.kv_lora_rank + m.qk_rope_head_dim)

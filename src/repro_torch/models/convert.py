@@ -39,7 +39,10 @@ def _map(tree, fn):
 def from_jax_params(tree: dict, cfg: ModelConfig,
                     device: str | torch.device = "cuda") -> dict:
     """Unstack ``tree["blocks"][pp]`` (leaves with a leading group axis G)
-    into per-layer weights: layer l = g * len(block_pattern) + pp."""
+    into per-layer weights: layer l = g * len(block_pattern) + pp.  Nested
+    leaves unstack the same way (MLA's ``norm_q``/``norm_kv`` scales, the
+    MoE's (G, E, d, f) experts), and each keeps its dtype: the MoE router
+    stays f32 in a bf16 model."""
     dev = resolve_device(device)
     pat = cfg.block_pattern
     groups = cfg.n_layers // len(pat)

@@ -4,19 +4,22 @@ block kinds of ``repro.models.transformer``).
 The reference stores blocks stacked over pattern groups and runs them with
 ``lax.scan``; the port keeps one dict of tensors per layer and runs a Python
 loop over layers (``models/convert.py`` unstacks reference parameters).
-Ported block kinds (GQA/SWA attention, dense MLP):
+Ported block kinds (Attn is GQA, SWA or MLA; FFN is the SwiGLU MLP or,
+where ``cfg.moe`` is set, the MoE):
 
-    attn   : x + Attn(norm1(x));             x + MLP(norm2(x))
+    attn   : x + Attn(norm1(x));             x + FFN(norm2(x))
     hybrid : x + 0.5 (Attn + SSM)(norm1(x)); x + MLP(norm2(x))   (hymba)
     mamba  : x + SSM(norm1(x));             [x + MLP(norm2(x)) if d_ff > 0]
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout:
 ``embed.table`` (vocab_padded, d), ``lm_head`` (d, vocab_padded),
 ``final_norm.scale`` (d,), and ``blocks[l]`` with ``norm1``, ``attn``
-(``wqkv``, ``wo``), ``ssm`` (``models/ssm.py``), ``norm2`` and ``mlp``
-(``w_in``, ``w_gate``, ``w_out``) as its kind has them.  A layer's cache is a
-dict: ``k``, ``v`` (attention; a ring of ``window`` slots under SWA),
-``conv`` and ``ssm`` (the SSM's carried states).
+(``wqkv``, ``wo``) or ``mla`` (``models/attention.py``), ``ssm``
+(``models/ssm.py``), ``norm2``, and ``mlp`` (``w_in``, ``w_gate``,
+``w_out``) or ``moe`` (``models/moe.py``) as its kind has them.  A layer's
+cache is a dict: ``k``, ``v`` (GQA/SWA attention; a ring of ``window`` slots
+under SWA), ``latent`` (MLA; the reference's bare array), ``conv`` and
+``ssm`` (the SSM's carried states).
 
 ``plain=True`` routes every norm, attention and scan through the plain
 PyTorch versions; only the parity checks pass it.
@@ -29,6 +32,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import dense_init, dtype_of, mlp_apply, mlp_init, rmsnorm
 
@@ -50,12 +54,14 @@ def check_config(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(kinds)}; 'attn', 'hybrid' and 'mamba' "
             "blocks are ported (mlstm/slstm come with the xLSTM slice)")
-    if kinds & {"attn", "hybrid"} and cfg.attn not in ("gqa", "swa"):
-        raise NotImplementedError(f"{cfg.name}: attention {cfg.attn!r} is a later slice")
+    if "hybrid" in kinds and cfg.attn not in ("gqa", "swa"):
+        raise ValueError(f"{cfg.name}: hybrid blocks take GQA or SWA, not {cfg.attn!r}")
+    if "attn" in kinds and cfg.attn not in ("gqa", "swa", "mla"):
+        raise ValueError(f"{cfg.name}: attention {cfg.attn!r}")
+    if cfg.attn == "mla" and cfg.mla is None:
+        raise ValueError(f"{cfg.name}: MLA attention needs an mla config")
     if kinds & {"hybrid", "mamba"} and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: block kinds {sorted(kinds)} need an ssm config")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are a later slice")
 
 
 def init_params(seed: int, cfg: ModelConfig, device: str | torch.device = "cuda") -> dict:
@@ -72,13 +78,18 @@ def init_params(seed: int, cfg: ModelConfig, device: str | torch.device = "cuda"
 
     def block(kind: str) -> dict:
         p = {"norm1": ones()}
-        if kind in ("attn", "hybrid"):
+        if kind == "attn" and cfg.attn == "mla":
+            p["mla"] = attn_mod.mla_init(gen, cfg, dt)
+        elif kind in ("attn", "hybrid"):
             p["attn"] = attn_mod.gqa_init(gen, cfg, dt)
         if kind in ("hybrid", "mamba"):
             p["ssm"] = ssm_mod.ssm_init(gen, cfg, dt)
         if kind != "mamba" or cfg.d_ff > 0:
             p["norm2"] = ones()
-            p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt)
+            if kind == "attn" and cfg.moe is not None:
+                p["moe"] = moe_mod.moe_init(gen, cfg, dt)
+            else:
+                p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt)
         return p
 
     params: dict = {"embed": {"table": dense_init(gen, d, (cfg.vocab_padded, d), dt)},
@@ -106,11 +117,17 @@ def _lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool) -> 
 
 
 def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool) -> torch.Tensor:
-    return mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps, plain=plain))
+    """FFN(norm2(x)): the MoE where the block has one (its aux loss is
+    dropped at serving, as in the reference), else the MLP."""
+    h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps, plain=plain)
+    if "moe" in p:
+        return moe_mod.moe_apply(p["moe"], cfg, h)[0]
+    return mlp_apply(p["mlp"], h)
 
 
 def _to_cache(t: torch.Tensor, cfg: ModelConfig, max_len: int) -> torch.Tensor:
-    """Pad a prefill k or v (B, S', hkv, hd) to the cache's slot count."""
+    """Pad a prefill k or v (B, S', hkv, hd), or an MLA latent (B, S', r),
+    to the cache's slot count."""
     swa = cfg.attn == "swa" and cfg.window
     if t.shape[1] >= max_len or (swa and t.shape[1] >= cfg.window):
         return t.contiguous()
@@ -123,13 +140,15 @@ def _to_cache(t: torch.Tensor, cfg: ModelConfig, max_len: int) -> torch.Tensor:
 def cache_shapes(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype | None = None
                  ) -> list[dict]:
     """Per layer, ``{name: (shape, dtype)}`` of its cache: ``k``/``v`` for
-    attention (ring of ``window`` slots under SWA), ``conv``/``ssm`` for the
-    SSM (the scan state in f32)."""
+    GQA/SWA attention (ring of ``window`` slots under SWA), ``latent`` for
+    MLA, ``conv``/``ssm`` for the SSM (the scan state in f32)."""
     dt = dtype or dtype_of(cfg.compute_dtype)
     out = []
     for kind in cfg.pattern_for_layers():
         one = {}
-        if kind in ("attn", "hybrid"):
+        if kind == "attn" and cfg.attn == "mla":
+            one["latent"] = (attn_mod.mla_cache_shape(cfg, batch, seq), dt)
+        elif kind in ("attn", "hybrid"):
             kv = attn_mod.gqa_cache_shape(cfg, batch, seq)
             one.update(k=(kv, dt), v=(kv, dt))
         if kind in ("hybrid", "mamba"):
@@ -160,6 +179,9 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
     for p in params["blocks"]:
         h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps, plain=plain)
         c = {}
+        if "mla" in p:
+            y, latent = attn_mod.mla_apply(p["mla"], cfg, h, positions, plain=plain)
+            c["latent"] = _to_cache(latent, cfg, max_len)
         if "attn" in p:
             y, (k, v) = attn_mod.gqa_apply(p["attn"], cfg, h, positions, plain=plain)
             if cfg.attn == "swa" and cfg.window and cfg.window < S:
@@ -172,7 +194,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
             y = 0.5 * (y + ys) if "attn" in p else ys
         cache.append(c)
         x = x + y
-        if "mlp" in p:  # a mamba block with d_ff 0 has none
+        if "norm2" in p:  # a mamba block with d_ff 0 has no FFN
             x = x + _ffn(p, cfg, x, plain)
     logits = _lm_logits(params, cfg, x[:, -1:].contiguous(), plain)
     return logits[:, 0], cache
@@ -187,6 +209,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: lis
     x = _embed_in(params, cfg, {"tokens": tokens})
     for p, c in zip(params["blocks"], cache):
         h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps, plain=plain)
+        if "mla" in p:
+            y = attn_mod.mla_decode(p["mla"], cfg, h, c["latent"], pos, plain=plain)
         if "attn" in p:
             y = attn_mod.gqa_decode(p["attn"], cfg, h, (c["k"], c["v"]), pos, plain=plain)
         if "ssm" in p:
@@ -194,6 +218,6 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: lis
                                                            (c["conv"], c["ssm"]), plain=plain)
             y = 0.5 * (y + ys) if "attn" in p else ys
         x = x + y
-        if "mlp" in p:  # a mamba block with d_ff 0 has none
+        if "norm2" in p:  # a mamba block with d_ff 0 has no FFN
             x = x + _ffn(p, cfg, x, plain)
     return _lm_logits(params, cfg, x, plain)[:, 0], cache

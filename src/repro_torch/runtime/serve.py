@@ -33,7 +33,8 @@ class ServeConfig:
 
 
 class Server:
-    """Minimal production-shaped server: prefill -> decode loop.
+    """Minimal production-shaped server: prefill -> decode loop, for every
+    config ``check_config`` accepts (GQA, SWA, MLA, MoE, hybrid, mamba).
 
     ``device`` defaults to the card and must be where ``params`` live.  The
     KV cache is updated in place by each decode step (the reference donates

@@ -1,7 +1,9 @@
 """Step functions: prefill / decode (port of the serving half of
 ``repro.runtime.steps``; the training steps are a later slice).
 
-The reference jits these; the port runs them eagerly.
+The reference jits these; the port runs them eagerly.  Every block kind
+``models/transformer.py`` ports runs through them: GQA, SWA and MLA
+attention, the MLP and MoE FFNs, and the hybrid and mamba SSM blocks.
 """
 
 from __future__ import annotations

@@ -178,6 +178,121 @@ def test_decode_attention_kernel_per_seq_lengths_split_k(cuda, name):
     np.testing.assert_allclose(f32(got), f32(ref.decode_attention(q, kc, vc, lens)), **tol(name))
 
 
+# MLA's split head dims: q and k of 96 (qk_nope 64 + qk_rope 32), v of 64.
+MLA_FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, causal, window, kv_offset
+    (2, 128, 128, 4, 4, True, None, 0),
+    (1, 100, 100, 3, 3, True, None, 0),        # ragged Sq
+    (2, 64, 192, 4, 4, False, None, 0),
+    (1, 256, 256, 4, 2, True, 64, 0),          # windowed, g = 2
+    (1, 64, 64, 2, 1, True, 8, 100),           # rows with no valid key
+    (1, 1024, 1024, 8, 8, True, None, 0),      # the served layout at length
+]
+MLA_SCALE = 96 ** -0.5
+
+
+def mla_qkv(B, Sq, Skv, Hq, Hkv, dtype, seed=0):
+    """q and k of 96, and v of 64 as MLA passes it: a strided slice of the
+    (B, Skv, Hkv, 64 + 64) wkv_b product."""
+    q = normal(seed, B, Sq, Hq, 96, dtype=dtype)
+    k = normal(seed + 1, B, Skv, Hkv, 96, dtype=dtype)
+    v = normal(seed + 2, B, Skv, Hkv, 128, dtype=dtype)[..., 64:]
+    assert not v.is_contiguous()
+    return q, k, v
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,causal,window,off", MLA_FLASH_CASES)
+def test_flash_attention_kernel_mla_head_dims_match_plain(cuda, B, Sq, Skv, Hq, Hkv, causal,
+                                                          window, off, name):
+    """(DK, DV) = (96, 64) at MLA's scale: f32 3e-5, bf16 2e-2 against the
+    plain version, and bf16 within its output rounding of its own
+    arithmetic in f32."""
+    q, k, v = mla_qkv(B, Sq, Skv, Hq, Hkv, DTYPES[name])
+    kw = dict(causal=causal, window=window, kv_offset=off, scale=MLA_SCALE)
+    n0 = flash_attention.n_launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.n_launches == n0 + 1
+    assert got.shape == (B, Sq, Hq, 64) and got.dtype == q.dtype
+    np.testing.assert_allclose(f32(got), f32(ref.attention(q, k, v, **kw)), **tol(name))
+    if name == "bfloat16":
+        want = ref.attention_bf16_scheme(q, k, v, **kw)
+        np.testing.assert_allclose(f32(got), f32(want), rtol=2.0 ** -8,
+                                   atol=2.0 ** -12 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("D,DV", [(64, 64), (96, 64)])
+def test_flash_attention_bf16_kernel_matches_its_scheme_at_a_given_scale(cuda, D, DV):
+    """``attention_bf16_scheme`` takes the caller's scale (here neither
+    D^-0.5 nor positive) and v's own head dim."""
+    q, k = normal(0, 1, 200, 4, D, dtype=torch.bfloat16), normal(1, 1, 200, 2, D,
+                                                                 dtype=torch.bfloat16)
+    v = normal(2, 1, 200, 2, DV, dtype=torch.bfloat16)
+    for scale in (0.37, -0.2):
+        got = flash_attention(q, k, v, window=90, scale=scale)
+        want = ref.attention_bf16_scheme(q, k, v, window=90, scale=scale)
+        assert want.shape == got.shape == (1, 200, 4, DV)
+        np.testing.assert_allclose(f32(got), f32(want), rtol=2.0 ** -8,
+                                   atol=2.0 ** -12 * want.abs().max().item())
+
+
+MLA_DECODE_CASES = [  # B, Smax, Hq, Hkv, DK, DV, valid length
+    (2, 256, 4, 4, 96, 64, 100), (1, 64, 2, 1, 96, 64, 64), (2, 96, 4, 2, 96, 64, 0),
+    (4, 1089, 40, 40, 96, 64, 1088),           # minicpm3's last step, g = 1
+    (2, 256, 6, 2, 64, 64, 100),               # g = 3 on the G = 4 instantiation
+    (4, 1089, 24, 8, 64, 64, 1088),            # granite's last step, g = 3
+]
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,Smax,Hq,Hkv,DK,DV,ln", MLA_DECODE_CASES)
+def test_decode_attention_kernel_mla_and_group_3_match_plain(cuda, B, Smax, Hq, Hkv, DK, DV,
+                                                             ln, name):
+    """MLA's (96, 64) with v a strided slice of the re-expanded latent, and
+    granite's g = 3, against the plain version."""
+    dt = DTYPES[name]
+    q, kc = normal(0, B, Hq, DK, dtype=dt), normal(1, B, Smax, Hkv, DK, dtype=dt)
+    vc = normal(2, B, Smax, Hkv, DK + DV, dtype=dt)[..., DK:] if DK != DV else \
+        normal(2, B, Smax, Hkv, DV, dtype=dt)
+    scale = DK ** -0.5 if DK == DV else MLA_SCALE
+    n0 = decode_attention.n_launches
+    got = decode_attention(q, kc, vc, ln, scale=scale)
+    torch.cuda.synchronize()
+    assert decode_attention.n_launches == n0 + 1
+    assert got.shape == (B, Hq, DV) and got.dtype == dt
+    np.testing.assert_allclose(f32(got), f32(ref.decode_attention(q, kc, vc, ln, scale=scale)),
+                               **tol(name))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_decode_attention_kernel_mla_per_seq_lengths(cuda, name):
+    dt = DTYPES[name]
+    q, kc = normal(0, 3, 8, 96, dtype=dt), normal(1, 3, 2048, 8, 96, dtype=dt)
+    vc = normal(2, 3, 2048, 8, 128, dtype=dt)[..., 64:]
+    lens = torch.tensor([1, 700, 2048], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, kc, vc, lens)
+    np.testing.assert_allclose(f32(got), f32(ref.decode_attention(q, kc, vc, lens)), **tol(name))
+
+
+def test_mla_kernel_path_matches_plain_at_served_widths(cuda):
+    """One minicpm3 layer's shapes end to end (prefill then a decode step)
+    with bf16 weights: kernel path against plain within 2e-2 of max|plain|."""
+    cfg = dataclasses.replace(C.production_cfg(C.get_config("minicpm3_4b")), n_layers=1,
+                              vocab=1000)
+    params = init_params(0, cfg, device=cuda)
+    B, S = 2, 96
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S))).to(cuda)
+    with torch.inference_mode():
+        (kl, kc), (pl, pc) = [make_prefill_step(cfg, S + 2, plain=p)(params, {"tokens": toks})
+                              for p in (False, True)]
+        assert kc[0]["latent"].shape == (B, S + 2, 288)
+        assert (kl - pl).abs().max() <= 2e-2 * pl.abs().max()
+        tok = toks[:, -1:]
+        (kl, _), (pl, _) = [make_decode_step(cfg, plain=p)(params, tok, c, S)
+                            for p, c in ((False, kc), (True, pc))]
+        assert (kl - pl).abs().max() <= 2e-2 * pl.abs().max()
+
+
 @pytest.mark.parametrize("name", list(DTYPES))
 @pytest.mark.parametrize("shape", RMSNORM_SHAPES)
 def test_rmsnorm_kernel_matches_plain(cuda, shape, name):
@@ -275,6 +390,10 @@ def test_ssd_scan_bf16_kernel_matches_its_scheme(cuda, shape, chunk, with_h0):
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(*(normal(0, 1, 8, 2, 48) for _ in range(3)))
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(normal(0, 1, 8, 2, 64), normal(1, 1, 8, 2, 64), normal(2, 1, 8, 2, 96))
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention(normal(0, 1, 2, 96), normal(1, 1, 8, 2, 96), normal(2, 1, 8, 2, 96), 4)
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm(normal(0, 8, 64)[:, ::2], normal(1, 32))
     with pytest.raises(TypeError):
@@ -304,16 +423,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ssd_scan(x.half(), a, b, c)
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1p8b", "hymba_1p5b"])
+@pytest.mark.parametrize("arch", ["internlm2_1p8b", "hymba_1p5b", "minicpm3_4b",
+                                  "granite_moe_3b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_server_kernel_path_matches_plain(cuda, dtype, arch):
     """A small model end to end on the card: the kernel path's logits against
     the plain path's.  f32 at 1e-4 (summation order only); bf16 at 2e-2 of
     the logits' magnitude (an ulp flip compounds through the layers).  The
     reduced hymba has a window of 32 and chunks of 16, so the 40-token
-    prompt rolls the ring, ends in a ragged chunk, and decode wraps."""
+    prompt rolls the ring, ends in a ragged chunk, and decode wraps.  MLA
+    keeps its published head dims (96 for q and k, 64 for v) over narrower
+    low ranks, since the kernels take no others; the MoE runs its published
+    impl (``scatter`` on one card), and its decode drops slots (cap 1).
+    The kernel path's MoE layers dispatch to the plain path's experts
+    (``PinnedRoutes``): in bf16 a near-tie among the router's logits sends a
+    token to another expert, a discrete jump (0.137 against 0.077 once in
+    four card runs), not the kernels' arithmetic."""
     cfg = C.get_config(arch).reduced(n_layers=4, d_model=256, n_heads=4, vocab=1000)
     cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=C.MLAConfig(q_lora_rank=64, kv_lora_rank=32))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=C.get_config(arch).moe)
     params = init_params(0, cfg, device=cuda)
     B, S, steps = 2, 40, 5
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S))).to(cuda)
@@ -329,14 +460,53 @@ def test_server_kernel_path_matches_plain(cuda, dtype, arch):
         else:
             assert (a - b).abs().max() <= 2e-2 * b.abs().max()
 
-    with torch.inference_mode():
-        (kl, kc), (pl, pc) = kp(params, {"tokens": toks}), pp(params, {"tokens": toks})
+    with torch.inference_mode(), PinnedRoutes() as pin:
+        pl, pc = pin.lead(pp, params, {"tokens": toks})
+        kl, kc = pin.follow(kp, params, {"tokens": toks})
         check(kl, pl)
         ids = torch.from_numpy(out.astype(np.int64)).to(cuda)
         for i in range(steps):
-            (kl, kc), (pl, pc) = kd(params, ids[:, i:i + 1], kc, S + i), \
-                pd(params, ids[:, i:i + 1], pc, S + i)
+            pl, pc = pin.lead(pd, params, ids[:, i:i + 1], pc, S + i)
+            kl, kc = pin.follow(kd, params, ids[:, i:i + 1], kc, S + i)
             check(kl, pl)
+
+
+class PinnedRoutes:
+    """While active, ``lead(step, ...)`` runs a step and records each MoE
+    layer's top-k experts; ``follow(step, ...)`` runs another path's step
+    with each MoE layer dispatching to the recorded experts, in order, with
+    gates from its own router logits at them.  A model without an MoE runs
+    both steps unchanged."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._real, self._topi, self._next = moe, moe._route, [], None
+
+        def route(p, cfg, x2):
+            gates, topi, aux = self._real(p, cfg, x2)
+            if self._next is None:
+                self._topi.append(topi)
+                return gates, topi, aux
+            forced = self._topi[self._next]
+            self._next += 1
+            return torch.softmax((x2.float() @ p["router"]).gather(-1, forced), -1), forced, aux
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._real
+
+    def lead(self, step, *args):
+        self._topi, self._next = [], None
+        return step(*args)
+
+    def follow(self, step, *args):
+        self._next = 0
+        out = step(*args)
+        assert self._next == len(self._topi)
+        self._next = None
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -107,6 +107,41 @@ def test_rmsnorm_plain_matches_pallas(shape, name):
     np.testing.assert_allclose(f32(got), f32(want), **tol(name))
 
 
+# --- Banded sliding-window attention (the plain path's long-prompt form) ---
+
+from repro.kernels import ref as jax_ref  # noqa: E402
+
+BANDED_CASES = [  # B, S, Hq, Hkv, D, window: S past twice the window, ragged or whole blocks
+    (2, 70, 4, 2, 32, 16), (1, 128, 2, 2, 64, 32), (1, 200, 6, 2, 32, 24), (2, 33, 2, 1, 16, 16)]
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", BANDED_CASES)
+def test_banded_attention_matches_reference_banded(B, S, Hq, Hkv, D, window, name):
+    """At S > 2·window the plain ``attention`` takes the banded O(S·window)
+    form (the same tensor as ``attention_banded``), as the reference does:
+    held against the reference's ``attention_banded``."""
+    (jq, tq), (jk, tk), (jv, tv) = (both(normal(i, B, S, h, D), name)
+                                    for i, h in enumerate((Hq, Hkv, Hkv)))
+    got = ref.attention(tq, tk, tv, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert torch.equal(got, ref.attention_banded(tq, tk, tv, window=window))
+    np.testing.assert_allclose(f32(got), f32(jax_ref.attention_banded(jq, jk, jv, window=window)),
+                               **tol(name))
+
+
+@pytest.mark.parametrize("window", [16, 24])
+def test_banded_equals_the_masked_form_in_f32(window):
+    """The band holds each row's whole window: the masked O(S²) form (here a
+    query block on its own, so Sq != Skv keeps it masked) agrees within f32
+    summation order."""
+    q, k, v = (torch.from_numpy(normal(i, 1, 100, 2, 32)) for i in range(3))
+    banded = ref.attention(q, k, v, window=window)
+    masked = torch.cat([ref.attention(q[:, i:i + 10], k[:, :i + 10], v[:, :i + 10],
+                                      window=window, kv_offset=i) for i in range(0, 100, 10)], 1)
+    np.testing.assert_allclose(banded.numpy(), masked.numpy(), rtol=3e-5, atol=3e-5)
+
+
 # --- The redesigned kernels' arithmetic, emulated in plain PyTorch ---------
 
 LOG2E = 1.4426950408889634

@@ -138,6 +138,18 @@ def test_entry_points_default_to_the_card():
                          (np.ones(7),), device="cpu")
 
 
+def test_ab_flash_needs_the_card(tmp_path):
+    """``launch/ab_flash.py`` times two builds of the flash kernel on the
+    card; without one it raises before it copies or builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the card-less behaviour")
+    from repro_torch.launch import ab_flash
+    other = tmp_path / "flash_attention.cu"
+    other.write_text("")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ab_flash.main(["--other", str(other)])
+
+
 def test_launcher_runs_on_cpu_when_asked():
     out = launch_serve.main(["--reduced", "--device", "cpu", "--batch", "2",
                              "--prompt-len", "4", "--steps", "3"])
@@ -187,10 +199,12 @@ def test_unported_scans_name_their_slice():
 
 
 def test_unported_block_kinds_raise():
-    for arch in ("xlstm_1p3b", "minicpm3_4b", "granite_moe_3b"):
-        cfg = TC.get_config(arch).reduced(n_layers=8 if arch == "xlstm_1p3b" else 2)
-        with pytest.raises(NotImplementedError):
-            init_params(0, cfg, device="cpu")
+    """xLSTM's mlstm/slstm blocks are the next slice; MLA (minicpm3) and the
+    MoE FFN (granite) are ported and now initialise."""
+    with pytest.raises(NotImplementedError, match="mlstm"):
+        init_params(0, TC.get_config("xlstm_1p3b").reduced(n_layers=8), device="cpu")
+    for arch in ("minicpm3_4b", "granite_moe_3b"):
+        init_params(0, TC.get_config(arch).reduced(n_layers=2), device="cpu")
 
 
 MIXED = dict(param_dtype="float32", compute_dtype="bfloat16")
@@ -248,10 +262,14 @@ def test_init_params_shapes_and_seed():
     assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
 
 
-def test_dispatch_counts_match_the_card_path(monkeypatch):
-    """Every dispatch point the card path reaches is reached on the CPU too:
-    for 24 layers, 49 norms per prefill and per decode step, 24 attention
-    calls per prefill and 24 decode-attention calls per step."""
+@pytest.mark.parametrize("arch,layers,norms", [
+    ("internlm2_1p8b", 24, 2), ("minicpm3_4b", 62, 4), ("granite_moe_3b", 32, 2)])
+def test_dispatch_counts_match_the_card_path(monkeypatch, arch, layers, norms):
+    """Every dispatch point the card path reaches is reached on the CPU too,
+    at the served depth: per prefill and per decode step ``norms`` norms a
+    layer (norm1 and norm2; MLA adds norm_q and norm_kv) and the final norm,
+    one attention call a layer per prefill and one decode-attention call a
+    layer per step: chip_smoke.py's exact launch counts."""
     calls = {"rmsnorm": 0, "attention": 0, "decode_attention": 0}
     for name in calls:
         real = getattr(ops, name)
@@ -261,13 +279,13 @@ def test_dispatch_counts_match_the_card_path(monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(ops, name, counted)
-    cfg = TC.get_config("internlm2_1p8b").reduced(n_layers=24, d_model=32, vocab=256)
+    cfg = TC.get_config(arch).reduced(n_layers=layers, d_model=32, vocab=256)
     srv = Server(cfg, init_params(0, cfg, device="cpu"), ServeConfig(max_len=16),
                  device="cpu")
     steps = 3
     srv.generate(np.zeros((2, 4), np.int32), steps)
-    assert calls == {"rmsnorm": 49 * (1 + steps), "attention": 24,
-                     "decode_attention": 24 * steps}
+    assert calls == {"rmsnorm": (norms * layers + 1) * (1 + steps), "attention": layers,
+                     "decode_attention": layers * steps}
 
 
 def test_profile_groups_name_every_kernel():

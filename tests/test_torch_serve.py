@@ -23,6 +23,7 @@ from repro.models import prefill as jax_prefill
 from repro.runtime.serve import ServeConfig as JaxServeConfig
 from repro.runtime.serve import Server as JaxServer
 from repro_torch import configs as TC
+from repro_torch.kernels import ref
 from repro_torch.models import decode_step, from_jax_params, prefill
 from repro_torch.runtime.serve import ServeConfig, Server
 
@@ -93,6 +94,27 @@ def test_sliding_window_ring_cache_matches_reference():
     assert tcfg.attn == "swa" and tcfg.window == 32
     _prefill_and_decode(jcfg, tcfg, *converted(jcfg, tcfg), B=2, S=40, steps=3,
                         check=_f32_check)
+
+
+def test_long_sliding_window_prompt_takes_the_banded_form_as_the_reference():
+    """A 90-token prompt past twice h2o-danube3's reduced window (32): both
+    packages' prefill attention takes the banded O(S·window) form, the ring
+    cache rolls, and decode wraps it."""
+    jcfg, tcfg = configs("h2o_danube3_4b")
+    calls = []
+    real = ref.attention_banded
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    ref.attention_banded = spy
+    try:
+        _prefill_and_decode(jcfg, tcfg, *converted(jcfg, tcfg), B=2, S=90, steps=3,
+                            check=_f32_check)
+    finally:
+        ref.attention_banded = real
+    assert calls == [(2, 90, tcfg.n_heads, tcfg.hd)] * tcfg.n_layers
 
 
 def test_generate_tokens_equal_reference(f32_model):
