@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, placement and swarm paths on one
-NVIDIA H100 and check them.
+"""Drive the PyTorch/CUDA port's serving, training, placement and swarm
+paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -24,7 +24,14 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                rmsnorm's plan and the scan's grids as the wrappers launched
                them at the served shapes; and the device time alone
                (``torch.profiler``) of rmsnorm against ``F.rms_norm`` and of
-               the scan by CUDA kernel.
+               the scan by CUDA kernel.  The RMSNorm backward kernel against
+               autograd through the plain ``ref.rmsnorm`` (dx and dscale,
+               f32 3e-5 / bf16 2e-2 of max|plain|, dscale bitwise equal over
+               two launches) at the sweep shapes, at the train step's
+               (2048, 2048) and (2048, 4096) bf16 with times and device us
+               beside ``F.rms_norm``'s autograd backward, and at the other
+               served widths; and its autograd Function under
+               ``torch.utils.checkpoint`` (launch counts, gradients).
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
                with the launch counts set to 0 just before and asserted
@@ -40,8 +47,26 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                the scatter impl, cap 1 at decode; in the comparison every
                path dispatches to the f32 path's experts, and the share of
                tokens whose own top-k sets agree between paths is printed at
-               every step).
-  5. place   — the paper's placement path.  With every launch count set to 0:
+               every step) and xlstm-1.3B's 42 mLSTM and 6 sLSTM blocks
+               (prompt 1024; the cells are plain PyTorch, the norms the
+               kernel).
+  5. train   — xlstm-1.3B at full width: one pattern period's (8 layers)
+               loss and gradient against plain f32, each path at 1.25 x a
+               floor path's distance (``PERIOD_GATES``: the kernel path in
+               bf16 against the plain bf16 path, in f32 against norms that
+               sum their squares in f64, and the backward kernel alone
+               against a closed-form backward), and the period's forward
+               and backward by kernel group under the profiler; then, with
+               every launch count set to 0, the main path: full depth,
+               bf16, remat, three AdamW steps (exact forward and backward
+               rmsnorm launches, finite losses, the step walls, the device's
+               idle share from ``nvidia-smi``'s utilization, peak memory);
+               the reduced loop
+               (``train_loop.run_with_restarts``) resuming after an injected
+               failure bit for bit as an uninterrupted run; and a reduced
+               internlm2 train step refused by the flash-attention wrapper
+               (no backward kernel yet).
+  6. place   — the paper's placement path.  With every launch count set to 0:
                the batched ``ould-dp-sparse`` planner on the card
                (``batch_solve=True``) on the S7 swarm (LeNet, N = 1024,
                1024 requests; benchmarks/bench_swarm.py), on VGG-16 at
@@ -58,7 +83,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                launched, times, bound and critical-path floor, the host
                stages of one sweep call, per-stage walls and the calibrated
                re-solve's MAE are printed.
-  6. swarm   — the swarm serving runtime (``runtime/swarm.py``).  With every
+  7. swarm   — the swarm serving runtime (``runtime/swarm.py``).  With every
                launch count set to 0: benchmarks/bench_swarm.py's CHURN
                under every policy, its OVERLOAD and an N = 1024 swarm under
                ``incremental-sparse``, each with its epoch re-solves batched
@@ -72,7 +97,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                warms its engine on a churn rejoin; the policies' miss,
                rejection and p99, the walls, the sweeps' device µs and the
                bound of each batched call's sweep are printed.
-  7. transport — the byte-moving transports.  With every launch count set
+  8. transport — the byte-moving transports.  With every launch count set
                to 0: executed mode (``SWARM_EXEC``, seed 3) under
                ``incremental-sparse`` with its re-solves batched on the card,
                over ``loopback`` (plain worker processes) and ``multiproc``
@@ -92,7 +117,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                build directory the CUDA context, ``measure_warm_start`` over
                LeNet's [(0, 3), (3, 7)] and the first ``dp_sweep`` launch (a
                load, no nvcc) beside the build phase's nvcc wall.
-  8. report  — a ``kernels`` JSON line, the card line, and as the last line
+  9. report  — a ``kernels`` JSON line, the card line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each phase prints the seconds it took.
@@ -149,7 +174,44 @@ PATHS = {
     "granite_moe_3b": dict(B=4, S=1024, launches={
         "rmsnorm": (2 * 32 + 1) * (1 + STEPS), "flash_attention": 32,
         "decode_attention": 32 * STEPS, "ssd_scan": 0, "dp_sweep": 0}),
+    # xLSTM: norm1 in each of 48 layers, the inner norm of each of 42 mLSTM
+    # and 6 sLSTM layers, and the final norm: 97 a pass
+    "xlstm_1p3b": dict(B=4, S=1024, launches={
+        "rmsnorm": (48 + 42 + 6 + 1) * (1 + STEPS), "flash_attention": 0,
+        "decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0}),
 }
+for _path in PATHS.values():
+    _path["launches"]["rmsnorm_bwd"] = 0  # serving takes no gradient
+# The train path: xlstm-1.3B at full width and depth in bf16, batch 2 x 1024
+# tokens, STEPS of AdamW at the reference's defaults, remat on.  A step's
+# forward runs each pattern group's 16 norms (norm1 in 8 layers, the inner
+# norm of 7 mLSTM and 1 sLSTM) and the final norm; the backward recomputes
+# the 6 groups (16 forward launches each again) and takes one backward
+# launch a norm.
+TRAIN = dict(B=2, S=1024, steps=3)
+TRAIN_LAUNCHES = {"rmsnorm": TRAIN["steps"] * (2 * 6 * 16 + 1),
+                  "rmsnorm_bwd": TRAIN["steps"] * (6 * 16 + 1), "flash_attention": 0,
+                  "decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0}
+# The train period's gates: a path's loss and its gradient (every leaf as
+# one vector, relative L2) against plain f32, each at most BF16_FLOOR_RATIO
+# times a floor path's distance, the floor a change of the same kind:
+#   bf16      the kernel path (bf16)            vs the plain bf16 path;
+#   f32       the kernel path in f32 (kernel32) vs plain f32 whose norms sum
+#             their squares in f64 (a rounding-level change of the norms'
+#             forward, as the forward kernel's summation order is);
+#   backward  plain forward, the backward kernel vs plain f32 whose norms'
+#             backward is the closed form in PyTorch ops (the kernel's
+#             formula, rounded otherwise).
+# xLSTM's gradient at full width is sensitive to rounding in the norms'
+# forward: on an NVIDIA H100 80GB HBM3 at 700 W, one period's gradient moves
+# by 8.87e-3 (relative L2; a leaf's max element by up to 6 % of its max|g|)
+# when only the norms' sums of squares are taken in f64, and by the same
+# with the forward kernel, while the backward kernel alone moves it by
+# 4.67e-6, as the closed form does.  So no per-leaf gate of 1e-4 x max|g|
+# holds for any rounding-level change of the forward; the per-leaf numbers
+# are printed.
+PERIOD_GATES = (("bf16", "kernel", "plain"), ("f32", "kernel32", "f32 var in f64"),
+                ("backward", "f32 kernel backward", "f32 closed-form backward"))
 # The placement path.  Swarm instances for the batched DP, in the regime of
 # benchmarks/bench_swarm.py's S7 (snapshot_problem: a provisioned swarm of
 # 8 x 512 MB nodes over 300 m, requests from hotspot nodes, seed 0):
@@ -450,6 +512,115 @@ def ssd_inputs(torch, randn, B, S, H, P, N, mix=False):
         bc = bc.bfloat16()
         return x.bfloat16(), a, bc[..., :N].float(), bc[..., N:], h0
     return x, a, bc[..., :N].contiguous(), bc[..., N:].contiguous(), h0
+
+
+def rel_close(got, want, dtype_name: str, what: str) -> float:
+    """max|got - want| / max|want| within the dtype's tolerance (TOL)."""
+    import torch
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max().clamp_min(1e-30)).item()
+    need(err <= TOL[dtype_name] and bool(torch.isfinite(got.float()).all()),
+         f"{what}: max|d| / max|plain| {err:.3e} beyond {TOL[dtype_name]}")
+    return err
+
+
+def bwd_check(torch, x, sc, g, what: str) -> float:
+    """The RMSNorm backward kernel against its plain version (autograd
+    through ``ref.rmsnorm``): dx at the tolerance of x's dtype, dscale at
+    that of scale's, each relative to max|plain|; and a second launch
+    bitwise equal to the first (dscale's fixed-order sum)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    dx, ds = rmsnorm_bwd(x, sc, g)
+    px, ps = ref.rmsnorm_bwd(x, sc, g)
+    err = max(rel_close(dx, px, name[x.dtype], f"{what} dx"),
+              rel_close(ds, ps, name[sc.dtype], f"{what} dscale"))
+    dx2, ds2 = rmsnorm_bwd(x, sc, g)
+    need(torch.equal(ds, ds2) and torch.equal(dx, dx2),
+         f"{what}: two launches of the backward kernel differ")
+    return err
+
+
+def rmsnorm_bwd_sweep(torch, randn) -> None:
+    """The backward kernel at the forward's sweep shapes (f32 and bf16 x,
+    scale in each dtype), an unaligned view (the scalar path), and the
+    autograd Function under ``torch.utils.checkpoint``: two forward launches
+    and one backward launch a norm, gradients as the plain path's."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4, 3200), (5, 100), (3, 7, 8192)]:
+            for sdt in (torch.float32, torch.bfloat16):
+                x, g = randn(*shape, dtype=dt), randn(*shape, dtype=dt)
+                sc = (randn(shape[-1]) * 0.1 + 1).to(sdt)
+                bwd_check(torch, x, sc, g, f"rmsnorm_bwd x {dt} {shape} scale {sdt}")
+        flat = randn(1 + 6 * 2048, dtype=dt)
+        bwd_check(torch, flat[1:].view(6, 2048), randn(2048) * 0.1 + 1, randn(6, 2048, dtype=dt),
+                  f"rmsnorm_bwd x {dt} offset view")
+        need(rmsnorm_bwd.last_plan.vec == 1, f"rmsnorm_bwd offset view: {rmsnorm_bwd.last_plan}")
+    x = randn(64, 256).requires_grad_(True)
+    sc = (randn(256) * 0.1 + 1).requires_grad_(True)
+    rmsnorm.n_launches = rmsnorm_bwd.n_launches = 0
+    y = checkpoint(lambda a, b: rmsnorm(rmsnorm(a, b), b) * 2, x, sc, use_reentrant=False)
+    got = torch.autograd.grad(y.sum(), (x, sc))
+    counts = (rmsnorm.n_launches, rmsnorm_bwd.n_launches)
+    need(counts == (4, 2), f"rmsnorm under checkpoint: launches (forward, backward) {counts} "
+         "!= (4, 2): two norms, each run and recomputed once and differentiated once")
+    want = torch.autograd.grad((ref.rmsnorm(ref.rmsnorm(x, sc), sc) * 2).sum(), (x, sc))
+    for a, b, what in zip(got, want, ("dx", "dscale")):
+        rel_close(a, b, "float32", f"rmsnorm autograd under checkpoint {what}")
+    print("[kernels] rmsnorm_bwd sweep passed (dx and dscale at f32 3e-5 / bf16 2e-2 of "
+          "max|plain|, the output dtype's; dscale bitwise equal over two launches; under "
+          "checkpoint 4 forward and 2 backward launches for two norms)", flush=True)
+
+
+def rmsnorm_bwd_record(torch, randn, rows: int, d: int, what: str) -> dict:
+    """The backward kernel at a train shape (bf16 x and scale): parity,
+    the plan as launched, kernel / plain / library times, device us against
+    ``F.rms_norm``'s autograd backward, and the bound.  Bytes: x and g read,
+    dx written, scale read and dscale written once (the kernel's f32
+    partials are its own and not counted); about 10 f32 operations an
+    element."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    n_sets = max(2, -(-64 * 2**20 // (2 * rows * d * 2)))  # > 50 MB in all: L2-cold
+    sets = [(randn(rows, d, dtype=bf), randn(rows, d, dtype=bf)) for _ in range(n_sets)]
+    sc = (randn(d) * 0.1 + 1).to(bf)
+    err = bwd_check(torch, sets[0][0], sc, sets[0][1], f"rmsnorm_bwd {what}")
+    rmsnorm_bwd.last_plan = None
+    ms = time_ms([lambda s=s: rmsnorm_bwd(s[0], sc, s[1]) for s in sets])
+    plan = rmsnorm_bwd.last_plan  # as the wrapper launched it in the timed calls
+    need(plan is not None and plan.vec == 8, f"rmsnorm_bwd {what}: not the vector path: {plan}")
+    lib_sets = []  # F.rms_norm's graphs, built once; its backward is the yardstick
+    for x, g in sets:
+        xr, sr = x.detach().requires_grad_(True), sc.detach().requires_grad_(True)
+        lib_sets.append((F.rms_norm(xr, (d,), sr, 1e-5), xr, sr, g))
+
+    def lib(s):
+        return torch.autograd.grad(s[0], (s[1], s[2]), s[3], retain_graph=True)
+
+    dev = {}
+    for _ in range(2):
+        dev.setdefault("kernel", []).append(
+            sum(device_us([lambda s=s: rmsnorm_bwd(s[0], sc, s[1]) for s in sets]).values()))
+        dev.setdefault("F.rms_norm backward", []).append(
+            sum(device_us([lambda s=s: lib(s) for s in lib_sets]).values()))
+    n = rows * d
+    rec = finish(dict(
+        name="rmsnorm_bwd", shape=f"x, g ({rows}, {d}) bf16, scale ({d},) bf16 [{what}]",
+        max_abs_err=err, plan=plan._asdict(), device_us=dev, ms=ms,
+        plain_ms=time_ms([lambda s=s: ref.rmsnorm_bwd(s[0], sc, s[1]) for s in sets]),
+        library_ms=time_ms([lambda s=s: lib(s) for s in lib_sets]),
+        bytes_ms=(3 * n * 2 + 2 * d * 2) / PEAK_BYTES * 1e3, ops_ms=10 * n / PEAK_F32 * 1e3))
+    print(f"[kernels] rmsnorm_bwd plan at {what} ({rows}, {d}): {plan}; device us a call, two "
+          f"rounds: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in dev.items())
+          + f"; the partials add {2 * plan.blocks * d * 4 / 1e6:.2f} MB of traffic beside the "
+          f"bound's {(3 * n * 2 + 2 * d * 2) / 1e6:.2f} MB", flush=True)
+    return rec
 
 
 def ssd_state_close(got, want, what: str) -> float:
@@ -781,7 +952,23 @@ def kernel_phase(torch, gen) -> dict:
     # minicpm3's norm_q over q_lora_rank 768 and granite's d 1536.
     recs["rmsnorm"] += [
         rmsnorm_record(torch, randn, mc["B"] * mc["S"], 768, "minicpm3 prefill norm_q"),
-        rmsnorm_record(torch, randn, gr["B"] * gr["S"], 1536, "granite prefill d")]
+        rmsnorm_record(torch, randn, gr["B"] * gr["S"], 1536, "granite prefill d"),
+        # xlstm-1.3B's other width: the mLSTM's inner norm over d_inner 4096
+        rmsnorm_record(torch, randn, PATHS["xlstm_1p3b"]["B"] * PATHS["xlstm_1p3b"]["S"], 4096,
+                       "xlstm prefill mLSTM inner")]
+    # The backward kernel: its sweep, then the xLSTM train step's two widths
+    # (batch 2 x 1024 tokens: d 2048 and the mLSTM's inner 4096), and the
+    # forward's other served widths with the plan as launched.
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    rmsnorm_bwd_sweep(torch, randn)
+    rows = TRAIN["B"] * TRAIN["S"]
+    recs["rmsnorm_bwd"] = [rmsnorm_bwd_record(torch, randn, rows, 2048, "xlstm train d"),
+                           rmsnorm_bwd_record(torch, randn, rows, 4096, "xlstm train mLSTM inner")]
+    for d in (1600, 3200, 2560, 256, 768, 1536):
+        x, g = randn(rows, d, dtype=torch.bfloat16), randn(rows, d, dtype=torch.bfloat16)
+        bwd_check(torch, x, (randn(d) * 0.1 + 1).bfloat16(), g, f"rmsnorm_bwd ({rows}, {d})")
+        print(f"[kernels] rmsnorm_bwd ({rows}, {d}) bf16 within 2e-2, plan as launched "
+              f"{rmsnorm_bwd.last_plan}", flush=True)
     torch.cuda.synchronize()
     return recs
 
@@ -929,6 +1116,303 @@ def serve_phase(torch, arch: str) -> dict:
     return launches
 
 
+def leaf_names(tree, path="") -> list:
+    """Each leaf's path, in ``optim.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{path}/{i}")]
+    return [path]
+
+
+def loss_and_grads(torch, cfg, params, batch, plain: bool, remat: bool = False) -> tuple:
+    """loss_fn's value and its gradient over every param leaf."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = transformer.loss_fn(params, cfg, batch, remat=remat, plain=plain)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+class NormVariant:
+    """While active, the norm a path runs is changed, for the floor paths
+    of PERIOD_GATES.  ``"closed-form backward"``: the plain norm
+    (``ref.rmsnorm``) under an autograd Function whose backward is
+    dx = (g s) r - x r^3 mean(g s x), dscale = sum g (x r) in PyTorch ops,
+    f32 (the backward kernel's formula with its own rounding).  ``"var in
+    f64"``: the plain norm with its sum of squares in f64, rounded to f32.
+    ``"kernel backward"``: the kernel path's Function with the plain
+    forward in place of the forward kernel, so only the backward kernel
+    runs."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rmsnorm as kernel_mod
+        self._saved = [(ref, "rmsnorm", ref.rmsnorm), (kernel_mod, "_forward", kernel_mod._forward)]
+        real = ref.rmsnorm
+        if self.kind == "kernel backward":
+            kernel_mod._forward = lambda x, scale, eps: real(x, scale, eps)
+        elif self.kind == "var in f64":
+            def norm(x, scale, eps=1e-5):
+                var = (x.double() ** 2).mean(-1, keepdim=True).float()
+                return ((x.float() * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+            ref.rmsnorm = norm
+        else:
+            class Norm(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, x, scale, eps):
+                    ctx.save_for_backward(x, scale)
+                    ctx.eps = eps
+                    return real(x, scale, eps)
+
+                @staticmethod
+                def backward(ctx, g):
+                    x, scale = ctx.saved_tensors
+                    xf, gs = x.float(), g.float() * scale.float()
+                    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + ctx.eps)
+                    dx = gs * r - xf * (r ** 3 * (gs * xf).mean(-1, keepdim=True))
+                    ds = (g.float() * (xf * r)).reshape(-1, x.shape[-1]).sum(0)
+                    return dx.to(x.dtype), ds.to(scale.dtype), None
+
+            ref.rmsnorm = lambda x, scale, eps=1e-5: Norm.apply(x, scale, eps)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def profile_step(torch, fn) -> dict:
+    """Device time of ``fn`` by kernel group (``launch/profile_serve.py``'s
+    groups), from ``torch.profiler``'s device events alone."""
+    import collections
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_serve import _group
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    groups, counts = collections.Counter(), collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            groups[_group(e.key)] += e.self_device_time_total
+            counts[_group(e.key)] += e.count
+    return out, groups, counts
+
+
+def train_phase(torch) -> dict:
+    """The training path on the card: (1) one pattern period at full width,
+    each path's loss and gradients against plain f32 (PERIOD_GATES); (2) the main path:
+    full width and depth, STEPS AdamW steps with remat, exact launch counts;
+    (3) the reduced loop resuming exactly after an injected failure; (4) a
+    flash-attention model's train step refused by the flash wrapper."""
+    import tempfile
+    from repro_torch import configs as C
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import _batch_at
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step, train_loop
+
+    B, S = TRAIN["B"], TRAIN["S"]
+    cfg = C.production_cfg(C.get_config("xlstm_1p3b"))
+
+    def batch_at(step):
+        tokens = _batch_at(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=SEED),
+                           step, 0, 1)["tokens"]
+        return {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+    # (1) One period (7 mLSTM + 1 sLSTM layers) at full width, remat off:
+    # each path's loss and gradient against plain f32, held to a floor of
+    # the same kind (PERIOD_GATES).
+    cfg8 = dataclasses.replace(cfg, n_layers=8)
+    cfg8_32 = dataclasses.replace(cfg8, param_dtype="float32", compute_dtype="float32")
+    p8 = init_params(SEED, cfg8, device="cuda")
+    p8_32 = _tree_map(p8, lambda t: t.float())
+    names = leaf_names(p8)
+    batch = batch_at(0)
+    t0 = time.perf_counter()
+    runs = {name: loss_and_grads(torch, c, prm, batch, plain)
+            for name, (c, prm, plain) in {"f32": (cfg8_32, p8_32, True),
+                                         "kernel": (cfg8, p8, False),
+                                         "plain": (cfg8, p8, True),
+                                         "kernel32": (cfg8_32, p8_32, False)}.items()}
+    for name, kind, plain in (("f32 var in f64", "var in f64", True),
+                              ("f32 kernel backward", "kernel backward", False),
+                              ("f32 closed-form backward", "closed-form backward", True)):
+        with NormVariant(kind):
+            runs[name] = loss_and_grads(torch, cfg8_32, p8_32, batch, plain)
+    torch.cuda.synchronize()
+    period_s = time.perf_counter() - t0
+    need(all(bool(torch.isfinite(runs[n][0])) for n in runs), "period loss not finite")
+    dist = {}
+    for name in runs:
+        if name == "f32":
+            continue
+        (la, ga), (lb, gb) = runs[name], runs["f32"]
+        loss = (abs(la - lb) / abs(lb)).item()
+        sq = [((a.float() - b) ** 2).sum().item() for a, b in zip(ga, gb)]
+        grad = (sum(sq) / sum((b ** 2).sum().item() for b in gb)) ** 0.5
+        leaf = [((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(ga, gb)]
+        dist[name] = (loss, grad)
+        top = sorted(range(len(leaf)), key=leaf.__getitem__, reverse=True)[:3]
+        print(f"[train] one period (8 layers) at full width, {name} vs plain f32: loss "
+              f"{la.item():.6f} (f32 {lb.item():.6f}), |d| / |ref| {loss:.3e}; gradient "
+              f"(all {len(ga)} leaves as one vector) |d|2 / |ref|2 {grad:.3e}; per leaf "
+              f"max|d| / max|g| worst " + ", ".join(f"{names[i]} {leaf[i]:.3e}" for i in top)
+              + f", median {statistics.median(leaf):.3e}", flush=True)
+    print(f"[train] the period's {len(runs)} paths' loss and gradients {period_s:.1f} s",
+          flush=True)
+    # Where one period's forward and backward spend the device's time (the
+    # bf16 kernel path with remat, as the train step runs each group): its
+    # unprofiled wall, then the same call under the profiler.  The full
+    # depth's 48 layers would record six times the ~0.1 M kernels.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_and_grads(torch, cfg8, p8, batch, False, remat=True)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    _, groups, counts = profile_step(torch, lambda: loss_and_grads(torch, cfg8, p8, batch, False,
+                                                                   remat=True))
+    dev_us = sum(groups.values())
+    print(f"[train] one period's forward and backward (bf16, remat, batch {B} x {S}): wall "
+          f"{bare * 1e3:.3f} ms unprofiled, kernels {dev_us / 1e3:.3f} ms: device idle share "
+          f"{1 - dev_us / (bare * 1e6):.3f}"
+          + "".join(f"; {g} {us / 1e3:.3f} ms ({counts[g]} kernels)"
+                    for g, us in sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
+    for what, k, floor_name in PERIOD_GATES:
+        for i, metric in enumerate(("loss", "gradient")):
+            got, floor = dist[k][i], dist[floor_name][i]
+            print(f"[train] {what}: {k}-f32 {metric} {got:.3e} against the floor ({floor_name}"
+                  f"-f32) {floor:.3e}: " + (f"{got / floor:.3f} x" if floor else "both 0")
+                  + f" (gate {BF16_FLOOR_RATIO} x)", flush=True)
+            need(got <= BF16_FLOOR_RATIO * floor, f"train period: {k}-f32 {metric} {got:.3e} > "
+                 f"{BF16_FLOOR_RATIO} x the floor {floor:.3e}")
+    del runs, p8, p8_32
+    torch.cuda.empty_cache()
+
+    # (2) The main path: full width and depth, bf16, remat, the reference's
+    # AdamW defaults, STEPS steps on the pipeline's batches 0, 1, ...
+    t0 = time.perf_counter()
+    params = init_params(SEED, cfg, device="cuda")
+    tcfg = TrainConfig()
+    opt = init_opt_state(params, tcfg)
+    step = make_train_step(cfg, tcfg)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    before = [t.clone() for t in leaves]
+    batches = [batch_at(i) for i in range(TRAIN["steps"])]
+    torch.cuda.synchronize()
+    print(f"[train] full width bf16: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
+          f"batch {B} x {S}, {TRAIN['steps']} AdamW steps, remat; params, optimizer state and "
+          f"a copy of the params set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = all_kernels()
+    for fn in kernels.values():
+        fn.n_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, smi, util = [], [], None, []
+    try:
+        for i, b in enumerate(batches):
+            if i == 1:  # the card's own busy share, sampled over the steps after the first
+                smi = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
+                                        "--format=csv,noheader,nounits", "-lms", "100"],
+                                       stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                                       text=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+    finally:
+        if smi is not None:
+            smi.terminate()
+            util = [float(x) for x in smi.communicate(timeout=30)[0].split()
+                    if x.replace(".", "", 1).isdigit()]
+    launches = {name: fn.n_launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    changed = sum(int((a != b).sum()) for a, b in zip(before, tree_leaves(params)))
+    del before
+    print(f"[train] step walls {[round(w, 3) for w in walls]} s, losses "
+          f"{[round(x, 6) for x in losses]}, optimizer step {int(opt['step'])}, launches "
+          f"{launches}, peak device memory {peak:.2f} GiB; params changed in {changed} of "
+          f"{n_params} elements (bf16 at lr {float(m['lr']):.3e})", flush=True)
+    print(f"[train] steps after the first: nvidia-smi utilization.gpu (the share of each "
+          f"100 ms in which a kernel ran) over {len(util)} samples, mean "
+          + (f"{statistics.mean(util):.1f} %: device idle share "
+             f"{1 - statistics.mean(util) / 100:.3f}" if util else "not measured"), flush=True)
+    need(all(np.isfinite(losses)), f"train losses not finite: {losses}")
+    need(int(opt["step"]) == TRAIN["steps"], f"optimizer step {int(opt['step'])}")
+    need(changed > 0, "no parameter changed over the train steps")
+    need(launches == TRAIN_LAUNCHES, f"train: kernel launches {launches} != expected "
+         f"{TRAIN_LAUNCHES}")
+    del params, opt, step, leaves, batches
+    torch.cuda.empty_cache()
+
+    # (3) The reduced loop (the launcher's shrink) on the card: checkpoints
+    # every 5 steps, a failure injected at step 7, a restart from step 5's
+    # checkpoint; the losses after it and the final params equal an
+    # uninterrupted run's bit for bit.
+    rcfg = C.get_config("xlstm_1p3b").reduced(n_layers=2, d_model=128, vocab=1024)
+    rtcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=2, total_steps=10))
+    dcfg = DataConfig(vocab=rcfg.vocab, seq_len=64, global_batch=4)
+    fired = []
+
+    def fail_at(s):
+        if s == 7 and not fired:
+            fired.append(s)
+            return True
+        return False
+
+    with tempfile.TemporaryDirectory() as d:
+        ref = train_loop.run(rcfg, rtcfg, train_loop.LoopConfig(
+            total_steps=10, ckpt_every=5, ckpt_dir=f"{d}/ref"), dcfg, device="cuda")
+        out = train_loop.run_with_restarts(rcfg, rtcfg, train_loop.LoopConfig(
+            total_steps=10, ckpt_every=5, ckpt_dir=f"{d}/run"), dcfg, fail_at=fail_at,
+            device="cuda")
+    same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(out["params"]),
+                                                        tree_leaves(ref["params"])))
+    print(f"[train] reduced loop on the card: uninterrupted losses "
+          f"{[round(x, 6) for x in ref['losses']]}; restarts {out['restarts']}, resumed losses "
+          f"(steps 5-9) {[round(x, 6) for x in out['losses']]}, bitwise equal "
+          f"{out['losses'] == ref['losses'][5:]}, final params bitwise equal {same_params}; "
+          f"step walls median {statistics.median(ref['walls']) * 1e3:.1f} ms", flush=True)
+    need(out["restarts"] == 1 and out["losses"] == ref["losses"][5:] and same_params,
+         "the resumed reduced loop does not reproduce the uninterrupted run bit for bit")
+
+    # (4) A flash-attention model cannot train on the card yet: its wrapper
+    # refuses a grad-requiring input before any launch.
+    icfg = C.get_config("internlm2_1p8b").reduced(n_layers=2, d_model=128, vocab=1024)
+    ip = init_params(SEED, icfg, device="cuda")
+    n0 = flash_attention.n_launches
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, icfg.vocab, (2, 32))).cuda()
+    try:
+        make_train_step(icfg, TrainConfig())(ip, init_opt_state(ip, TrainConfig()),
+                                            {"tokens": tokens})
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[train] reduced internlm2 train step on the card: "
+          + (f"refused: {refused}" if refused else "NOT refused"), flush=True)
+    need(refused is not None and refused.startswith("flash_attention")
+         and flash_attention.n_launches == n0,
+         "a flash-attention model's train step on the card was not refused by the flash wrapper")
+    return launches
+
+
 class RouteLog:
     """The MoE's routing in the path comparison.  Routing is a discrete
     choice: where two paths' hidden states differ by rounding, a near-tie
@@ -1029,10 +1513,11 @@ def all_kernels() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dp_sweep import dp_sweep
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.ssm_scan import ssd_scan
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-            "decode_attention": decode_attention, "ssd_scan": ssd_scan, "dp_sweep": dp_sweep}
+            "decode_attention": decode_attention, "ssd_scan": ssd_scan, "dp_sweep": dp_sweep,
+            "rmsnorm_bwd": rmsnorm_bwd}
 
 
 def swarm_problem(model: str, n: int, requests: int, hotspots: int, comp: float):
@@ -1897,6 +2382,9 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                          "src/repro/kernels/decode_attention.py:24"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu", "src/repro/kernels/ssm_scan.py:25"),
     "dp_sweep": ("src/repro_torch/kernels/csrc/dp_sweep.cu", "src/repro/core/batch_dp.py:75"),
+    # no TPU kernel: the Pallas rmsnorm has no VJP, and the reference trains
+    # through XLA's autodiff of ref.rmsnorm
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/ref.py:40"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 EXTRAS = ("grid", "plan", "device_us", "depth_us", "norepeat_us")
@@ -1937,6 +2425,9 @@ def main() -> int:
         by_path[arch] = serve_phase(torch, arch)
         torch.cuda.empty_cache()
         phase_done(f"serve {arch}")
+    by_path["train"] = train_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("train")
     by_path["placement"], recs["dp_sweep"] = placement_phase(torch)
     torch.cuda.empty_cache()
     phase_done("place")

@@ -140,3 +140,18 @@ def stream_of(t: torch.Tensor) -> int:
     PyTorch's own launchers read it with this call; the public route builds a
     Stream object first, several microseconds a launch."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+NEXT_SLICE = ("the port's next slice, which brings backward kernels for flash attention and "
+              "the SSD scan (ROADMAP Queue 1)")
+
+
+def refuse_grad(kernel: str, brings: str, *tensors: torch.Tensor | None) -> None:
+    """Raise where autograd would record a launch of a kernel that has no
+    backward kernel: its output would carry no gradient, and a training step
+    would silently drop every gradient through it.  ``brings`` names what
+    gives the kernel its backward."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: an input requires grad, and this CUDA kernel has no backward kernel "
+            f"({brings}); it refuses rather than return an output without a gradient")

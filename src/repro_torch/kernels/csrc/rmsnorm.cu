@@ -1,6 +1,10 @@
-// RMSNorm forward for Hopper (sm_90a).
+// RMSNorm forward and backward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel repro/kernels/rmsnorm.py::rmsnorm.
+// The forward replaces the Pallas TPU kernel repro/kernels/rmsnorm.py::rmsnorm.
+// The backward (rmsnorm_bwd_kernel, rmsnorm_dscale_kernel; note at the
+// backward's section below) has no TPU counterpart: the Pallas kernel has no
+// VJP, so the reference trains through XLA's autodiff of
+// repro/kernels/ref.py::rmsnorm, and that is what the backward computes.
 //   y = x * rsqrt(mean(x^2, -1) + eps) * scale, sum of squares in f32,
 //   written in x's dtype, in the reference's product order (x * r) * scale.
 //
@@ -240,7 +244,210 @@ int launch(const void* x, const void* scale, void* y, int n, int d, float eps, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- backward --------------------------------------------------------------
+//
+// For y = (x * r) * s with r = rsqrt(mean(x^2) + eps), given g = dL/dy:
+//   dx     = (g * s) * r - x * (r^3 * mean(g * s * x))
+//   dscale = sum over rows of g * (x * r)
+// in f32, dx written in x's dtype and dscale in scale's.
+//
+// Bound on the card: bytes (x and g read, dx written; a few f32 operations an
+// element).  Design: a block of T threads takes one row at a time and steps
+// through its share of the rows (the grid is a small multiple of the SMs,
+// planned on the host, kernels/rmsnorm.py::rmsnorm_bwd_plan).  Per row, a
+// first pass reads x, g and scale (16-byte vectors where the plan allows,
+// as the forward's) and sums x^2 and g*s*x, one block reduction for both;
+// a second pass reads the row again (from L1/L2: a row is at most a few
+// tens of KB) and writes dx.  The same pass adds g * (x * r) into the
+// block's dscale partial, kept in shared memory (d floats), each column
+// owned by one thread, so no atomics.  At the end each block writes its
+// partial row to a (blocks, d) f32 scratch, and rmsnorm_dscale_kernel sums
+// the partials over blocks in a fixed order (32 columns a block, 8 row
+// strides, then a fixed 8-way sum), so two runs give bitwise-equal dscale.
+
+constexpr int kBwdMaxThreads = 256;
+
+template <typename T, int V>
+__device__ __forceinline__ void load_v(const T* __restrict__ p, int i, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = to_f(p[i]);
+  } else {
+    unpack(reinterpret_cast<const uint4*>(p)[i], f);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_v(T* __restrict__ p, int i, const float (&f)[V]) {
+  if constexpr (V == 1) {
+    p[i] = from_f<T>(f[0]);
+  } else {
+    reinterpret_cast<uint4*>(p)[i] = pack(f);
+  }
+}
+
+template <typename TS, int V>
+__device__ __forceinline__ void load_s(const TS* __restrict__ s, int e, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = to_f(s[e]);
+  } else {
+    load_scale<TS, V>(s, e, f);
+  }
+}
+
+// V: elements a thread moves per access (1, or 16 bytes' worth of TX).
+template <typename TX, typename TS, int V>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+rmsnorm_bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ g,
+                   const TS* __restrict__ scale, TX* __restrict__ dx,
+                   float* __restrict__ part, int n, int d, float eps) {
+  extern __shared__ float acc[];  // d floats: this block's dscale partial
+  __shared__ float red[2][kBwdMaxThreads / 32];
+  const int nv = d / V, T = blockDim.x, nw = T >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < nv; i += T) {  // the columns this thread owns
+    #pragma unroll
+    for (int e = 0; e < V; ++e) acc[i * V + e] = 0.f;
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (int64_t row = blockIdx.x; row < n; row += gridDim.x) {
+    const TX* xr = x + row * d;
+    const TX* gr = g + row * d;
+    float ss = 0.f, dot = 0.f;
+    for (int i = threadIdx.x; i < nv; i += T) {
+      float xv[V], gv[V], sv[V];
+      load_v<TX, V>(xr, i, xv);
+      load_v<TX, V>(gr, i, gv);
+      load_s<TS, V>(scale, i * V, sv);
+      #pragma unroll
+      for (int e = 0; e < V; ++e) {
+        ss = fmaf(xv[e], xv[e], ss);
+        dot = fmaf(gv[e] * sv[e], xv[e], dot);
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = dot;
+    }
+    __syncthreads();
+    ss = 0.f;
+    dot = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      ss += red[0][w];
+      dot += red[1][w];
+    }
+    __syncthreads();  // read before the next row rewrites it
+    // r by the forward's formula (its sum of squares may round otherwise)
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float c = r * r * r * (dot * inv_d);
+    TX* dxr = dx + row * d;
+    for (int i = threadIdx.x; i < nv; i += T) {
+      float xv[V], gv[V], sv[V], out[V];
+      load_v<TX, V>(xr, i, xv);
+      load_v<TX, V>(gr, i, gv);
+      load_s<TS, V>(scale, i * V, sv);
+      #pragma unroll
+      for (int e = 0; e < V; ++e) {
+        out[e] = (gv[e] * sv[e]) * r - xv[e] * c;
+        acc[i * V + e] += gv[e] * (xv[e] * r);
+      }
+      store_v<TX, V>(dxr, i, out);
+    }
+  }
+  float* pr = part + static_cast<int64_t>(blockIdx.x) * d;
+  for (int i = threadIdx.x; i < nv; i += T) {  // own columns: no barrier needed
+    #pragma unroll
+    for (int e = 0; e < V; ++e) pr[i * V + e] = acc[i * V + e];
+  }
+}
+
+// dscale[j] = sum over the bwd kernel's blocks b of part[b, j], in a fixed
+// order: a block of (32, 8) threads takes 32 columns, thread (j, y) sums
+// blocks y, y + 8, ..., then thread (j, 0) adds the 8 sums in order.
+template <typename TS>
+__global__ void __launch_bounds__(256)
+rmsnorm_dscale_kernel(const float* __restrict__ part, TS* __restrict__ dscale, int blocks,
+                      int d) {
+  __shared__ float red[8][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (col < d)
+    for (int b = threadIdx.y; b < blocks; b += 8) s += part[static_cast<int64_t>(b) * d + col];
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < d) {
+    float t = 0.f;
+    #pragma unroll
+    for (int y = 0; y < 8; ++y) t += red[y][threadIdx.x];
+    dscale[col] = from_f<TS>(t);
+  }
+}
+
+template <typename TX, typename TS, int V>
+int launch_bwd(const void* x, const void* g, const void* scale, void* dx, void* dscale,
+               void* part, int n, int d, float eps, int threads, int blocks,
+               cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  auto kernel = rmsnorm_bwd_kernel<TX, TS, V>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(g), static_cast<const TS*>(scale),
+      static_cast<TX*>(dx), static_cast<float*>(part), n, d, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rmsnorm_dscale_kernel<TS><<<(d + 31) / 32, dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(part), static_cast<TS*>(dscale), blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, typename TS>
+int launch_bwd_vec(const void* x, const void* g, const void* scale, void* dx, void* dscale,
+                   void* part, int n, int d, float eps, int vec, int threads, int blocks,
+                   cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(TX);
+  if (threads < 32 || threads > kBwdMaxThreads || threads % 32 || blocks < 1
+      || (vec != 1 && (vec != V || d % V)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 1)
+    return launch_bwd<TX, TS, 1>(x, g, scale, dx, dscale, part, n, d, eps, threads, blocks,
+                                 stream);
+  return launch_bwd<TX, TS, V>(x, g, scale, dx, dscale, part, n, d, eps, threads, blocks,
+                               stream);
+}
+
 }  // namespace
+
+// x, g, dx: (n, d) in x's dtype; scale, dscale: (d,) in scale's dtype; part:
+// (blocks, d) f32 scratch.  vec: elements per access (1, or 16 bytes' worth:
+// then x, g, dx and scale 16-byte aligned and d a multiple of vec); threads
+// and blocks: the launch of rmsnorm_bwd_kernel.  Two kernels run, in order on
+// the stream.  Returns a cudaError_t.
+extern "C" int rmsnorm_bwd(const void* x, const void* g, const void* scale, void* dx,
+                           void* dscale, void* part, int n, int d, float eps, int x_dtype,
+                           int s_dtype, int vec, int threads, int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 0 && s_dtype == 0)
+    return launch_bwd_vec<float, float>(x, g, scale, dx, dscale, part, n, d, eps, vec,
+                                        threads, blocks, s);
+  if (x_dtype == 0 && s_dtype == 1)
+    return launch_bwd_vec<float, __nv_bfloat16>(x, g, scale, dx, dscale, part, n, d, eps, vec,
+                                                threads, blocks, s);
+  if (x_dtype == 1 && s_dtype == 0)
+    return launch_bwd_vec<__nv_bfloat16, float>(x, g, scale, dx, dscale, part, n, d, eps, vec,
+                                                threads, blocks, s);
+  if (x_dtype == 1 && s_dtype == 1)
+    return launch_bwd_vec<__nv_bfloat16, __nv_bfloat16>(x, g, scale, dx, dscale, part, n, d,
+                                                        eps, vec, threads, blocks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // dtype codes: 0 = float32, 1 = bfloat16.  vec: elements per access (1 for
 // the scalar path; else 16 bytes' worth); vpt: vectors per thread; threads

@@ -107,6 +107,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
         raise ValueError(f"decode_attention: q {dev}, caches {k_cache.device}, "
                          f"{v_cache.device}")
+    build.refuse_grad("decode_attention", "it serves decode steps only, and no slice of the "
+                      "port plans a backward for it", q, k_cache, v_cache)
     DK, DV = head_dims(q, k_cache, v_cache)
     B, Hq, _ = q.shape
     _, Smax, Hkv, _ = k_cache.shape

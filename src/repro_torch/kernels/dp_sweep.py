@@ -177,6 +177,8 @@ def dp_sweep(spb: torch.Tensor, Kv: torch.Tensor, Ks: float, srcs: torch.Tensor,
         raise ValueError(f"dp_sweep: tensors on {sorted({str(t.device) for t in ts})}")
     if len({t.get_device() for t in ts}) != 1:
         raise ValueError("dp_sweep: tensors on more than one card")
+    build.refuse_grad("dp_sweep", "a min-plus sweep with argmin back-pointers; no slice of "
+                      "the port plans a backward for it", *ts)
     want = [(spb, torch.float64), (Kv, torch.float64), (srcs, torch.int64),
             (cand, torch.int64), (valid, torch.bool)] + ([(cc, torch.float64)] if cc is not None
                                                          else [])

@@ -66,6 +66,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_offset=kv_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q {q.device}, k {k.device}, v {v.device}")
+    build.refuse_grad("flash_attention", f"its backward comes with {build.NEXT_SLICE}", q, k, v)
     DK, DV = head_dims(q, k, v)
     B, Sq, Hq, _ = q.shape
     _, Skv, Hkv, _ = k.shape

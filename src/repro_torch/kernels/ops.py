@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .chunked import ssd_scan_chunked
+from .chunked import mlstm_chunked, ssd_scan_chunked
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
 from .rmsnorm import rmsnorm as _rmsnorm
@@ -45,6 +45,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return (ssd_scan_chunked if plain else _ssd_scan)(x, a, b, c, h0, chunk=chunk)
 
 
-def mlstm_scan(*args, **kwargs):
-    raise NotImplementedError(
-        "mlstm_scan is ported with the xLSTM blocks, a later slice")
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
+               f_gate: torch.Tensor, *, chunk: int = 256
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    # mLSTM rides on the chunked SSD form on every device, as in the reference
+    return mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk)

@@ -6,7 +6,9 @@ each CUDA kernel is held against them on the card.  Conventions kept from the
 reference: masks use -1e30 (not -inf), math is f32 with a cast back to the
 input dtype, and query head h reads KV head ``h // g``.  ``ssd_scan`` is the
 sequential oracle of the SSD scan; the plain version the CPU path runs is
-``chunked.ssd_scan_chunked``.  The ``*_bf16_scheme`` functions are the
+``chunked.ssd_scan_chunked``.  ``mlstm_scan`` is the sequential, stabilised
+mLSTM cell (XLA code in the reference, no kernel; decode runs it a step at
+a time).  The ``*_bf16_scheme`` functions are the
 arithmetic of a kernel's bf16 tensor-core path, in f32, to hold that kernel
 to within its output rounding.  ``dp_sweep`` is the placement path's
 batched min-plus sweep, in f64 and in the numpy oracle's operation order.
@@ -24,6 +26,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the RMSNorm backward kernel: autograd through
+    :func:`rmsnorm` (as the reference's gradient is XLA's autodiff of its
+    ``ref.rmsnorm``).  Returns (dx in x's dtype, dscale in scale's)."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        sr = scale.detach().requires_grad_(True)
+        dx, dscale = torch.autograd.grad(rmsnorm(xr, sr, eps), (xr, sr), g)
+    return dx, dscale
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -193,6 +207,45 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         h = h * af[:, t, :, None, None] + xf[:, t, :, :, None] * bf[:, t, :, None, :]
         ys.append(torch.einsum("bhpn,bhn->bhp", h, cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
+               f_gate: torch.Tensor, c0: torch.Tensor | None = None,
+               n0: torch.Tensor | None = None, m0: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The mLSTM (xLSTM matrix-memory cell), sequential and stabilised.
+
+    q, k, v: (B, S, H, P); i_gate, f_gate: (B, S, H) pre-activation log
+    gates.  C_t = f C_{t-1} + i k v^T; n_t = f n_{t-1} + i k;
+    y = C^T q / max(|n^T q|, exp(-m)), with the m-state log-stabiliser of
+    the xLSTM paper (m0 defaults to -inf, as in the reference).  Returns y
+    (B, S, H, P) in q's dtype and the final (C (B,H,P,P), n (B,H,P),
+    m (B,H)) in f32."""
+    B, S, H, P = q.shape
+    qf, kf, vf, i_f, f_f = (t.float() for t in (q, k, v, i_gate, f_gate))
+    scale = P ** -0.5
+    dev = q.device
+    C = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev) if c0 is None else c0.float()
+    n = torch.zeros((B, H, P), dtype=torch.float32, device=dev) if n0 is None else n0.float()
+    m = (torch.full((B, H), float("-inf"), dtype=torch.float32, device=dev) if m0 is None
+         else m0.float())
+    ys = []
+    for t in range(S):
+        qt, kt, vt, it, ft = qf[:, t], kf[:, t], vf[:, t], i_f[:, t], f_f[:, t]
+        logf = torch.nn.functional.logsigmoid(ft)
+        m_new = torch.maximum(logf + m, it)
+        i_act = torch.exp(it - m_new)
+        f_act = torch.exp(logf + m - m_new)
+        kt = kt * scale
+        C = C * f_act[..., None, None] + i_act[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = n * f_act[..., None] + i_act[..., None] * kt
+        num = torch.einsum("bhpk,bhp->bhk", C, qt)
+        # clamp at exp(-m): 1.0 in the unstabilised ("true") space
+        den = torch.maximum(torch.einsum("bhp,bhp->bh", n, qt).abs(), torch.exp(-m_new))
+        ys.append(num / den[..., None])
+        m = m_new
+    return torch.stack(ys, dim=1).to(q.dtype), (C, n, m)
 
 
 def ssd_scan_bf16_scheme(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

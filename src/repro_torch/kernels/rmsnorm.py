@@ -1,5 +1,5 @@
-"""Fused RMSNorm: the hand-written CUDA kernel ``csrc/rmsnorm.cu`` and its
-wrapper.
+"""Fused RMSNorm: the hand-written CUDA kernels ``csrc/rmsnorm.cu`` (forward
+and backward) and their wrappers.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``.  Bound
 on the card by bytes (each row is read and written once; the arithmetic is a
@@ -11,7 +11,13 @@ plan takes the kernel's scalar path.  See the source note in the ``.cu``
 file.
 
 A CPU tensor goes to the plain version (``ref.rmsnorm``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  Where autograd records the call (grad mode
+on and x or scale requiring grad), the forward kernel runs inside a
+``torch.autograd.Function`` whose backward launches the backward kernel
+(``rmsnorm_bwd``: dx and dscale in f32, dscale summed over rows in a fixed
+order, so it repeats bit for bit).  The backward has no TPU counterpart: the
+Pallas kernel has no VJP, and the reference trains through XLA's autodiff of
+``ref.rmsnorm``, which ``ref.rmsnorm_bwd`` (the plain version) repeats.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from . import build
 from .ref import rmsnorm as plain
+from .ref import rmsnorm_bwd as plain_bwd
 
 VPT_CHOICES = (1, 2, 4, 8, 16)  # csrc: the instantiated vectors per thread
 TARGET_VPT = 8                  # a thread holds at most this many when it can
@@ -88,6 +95,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
         raise ValueError(f"rmsnorm: scale shape {tuple(scale.shape)} != ({d},)")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm: x and scale must be contiguous")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RmsnormFunction.apply(x, scale, eps)
+    return _forward(x, scale, eps)
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """One launch of the forward kernel on checked CUDA tensors."""
+    d = x.shape[-1]
     y = torch.empty_like(x)
     xp, sp, yp = x.data_ptr(), scale.data_ptr(), y.data_ptr()
     n = x.numel() // max(d, 1)
@@ -104,3 +119,107 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
 
 rmsnorm.n_launches = 0
 rmsnorm.last_plan = None
+
+
+class _RmsnormFunction(torch.autograd.Function):
+    """The forward kernel under autograd: saves x and scale, and its backward
+    launches ``rmsnorm_bwd``.  Under ``torch.utils.checkpoint`` the forward
+    runs again in the backward pass, a second forward launch."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, g.contiguous(), ctx.eps)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dscale if ctx.needs_input_grad[1] else None, None)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+BWD_THREADS = 256       # csrc: kBwdMaxThreads, a block's threads on a wide row
+BWD_BLOCKS_PER_SM = 2   # the backward's grid: at most this many blocks an SM
+MAX_BWD_D = 57344       # d floats of shared memory a block: 224 KiB of the 227
+
+# x, g, scale, dx, dscale, partials, n rows, d, eps, x dtype, scale dtype,
+# vec, threads, blocks, stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 2 + (ctypes.c_float,)
+                 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+
+
+class RmsnormBwdPlan(NamedTuple):
+    vec: int      # elements a thread moves per access (1: the scalar path)
+    threads: int  # per block; a block takes one row at a time
+    blocks: int   # grid; also the rows of the dscale partials
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_bwd_plan(d: int, elem_bytes: int, aligned: bool, n_rows: int,
+                     sms: int) -> RmsnormBwdPlan:
+    """The backward's launch for ``n_rows`` rows of ``d`` elements of
+    ``elem_bytes`` bytes on a card of ``sms`` SMs.
+
+    16-byte vectors where ``aligned`` (x, g, dx and scale 16-byte aligned)
+    and d is a multiple of the vector width, else the scalar path.  A block
+    has the fewest threads (a multiple of a warp, at most ``BWD_THREADS``)
+    that give each thread one access of the row, and the grid is at most
+    ``BWD_BLOCKS_PER_SM`` blocks an SM: each block steps through n / blocks
+    rows, and its dscale partial (a row of f32) is what the second kernel
+    sums, so fewer blocks move fewer partial bytes."""
+    vec = 16 // elem_bytes if aligned and d % (16 // elem_bytes) == 0 else 1
+    nv = max(d // vec, 1)
+    threads = min(BWD_THREADS, max(32, -(-nv // 32) * 32))
+    return RmsnormBwdPlan(vec, threads, max(1, min(n_rows, BWD_BLOCKS_PER_SM * sms)))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``rmsnorm(x, scale, eps)`` for an output gradient
+    ``g`` (x's shape and dtype): (dx in x's dtype, dscale in scale's)."""
+    ts = (x, scale, g)
+    if not all(t.is_cuda and t.get_device() == x.get_device() for t in ts):
+        if all(t.device.type == "cpu" for t in ts):
+            return plain_bwd(x, scale, g, eps)
+        raise ValueError(f"rmsnorm_bwd: x on {x.device}, scale on {scale.device}, "
+                         f"g on {g.device}")
+    d = x.shape[-1]
+    if scale.shape != (d,) or g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)} {x.dtype}, scale "
+                         f"{tuple(scale.shape)}, g {tuple(g.shape)} {g.dtype}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("rmsnorm_bwd: x, scale and g must be contiguous")
+    if d > MAX_BWD_D:
+        raise ValueError(f"rmsnorm_bwd: d {d} exceeds the kernel's {MAX_BWD_D}")
+    n = x.numel() // max(d, 1)
+    dx = torch.empty_like(x)
+    if n == 0 or d == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    ptrs = (x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr())
+    plan = rmsnorm_bwd_plan(d, x.element_size(), not any(p % 16 for p in ptrs), n,
+                            _sm_count(x.get_device()))
+    part = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
+    kernel = build.function("rmsnorm", "rmsnorm_bwd", _BWD_ARGTYPES)
+    rc = kernel(*ptrs[:3], dx.data_ptr(), dscale.data_ptr(), part.data_ptr(), n, d,
+                float(eps), build.dtype_code(x), build.dtype_code(scale), *plan,
+                build.stream_of(x))
+    build.check(rc, "rmsnorm_bwd")
+    rmsnorm_bwd.n_launches += 1  # one per call: the row kernel and the dscale sum
+    rmsnorm_bwd.last_plan = plan  # the launch as made
+    return dx, dscale
+
+
+rmsnorm_bwd.n_launches = 0
+rmsnorm_bwd.last_plan = None

@@ -9,6 +9,8 @@ steps of the full-width bf16 model under ``torch.profiler``.
         --arch minicpm3_4b --batch 4 --prompt-len 1024 --steps 16
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch granite_moe_3b --batch 4 --prompt-len 1024 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch xlstm_1p3b --batch 4 --prompt-len 1024 --steps 16
 
 Prints, for prefill and for decode, the host wall time (ended by a
 synchronise) with and without the profiler, the summed device time of all
@@ -35,6 +37,7 @@ from ..runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 
 # Kernel-name fragments of each group (the port's kernels are named in csrc/).
 GROUPS = (("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
+          ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")),
           ("flash_attention", ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")),
           ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
           ("ssd_scan", ("ssd_chunk_state_kernel", "ssd_carry_kernel", "ssd_output_kernel",

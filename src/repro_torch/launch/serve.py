@@ -10,6 +10,8 @@ placed CNN inference over a simulated pool with any registered planner.
         --batch 4 --prompt-len 1024 --steps 64      # MLA
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_3b \\
         --batch 4 --prompt-len 1024 --steps 64      # MoE
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1p3b \\
+        --batch 4 --prompt-len 1024 --steps 64      # xLSTM (mLSTM and sLSTM)
     PYTHONPATH=src python -m repro_torch.launch.serve --execute \\
         --planner ould-dp --pool-nodes 8
 

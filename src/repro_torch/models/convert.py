@@ -41,8 +41,10 @@ def from_jax_params(tree: dict, cfg: ModelConfig,
     """Unstack ``tree["blocks"][pp]`` (leaves with a leading group axis G)
     into per-layer weights: layer l = g * len(block_pattern) + pp.  Nested
     leaves unstack the same way (MLA's ``norm_q``/``norm_kv`` scales, the
-    MoE's (G, E, d, f) experts), and each keeps its dtype: the MoE router
-    stays f32 in a bf16 model."""
+    MoE's (G, E, d, f) experts, the xLSTM cells' ``conv`` (4, d_inner) and
+    block-diagonal ``r`` (nh, p, 4p)), and each keeps its dtype: the MoE
+    router and the xLSTM's ``gate_bias`` and ``bias`` stay f32 in a bf16
+    model."""
     dev = resolve_device(device)
     pat = cfg.block_pattern
     groups = cfg.n_layers // len(pat)

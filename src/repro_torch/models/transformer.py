@@ -1,5 +1,6 @@
-"""Decoder LM for serving (port of the ``attn``, ``hybrid`` and ``mamba``
-block kinds of ``repro.models.transformer``).
+"""Decoder LM (port of ``repro.models.transformer``): serving (``prefill``,
+``decode_step``) and training (``forward``, ``loss_fn``) for every block
+kind of the reference.
 
 The reference stores blocks stacked over pattern groups and runs them with
 ``lax.scan``; the port keeps one dict of tensors per layer and runs a Python
@@ -10,16 +11,26 @@ where ``cfg.moe`` is set, the MoE):
     attn   : x + Attn(norm1(x));             x + FFN(norm2(x))
     hybrid : x + 0.5 (Attn + SSM)(norm1(x)); x + MLP(norm2(x))   (hymba)
     mamba  : x + SSM(norm1(x));             [x + MLP(norm2(x)) if d_ff > 0]
+    mlstm  : x + mLSTM(norm1(x))                                      (xLSTM, no FFN)
+    slstm  : x + sLSTM(norm1(x))
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout:
 ``embed.table`` (vocab_padded, d), ``lm_head`` (d, vocab_padded),
 ``final_norm.scale`` (d,), and ``blocks[l]`` with ``norm1``, ``attn``
 (``wqkv``, ``wo``) or ``mla`` (``models/attention.py``), ``ssm``
 (``models/ssm.py``), ``norm2``, and ``mlp`` (``w_in``, ``w_gate``,
-``w_out``) or ``moe`` (``models/moe.py``) as its kind has them.  A layer's
-cache is a dict: ``k``, ``v`` (GQA/SWA attention; a ring of ``window`` slots
-under SWA), ``latent`` (MLA; the reference's bare array), ``conv`` and
-``ssm`` (the SSM's carried states).
+``w_out``) or ``moe`` (``models/moe.py``), or ``mlstm`` / ``slstm``
+(``models/xlstm.py``) as its kind has them.  A layer's cache is a dict:
+``k``, ``v`` (GQA/SWA attention; a ring of ``window`` slots under SWA),
+``latent`` (MLA; the reference's bare array), ``conv`` and ``ssm`` (the
+SSM's carried states), ``conv``, ``C``, ``n``, ``m`` (mLSTM) or ``h``,
+``c``, ``n``, ``m`` (sLSTM).
+
+``forward(..., remat=True)`` recomputes each pattern group in the backward
+pass (``torch.utils.checkpoint``), as the reference wraps its group body in
+``jax.checkpoint``.  The reference also constrains the activations' and
+logits' sharding (``parallel.sharding``); on one card that is a no-op, and
+the port's Parallel slice brings it.
 
 ``plain=True`` routes every norm, attention and scan through the plain
 PyTorch versions; only the parity checks pass it.
@@ -28,12 +39,15 @@ PyTorch versions; only the parity checks pass it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .common import dense_init, dtype_of, mlp_apply, mlp_init, rmsnorm
 
 
@@ -50,10 +64,8 @@ def check_config(cfg: ModelConfig) -> None:
             f"{cfg.compute_dtype}; the reference serves only matching forms "
             "(use production_cfg(cfg) for bf16 or cfg.reduced() for f32)")
     kinds = set(cfg.block_pattern)
-    if not kinds <= {"attn", "hybrid", "mamba"}:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)}; 'attn', 'hybrid' and 'mamba' "
-            "blocks are ported (mlstm/slstm come with the xLSTM slice)")
+    if not kinds <= {"attn", "hybrid", "mamba", "mlstm", "slstm"}:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(kinds)}")
     if "hybrid" in kinds and cfg.attn not in ("gqa", "swa"):
         raise ValueError(f"{cfg.name}: hybrid blocks take GQA or SWA, not {cfg.attn!r}")
     if "attn" in kinds and cfg.attn not in ("gqa", "swa", "mla"):
@@ -84,7 +96,11 @@ def init_params(seed: int, cfg: ModelConfig, device: str | torch.device = "cuda"
             p["attn"] = attn_mod.gqa_init(gen, cfg, dt)
         if kind in ("hybrid", "mamba"):
             p["ssm"] = ssm_mod.ssm_init(gen, cfg, dt)
-        if kind != "mamba" or cfg.d_ff > 0:
+        if kind == "mlstm":
+            p["mlstm"] = xlstm_mod.mlstm_init(gen, cfg, dt)
+        elif kind == "slstm":
+            p["slstm"] = xlstm_mod.slstm_init(gen, cfg, dt)
+        elif kind != "mamba" or cfg.d_ff > 0:
             p["norm2"] = ones()
             if kind == "attn" and cfg.moe is not None:
                 p["moe"] = moe_mod.moe_init(gen, cfg, dt)
@@ -101,19 +117,25 @@ def init_params(seed: int, cfg: ModelConfig, device: str | torch.device = "cuda"
 
 
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    x = batch["embeds"] if "embeds" in batch else params["embed"]["table"][batch["tokens"]]
+    # F.embedding, not indexing: its backward sums a repeated token's rows in
+    # a fixed order on both devices (indexing's scatter-add does not on the
+    # CPU), so a resumed training run repeats the uninterrupted one exactly
+    x = batch["embeds"] if "embeds" in batch else F.embedding(batch["tokens"],
+                                                              params["embed"]["table"])
     return x.to(dtype_of(cfg.compute_dtype))
 
 
-def _lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool) -> torch.Tensor:
-    """f32 logits over the vocab: pad columns get -1e30, then are sliced off."""
+def _lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool,
+               keep_padded: bool = False) -> torch.Tensor:
+    """f32 logits over the vocab: pad columns get -1e30, then are sliced off
+    (kept with ``keep_padded``, as the reference's loss keeps them)."""
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps, plain=plain)
     head = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits + pad.float() * -1e30
-    return logits[..., :cfg.vocab]
+    return logits if keep_padded else logits[..., :cfg.vocab]
 
 
 def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool) -> torch.Tensor:
@@ -123,6 +145,78 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool) -> torch.Tenso
     if "moe" in p:
         return moe_mod.moe_apply(p["moe"], cfg, h)[0]
     return mlp_apply(p["mlp"], h)
+
+
+def _block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                 plain: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training (cache-free) path of one layer.  Returns (x, aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps, plain=plain)
+    if "mlstm" in p:
+        return x + xlstm_mod.mlstm_apply(p["mlstm"], cfg, h, plain=plain), aux
+    if "slstm" in p:
+        return x + xlstm_mod.slstm_apply(p["slstm"], cfg, h, plain=plain), aux
+    if "mla" in p:
+        y = attn_mod.mla_apply(p["mla"], cfg, h, positions, plain=plain)[0]
+    if "attn" in p:
+        y = attn_mod.gqa_apply(p["attn"], cfg, h, positions, plain=plain)[0]
+    if "ssm" in p:
+        ys = ssm_mod.ssm_apply(p["ssm"], cfg, h, plain=plain)
+        y = 0.5 * (y + ys) if "attn" in p else ys
+    x = x + y
+    if "norm2" in p:
+        h2 = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps, plain=plain)
+        if "moe" in p:
+            y2, aux = moe_mod.moe_apply(p["moe"], cfg, h2)
+        else:
+            y2 = mlp_apply(p["mlp"], h2)
+        x = x + y2
+    return x, aux
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, remat: bool = False,
+            keep_padded: bool = False, *, plain: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits f32 (B, S, V), aux loss).
+
+    Layers run in pattern groups of ``len(cfg.block_pattern)``, as the
+    reference's scan body; with ``remat`` each group is checkpointed
+    (non-reentrant), so its activations are recomputed in the backward pass
+    and only the group boundaries are kept."""
+    check_config(cfg)
+    x = _embed_in(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    period = len(cfg.block_pattern)
+    blocks = params["blocks"]
+
+    def group(x: torch.Tensor, *group_blocks: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in group_blocks:
+            x, a = _block_apply(p, cfg, x, positions, plain)
+            aux = aux + a
+        return x, aux
+
+    auxs = []
+    for g in range(0, len(blocks), period):
+        gb = blocks[g:g + period]
+        x, aux = (checkpoint(group, x, *gb, use_reentrant=False) if remat else group(x, *gb))
+        auxs.append(aux)
+    return _lm_logits(params, cfg, x, plain, keep_padded), torch.stack(auxs).sum()
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, remat: bool = False, *,
+            plain: bool = False) -> tuple[torch.Tensor, dict]:
+    """Next-token NLL (tokens) or NLL of ``labels`` (embedding inputs), plus
+    0.01 x the MoE's aux loss.  Returns (loss, {"loss", "nll", "aux"})."""
+    logits, aux = forward(params, cfg, batch, remat=remat, keep_padded=True, plain=plain)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = batch["tokens"][:, 1:]
+        logits = logits[:, :-1]
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    loss = nll.mean() + 0.01 * aux
+    return loss, {"loss": loss, "nll": nll.mean(), "aux": aux}
 
 
 def _to_cache(t: torch.Tensor, cfg: ModelConfig, max_len: int) -> torch.Tensor:
@@ -141,11 +235,18 @@ def cache_shapes(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype | No
                  ) -> list[dict]:
     """Per layer, ``{name: (shape, dtype)}`` of its cache: ``k``/``v`` for
     GQA/SWA attention (ring of ``window`` slots under SWA), ``latent`` for
-    MLA, ``conv``/``ssm`` for the SSM (the scan state in f32)."""
+    MLA, ``conv``/``ssm`` for the SSM (the scan state in f32),
+    ``conv``/``C``/``n``/``m`` for the mLSTM and ``h``/``c``/``n``/``m`` for
+    the sLSTM (their states in f32)."""
     dt = dtype or dtype_of(cfg.compute_dtype)
     out = []
     for kind in cfg.pattern_for_layers():
         one = {}
+        if kind == "mlstm":
+            one.update(zip(("conv", "C", "n", "m"),
+                           xlstm_mod.mlstm_cache_shape(cfg, batch, dt)))
+        elif kind == "slstm":
+            one.update(zip(("h", "c", "n", "m"), xlstm_mod.slstm_cache_shape(cfg, batch, dt)))
         if kind == "attn" and cfg.attn == "mla":
             one["latent"] = (attn_mod.mla_cache_shape(cfg, batch, seq), dt)
         elif kind in ("attn", "hybrid"):
@@ -159,9 +260,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype | No
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device: str | torch.device = "cuda",
                dtype: torch.dtype | None = None) -> list[dict]:
-    """Zero cache, one dict per layer (``cache_shapes``)."""
+    """Zero cache, one dict per layer (``cache_shapes``); the xLSTM cells'
+    m-states start at -30, as in the reference."""
     dev = resolve_device(device)
-    return [{name: torch.zeros(shape, dtype=dt, device=dev)
+    return [{name: torch.full(shape, -30.0 if name == "m" else 0.0, dtype=dt, device=dev)
              for name, (shape, dt) in one.items()}
             for one in cache_shapes(cfg, batch, seq, dtype)]
 
@@ -192,6 +294,10 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
         if "ssm" in p:
             ys, (c["conv"], c["ssm"]) = ssm_mod.ssm_prefill(p["ssm"], cfg, h, plain=plain)
             y = 0.5 * (y + ys) if "attn" in p else ys
+        if "mlstm" in p:
+            y, c = xlstm_mod.mlstm_prefill(p["mlstm"], cfg, h, plain=plain)
+        if "slstm" in p:
+            y, c = xlstm_mod.slstm_prefill(p["slstm"], cfg, h, plain=plain)
         cache.append(c)
         x = x + y
         if "norm2" in p:  # a mamba block with d_ff 0 has no FFN
@@ -204,7 +310,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: lis
                 pos: int, *, plain: bool = False) -> tuple[torch.Tensor, list[dict]]:
     """One new token per sequence.  tokens: (B, 1); pos: the current cache
     length.  Updates ``cache`` in place (the attention caches' slot is
-    written, the SSM states are replaced); returns (logits (B, V) f32, cache)."""
+    written, the SSM and xLSTM states are replaced); returns (logits (B, V)
+    f32, cache)."""
     check_config(cfg)
     x = _embed_in(params, cfg, {"tokens": tokens})
     for p, c in zip(params["blocks"], cache):
@@ -217,6 +324,16 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: lis
             ys, (c["conv"], c["ssm"]) = ssm_mod.ssm_decode(p["ssm"], cfg, h,
                                                            (c["conv"], c["ssm"]), plain=plain)
             y = 0.5 * (y + ys) if "attn" in p else ys
+        if "mlstm" in p:
+            names = ("conv", "C", "n", "m")
+            y, state = xlstm_mod.mlstm_decode(p["mlstm"], cfg, h, tuple(c[k] for k in names),
+                                              plain=plain)
+            c.update(zip(names, state))
+        if "slstm" in p:
+            names = ("h", "c", "n", "m")
+            y, state = xlstm_mod.slstm_decode(p["slstm"], cfg, h, tuple(c[k] for k in names),
+                                              plain=plain)
+            c.update(zip(names, state))
         x = x + y
         if "norm2" in p:  # a mamba block with d_ff 0 has no FFN
             x = x + _ffn(p, cfg, x, plain)

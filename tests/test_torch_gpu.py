@@ -28,7 +28,7 @@ from repro_torch.kernels.chunked import ssd_scan_chunked
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.dp_sweep import MAX_K, dp_sweep, sm_count, sweep_plan
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 from repro_torch.kernels.ssm_scan import ssd_scan
 from repro_torch.exec import ExecutionEngine, compile_plan, layer_fns_for
 from repro_torch.models import init_params
@@ -321,6 +321,150 @@ def test_rmsnorm_kernel_offset_view_takes_the_scalar_path(cuda, name):
     got = rmsnorm(x, s)
     assert rmsnorm.last_plan.vec == 1
     np.testing.assert_allclose(f32(got), f32(ref.rmsnorm(x, s)), **tol(name))
+
+
+# ---------------------------------------------------------------------------
+# the RMSNorm backward kernel and the gradient refusals
+# ---------------------------------------------------------------------------
+
+RMSNORM_BWD_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4, 3200), (5, 100), (3, 7, 8192),
+                      (2048, 2048), (2048, 4096), (4, 4096)]
+
+
+@pytest.mark.parametrize("sname", list(DTYPES))
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("shape", RMSNORM_BWD_SHAPES)
+def test_rmsnorm_bwd_kernel_matches_plain_autograd(cuda, shape, name, sname):
+    """dx and dscale against autograd through the plain ``ref.rmsnorm``, each
+    at its dtype's tolerance (f32 3e-5, bf16 2e-2) of max|plain|; a second
+    launch gives bitwise-equal outputs (dscale's fixed-order sum)."""
+    x, g = normal(0, *shape, dtype=DTYPES[name]), normal(2, *shape, dtype=DTYPES[name])
+    s = (normal(1, shape[-1]) * 0.1 + 1).to(DTYPES[sname])
+    dx, ds = rmsnorm_bwd(x, s, g)
+    torch.cuda.synchronize()
+    px, ps = ref.rmsnorm_bwd(x, s, g)
+    assert dx.dtype == x.dtype and ds.dtype == s.dtype
+    for got, want, n in ((dx, px, name), (ds, ps, sname)):
+        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+        assert err <= tol(n)["rtol"], (n, err.item())
+    dx2, ds2 = rmsnorm_bwd(x, s, g)
+    assert torch.equal(ds, ds2) and torch.equal(dx, dx2)
+
+
+def test_rmsnorm_bwd_kernel_matches_finite_differences(cuda):
+    """The gradients the autograd Function returns (the backward kernel)
+    against central differences of the forward kernel in f32 at a tiny
+    shape, h = 1e-2: truncation ~1e-4 and rounding ~1e-5 of the scale, so
+    within 1e-2 of max|grad|."""
+    x = normal(0, 3, 16) * 2
+    s = normal(1, 16) * 0.1 + 1
+    w = normal(2, 3, 16)
+
+    def loss(xx, ss):
+        return (rmsnorm(xx, ss) * w).sum()
+
+    xr, sr = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    gx, gs = torch.autograd.grad(loss(xr, sr), (xr, sr))
+    h = 1e-2
+    for t, g in ((x, gx), (s, gs)):
+        fd = torch.zeros_like(t)
+        for i in range(t.numel()):
+            e = torch.zeros_like(t).view(-1)
+            e[i] = h
+            e = e.view_as(t)
+            up = loss(x + e, s) if t is x else loss(x, s + e)
+            dn = loss(x - e, s) if t is x else loss(x, s - e)
+            fd.view(-1)[i] = (up - dn) / (2 * h)
+        assert (fd - g).abs().max() <= 1e-2 * g.abs().max()
+
+
+def test_rmsnorm_launch_counts_under_checkpoint(cuda):
+    """Through ``torch.utils.checkpoint`` (non-reentrant) each norm launches
+    its forward kernel twice (run and recompute) and its backward once;
+    without grad, the forward once and no Function."""
+    from torch.utils.checkpoint import checkpoint
+    x = normal(0, 64, 256).requires_grad_(True)
+    s = (normal(1, 256) * 0.1 + 1).requires_grad_(True)
+    rmsnorm.n_launches = rmsnorm_bwd.n_launches = 0
+    y = checkpoint(lambda a, b: rmsnorm(rmsnorm(a, b), b) * 2, x, s, use_reentrant=False)
+    got = torch.autograd.grad(y.sum(), (x, s))
+    assert (rmsnorm.n_launches, rmsnorm_bwd.n_launches) == (4, 2)
+    want = torch.autograd.grad((ref.rmsnorm(ref.rmsnorm(x, s), s) * 2).sum(), (x, s))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(f32(a), f32(b), rtol=3e-5, atol=3e-5 * f32(b).max())
+    with torch.no_grad():
+        out = rmsnorm(x, s)
+    assert out.grad_fn is None and rmsnorm.n_launches == 5 and rmsnorm_bwd.n_launches == 2
+
+
+def test_forward_only_kernels_refuse_gradients(cuda):
+    """Flash attention, decode attention, the SSD scan and the DP sweep have
+    no backward kernel: given an input that requires grad, with grad mode
+    on, each wrapper raises NotImplementedError naming itself, before any
+    launch; under no_grad the same call runs."""
+    q = normal(0, 1, 16, 2, 32).requires_grad_(True)
+    qd, kc = normal(1, 1, 2, 32).requires_grad_(True), normal(2, 1, 8, 2, 32)
+    x, a, b, c, _ = ssd_inputs(1, 8, 2, 16, 4)
+    calls = {
+        "flash_attention": (flash_attention, lambda: flash_attention(q, q, q)),
+        "decode_attention": (decode_attention, lambda: decode_attention(qd, kc, kc, 4)),
+        "ssd_scan": (ssd_scan, lambda: ssd_scan(x, a, b.requires_grad_(True), c)),
+    }
+    spb = torch.rand(8, 8, dtype=torch.float64, device="cuda").requires_grad_(True)
+    cand = torch.zeros((1, 3, 4), dtype=torch.int64, device="cuda")
+    calls["dp_sweep"] = (dp_sweep, lambda: dp_sweep(
+        spb, torch.ones(2, dtype=torch.float64, device="cuda"), 1.0,
+        torch.zeros(1, dtype=torch.int64, device="cuda"), cand, torch.ones_like(cand, dtype=bool)))
+    for name, (wrapper, call) in calls.items():
+        n0 = wrapper.n_launches
+        with pytest.raises(NotImplementedError, match=name):
+            call()
+        assert wrapper.n_launches == n0, name
+        with torch.no_grad():
+            call()
+        assert wrapper.n_launches == n0 + 1, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_xlstm_serves_and_trains_on_the_card(cuda, dtype):
+    """xLSTM (8 layers, the published 7:1 pattern, d 256) on the card: the
+    kernel path's prefill and decode against the plain path (f32 at 1e-4;
+    bf16 at 2e-2 of max|logit| with 2 layers, since the cells amplify
+    rounding), then two train steps with remat: finite losses, exact norm
+    launches (forward 2 x 16 + 1 a step, backward 17)."""
+    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step
+    layers = 8 if dtype == "float32" else 2
+    cfg = C.get_config("xlstm_1p3b").reduced(n_layers=layers, d_model=256, vocab=1000)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(0, cfg, device=cuda)
+    B, S, steps = 2, 40, 3
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, S))).to(cuda)
+    out = Server(cfg, params, ServeConfig(max_len=S + steps), device=cuda).generate(
+        toks.cpu().numpy(), steps)
+    assert out.shape == (B, steps)
+    with torch.inference_mode():
+        (kl, kc), (pl, pc) = [make_prefill_step(cfg, S + steps, plain=p)(params, {"tokens": toks})
+                              for p in (False, True)]
+        for i in range(steps + 1):
+            if dtype == "float32":
+                np.testing.assert_allclose(f32(kl), f32(pl), rtol=1e-4, atol=1e-4)
+            else:
+                assert (kl - pl).abs().max() <= 2e-2 * pl.abs().max()
+            if i == steps:
+                break
+            ids = torch.from_numpy(out[:, i:i + 1].astype(np.int64)).to(cuda)
+            kl, kc = make_decode_step(cfg)(params, ids, kc, S + i)
+            pl, pc = make_decode_step(cfg, plain=True)(params, ids, pc, S + i)
+    if dtype == "bfloat16":
+        return
+    tcfg = TrainConfig()
+    opt = init_opt_state(params, tcfg)
+    step = make_train_step(cfg, tcfg)
+    rmsnorm.n_launches = rmsnorm_bwd.n_launches = 0
+    for _ in range(2):
+        params, opt, m = step(params, opt, {"tokens": toks})
+        assert torch.isfinite(m["loss"])
+    assert (rmsnorm.n_launches, rmsnorm_bwd.n_launches) == (2 * (2 * 16 + 1), 2 * 17)
 
 
 def ssd_inputs(B, S, H, P, N, seed=0, device="cuda"):

@@ -55,7 +55,11 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.runtime.queueing, repro_torch.runtime.swarm, "
             "repro_torch.transport.loopback, repro_torch.transport.multiproc, "
             "repro_torch.transport.__main__, repro_torch.exec.compile_cache, "
-            "repro_torch.launch.uav_surveillance\n"
+            "repro_torch.launch.uav_surveillance, repro_torch.models.xlstm, "
+            "repro_torch.optim, repro_torch.optim.compression, repro_torch.data, "
+            "repro_torch.checkpointing, repro_torch.runtime.steps, "
+            "repro_torch.runtime.train_loop, repro_torch.runtime.elastic, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -187,10 +191,13 @@ def test_non_cpu_tensors_never_fall_back():
 
 
 def test_unported_scans_name_their_slice():
-    """mLSTM is a later slice; the SSD scan is ported, and off the CPU (here
-    the meta device) it raises rather than run the plain version."""
-    with pytest.raises(NotImplementedError, match="mlstm"):
-        ops.mlstm_scan()
+    """Both scans are ported: mLSTM runs its chunked plain form on every
+    device (no kernel, as in the reference), so it returns here; the SSD
+    scan off the CPU (here the meta device) raises rather than run the plain
+    version."""
+    q = torch.randn(1, 8, 2, 16)
+    y, (C, n, m) = ops.mlstm_scan(q, q, q, torch.zeros(1, 8, 2), torch.ones(1, 8, 2), chunk=4)
+    assert y.shape == q.shape and C.shape == (1, 2, 16, 16) and m.shape == (1, 2)
     x, b = torch.empty(1, 8, 2, 16, device="meta"), torch.empty(1, 8, 2, 4, device="meta")
     n0 = ssd_scan.n_launches
     with pytest.raises(ValueError):
@@ -199,15 +206,83 @@ def test_unported_scans_name_their_slice():
 
 
 def test_unported_block_kinds_raise():
-    """xLSTM's mlstm/slstm blocks are the next slice; MLA (minicpm3) and the
-    MoE FFN (granite) are ported and now initialise."""
-    with pytest.raises(NotImplementedError, match="mlstm"):
-        init_params(0, TC.get_config("xlstm_1p3b").reduced(n_layers=8), device="cpu")
-    for arch in ("minicpm3_4b", "granite_moe_3b"):
-        init_params(0, TC.get_config(arch).reduced(n_layers=2), device="cpu")
+    """Every block kind of the reference is ported: xLSTM's mlstm/slstm, MLA
+    (minicpm3) and the MoE FFN (granite) initialise; a kind the reference
+    does not have raises."""
+    for arch, layers in (("xlstm_1p3b", 8), ("minicpm3_4b", 2), ("granite_moe_3b", 2)):
+        init_params(0, TC.get_config(arch).reduced(n_layers=layers), device="cpu")
+    bad = dataclasses.replace(small_cfg(), block_pattern=("rnn",))
+    with pytest.raises(ValueError, match="rnn"):
+        init_params(0, bad, device="cpu")
 
 
 MIXED = dict(param_dtype="float32", compute_dtype="bfloat16")
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """The data loader, the loop and the train launcher run on the card
+    unless asked for the CPU, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the card-less behaviour")
+    from repro_torch.data import DataConfig, DataLoader
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import TrainConfig, train_loop
+    dcfg = DataConfig(vocab=64, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DataLoader(dcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_loop.run(small_cfg(), TrainConfig(), train_loop.LoopConfig(
+            total_steps=1, ckpt_dir=str(tmp_path)), dcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())  # nothing written before the refusal
+
+
+def test_kernels_refuse_gradients_they_cannot_carry():
+    """A kernel without a backward kernel raises NotImplementedError, naming
+    itself and what brings its backward, where autograd would record it (an
+    input requiring grad, grad mode on): never an output without a
+    gradient.  The check itself on CPU tensors; the wrappers call it on
+    their card path, before any launch (``tests/test_torch_gpu.py``)."""
+    from repro_torch.kernels import build
+    x = torch.ones(2, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="flash_attention.*next slice"):
+        build.refuse_grad("flash_attention", f"its backward comes with {build.NEXT_SLICE}",
+                          None, x)
+    with torch.no_grad():
+        build.refuse_grad("flash_attention", "", x)
+    with torch.inference_mode():
+        build.refuse_grad("flash_attention", "", torch.ones(2))
+    build.refuse_grad("flash_attention", "", x.detach(), None)
+    import inspect
+    from repro_torch.kernels import dp_sweep
+    for fn in (flash_attention, decode_attention, ssd_scan, dp_sweep.dp_sweep):
+        src = inspect.getsource(fn)
+        assert "build.refuse_grad(" in src and src.index("build.refuse_grad(") < src.index(
+            "build.function("), fn.__name__
+
+
+def test_xlstm_dispatch_counts_match_the_card_path(monkeypatch):
+    """xlstm-1.3B's serving at its full depth (42 mLSTM, 6 sLSTM layers):
+    per prefill and per decode step, norm1 in every layer, the inner norm
+    of every cell and the final norm, 97 in all: chip_smoke.py's exact
+    count; no attention kernel is reached."""
+    calls = {"rmsnorm": 0, "attention": 0, "decode_attention": 0}
+    for name in calls:
+        real = getattr(ops, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(ops, name, counted)
+    cfg = TC.get_config("xlstm_1p3b").reduced(n_layers=48, d_model=32, vocab=256)
+    assert cfg.pattern_for_layers().count("slstm") == 6
+    srv = Server(cfg, init_params(0, cfg, device="cpu"), ServeConfig(max_len=16), device="cpu")
+    steps = 3
+    srv.generate(np.zeros((2, 4), np.int32), steps)
+    assert calls == {"rmsnorm": (48 + 42 + 6 + 1) * (1 + steps), "attention": 0,
+                     "decode_attention": 0}
 
 
 def test_mixed_dtype_config_raises_in_port():
@@ -307,7 +382,9 @@ def test_profile_groups_name_every_kernel():
     want = {"rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
             "decode_attention": "decode_attention", "ssm_scan": "ssd_scan",
             "dp_sweep": "dp_sweep"}
-    assert set(found) == set(want)
+    backward = {"rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"}  # rmsnorm.cu's backward pair
+    assert set(found) == set(want) and backward <= set(found["rmsnorm"])
     for stem, names in found.items():
         for name in names:
-            assert _group(name) == want[stem], (stem, name)
+            assert _group(name) == ("rmsnorm_bwd" if name in backward else want[stem]), \
+                (stem, name)
