@@ -10,14 +10,20 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                parallel) into the gitignored ``_build`` directory; count the
                tensor-core instructions (HMMA/HGMMA) of flash attention's bf16
                instantiations (one per (K, V) head-dim pair, MLA's (96, 64)
-               among them) in ``cuobjdump --dump-sass`` of the library.
+               and the padded (120, 120) among them) in ``cuobjdump
+               --dump-sass`` of the library; each kernel function's
+               registers and spills from ``-Xptxas -v`` (``ptxas_report``).
   3. kernels — hold each hand-written kernel against its plain PyTorch
                version on the card, at the reference's test-sweep shapes
                (f32 and bf16) and at each serving path's shapes; time kernel,
                plain version and, where one exists, one PyTorch library call
                computing the same function (a yardstick the port never calls),
-               MLA's split head dims (q/k 96, v 64) in f32 and bf16 and
-               decode at granite's group of 3 among the served shapes;
+               MLA's split head dims (q/k 96, v 64) in f32 and bf16,
+               decode at granite's group of 3, and h2o-danube3's head dim
+               120 (window 4096 at prompt 4608, its ring of 4096 slots) and
+               phi3-vision's 96/96 in f32 and bf16 among the served shapes
+               (and at 120 and 96 a ragged Sq, a kv_offset and per-sequence
+               lengths in the sweeps);
                hold flash attention's bf16 kernel and the SSD scan's bf16
                output pass, within their output rounding, to their own
                arithmetic in f32; print decode attention's split-K grid,
@@ -29,6 +35,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                f32 3e-5 / bf16 2e-2 of max|plain|, dscale bitwise equal over
                two launches) at the sweep shapes, at the train step's
                (2048, 2048) and (2048, 4096) bf16 with times and device us
+               (and their split between the row kernel and the dscale sum)
                beside ``F.rms_norm``'s autograd backward, and at the other
                served widths; and its autograd Function under
                ``torch.utils.checkpoint`` (launch counts, gradients).
@@ -47,9 +54,14 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                the scatter impl, cap 1 at decode; in the comparison every
                path dispatches to the f32 path's experts, and the share of
                tokens whose own top-k sets agree between paths is printed at
-               every step) and xlstm-1.3B's 42 mLSTM and 6 sLSTM blocks
+               every step), xlstm-1.3B's 42 mLSTM and 6 sLSTM blocks
                (prompt 1024; the cells are plain PyTorch, the norms the
-               kernel).
+               kernel), h2o-danube3-4B (24 SWA layers, heads of 120, g 4;
+               prompt 4608, past its 4096 window, so prefill's window mask
+               binds and decode wraps the ring), phi3-vision-4.2B's backbone
+               (32 layers, heads of 96, g 1), yi-6B (heads of 128, g 8) and
+               musicgen-medium (48 layers, heads of 64, g 1), the last three
+               at prompt 1024.
   5. train   — xlstm-1.3B at full width: one pattern period's (8 layers)
                loss and gradient against plain f32, each path at 1.25 x a
                floor path's distance (``PERIOD_GATES``: the kernel path in
@@ -65,7 +77,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                (``train_loop.run_with_restarts``) resuming after an injected
                failure bit for bit as an uninterrupted run; and a reduced
                internlm2 train step refused by the flash-attention wrapper
-               (no backward kernel yet).
+               (no backward kernel: the reference's Pallas kernel has none).
   6. place   — the paper's placement path.  With every launch count set to 0:
                the batched ``ould-dp-sparse`` planner on the card
                (``batch_solve=True``) on the S7 swarm (LeNet, N = 1024,
@@ -179,6 +191,28 @@ PATHS = {
     "xlstm_1p3b": dict(B=4, S=1024, launches={
         "rmsnorm": (48 + 42 + 6 + 1) * (1 + STEPS), "flash_attention": 0,
         "decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0}),
+    # h2o-danube3-4B: 24 SWA layers, 32/8 heads of 120 (g 4), window 4096;
+    # a prompt of 4608 so that prefill's window mask binds and the ring cache
+    # (4096 slots) rolls, and every decode step wraps it
+    "h2o_danube3_4b": dict(B=4, S=4608, launches={
+        "rmsnorm": (2 * 24 + 1) * (1 + STEPS), "flash_attention": 24,
+        "decode_attention": 24 * STEPS, "ssd_scan": 0, "dp_sweep": 0}),
+    # phi3-vision-4.2B's phi3-mini backbone: 32 layers, 32/32 heads of 96
+    # (g 1); token prompts through its vocab-32064 table (the CLIP frontend
+    # is a stub in the reference too)
+    "phi3_vision_4p2b": dict(B=4, S=1024, launches={
+        "rmsnorm": (2 * 32 + 1) * (1 + STEPS), "flash_attention": 32,
+        "decode_attention": 32 * STEPS, "ssd_scan": 0, "dp_sweep": 0}),
+    # yi-6B: 32 layers, 32/4 heads of 128, g 8 (the decode kernel's widest
+    # group)
+    "yi_6b": dict(B=4, S=1024, launches={
+        "rmsnorm": (2 * 32 + 1) * (1 + STEPS), "flash_attention": 32,
+        "decode_attention": 32 * STEPS, "ssd_scan": 0, "dp_sweep": 0}),
+    # musicgen-medium: 48 layers, 24/24 heads of 64 (g 1), token prompts
+    # through its vocab-2048 table (the EnCodec frontend a stub)
+    "musicgen_medium": dict(B=4, S=1024, launches={
+        "rmsnorm": (2 * 48 + 1) * (1 + STEPS), "flash_attention": 48,
+        "decode_attention": 48 * STEPS, "ssd_scan": 0, "dp_sweep": 0}),
 }
 for _path in PATHS.values():
     _path["launches"]["rmsnorm_bwd"] = 0  # serving takes no gradient
@@ -413,7 +447,15 @@ def sweeps(torch, randn):
                 # window band skipping) and a ragged Sq
                 (1, 1024, 1024, 16, 8, 128, True, None, 0),
                 (1, 1536, 1536, 25, 5, 64, True, 1024, 0),
-                (1, 1000, 1000, 4, 2, 128, True, None, 0)]:
+                (1, 1000, 1000, 4, 2, 128, True, None, 0),
+                # head dim 120 (danube's: the bf16 tiles padded to 128) at g 4: a
+                # ragged Sq under a window, a kv_offset, rows with no valid key;
+                # phi3-vision's 96/96 at g 1, ragged and with an offset
+                (1, 1000, 1000, 32, 8, 120, True, 300, 0),
+                (2, 48, 176, 8, 2, 120, True, None, 128),
+                (1, 64, 64, 4, 1, 120, True, 8, 100),
+                (2, 130, 130, 4, 4, 96, True, None, 0),
+                (2, 40, 104, 8, 8, 96, True, None, 64)]:
             q, k, v = randn(b, sq, hq, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt), \
                 randn(b, skv, hkv, d, dtype=dt)
             kw = dict(causal=causal, window=window, kv_offset=off)
@@ -428,17 +470,22 @@ def sweeps(torch, randn):
                                           # split-K at length: few (b, kvh) pairs, no
                                           # valid slot, hymba's ring
                                           (1, 4096, 8, 1, 128, 4000), (1, 4096, 4, 2, 64, 0),
-                                          (4, 1024, 25, 5, 64, 1024)]:
+                                          (4, 1024, 25, 5, 64, 1024),
+                                          # 120 over 16 (bf16) or 32 (f32) lanes a
+                                          # slot, the last chunks off; 96/96
+                                          (2, 300, 8, 2, 120, 290), (2, 96, 8, 2, 120, 0),
+                                          (2, 1089, 4, 4, 96, 1088)]:
             q, kc, vc = randn(b, hq, d, dtype=dt), randn(b, smax, hkv, d, dtype=dt), \
                 randn(b, smax, hkv, d, dtype=dt)
             close(decode_attention(q, kc, vc, ln), ref.decode_attention(q, kc, vc, ln),
                   dt_name, f"decode_attention {dt_name} {(b, smax, hq, hkv, d, ln)}")
         # per-sequence device lengths: splits sized from Smax, some wholly past a length
-        q, kc, vc = randn(3, 8, 128, dtype=dt), randn(3, 4096, 2, 128, dtype=dt), \
-            randn(3, 4096, 2, 128, dtype=dt)
-        lens = torch.tensor([1, 700, 4096], dtype=torch.int32, device="cuda")
-        close(decode_attention(q, kc, vc, lens), ref.decode_attention(q, kc, vc, lens),
-              dt_name, f"decode_attention {dt_name} per-sequence lengths [1, 700, 4096]")
+        for d in (128, 120, 96):
+            q, kc, vc = randn(3, 8, d, dtype=dt), randn(3, 4096, 2, d, dtype=dt), \
+                randn(3, 4096, 2, d, dtype=dt)
+            lens = torch.tensor([1, 700, 4096], dtype=torch.int32, device="cuda")
+            close(decode_attention(q, kc, vc, lens), ref.decode_attention(q, kc, vc, lens),
+                  dt_name, f"decode_attention {dt_name} D {d} per-sequence lengths [1, 700, 4096]")
         for shape in [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4, 3200), (5, 100), (3, 7, 8192)]:
             x, s = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1 + 1
             close(rmsnorm(x, s), ref.rmsnorm(x, s), dt_name, f"rmsnorm {dt_name} {shape}")
@@ -604,9 +651,11 @@ def rmsnorm_bwd_record(torch, randn, rows: int, d: int, what: str) -> dict:
         return torch.autograd.grad(s[0], (s[1], s[2]), s[3], retain_graph=True)
 
     dev = {}
-    for _ in range(2):
-        dev.setdefault("kernel", []).append(
-            sum(device_us([lambda s=s: rmsnorm_bwd(s[0], sc, s[1]) for s in sets]).values()))
+    for _ in range(2):  # the kernel's time, and its split by CUDA kernel
+        by_name = device_us([lambda s=s: rmsnorm_bwd(s[0], sc, s[1]) for s in sets])
+        dev.setdefault("kernel", []).append(sum(by_name.values()))
+        for name, us in sorted(by_name.items()):
+            dev.setdefault(name, []).append(us)
         dev.setdefault("F.rms_norm backward", []).append(
             sum(device_us([lambda s=s: lib(s) for s in lib_sets]).values()))
     n = rows * d
@@ -895,6 +944,53 @@ def tensor_core_count() -> dict:
     return {"hmma_bf16": n_tc}
 
 
+def ptxas_report() -> dict:
+    """Registers and spills of each kernel function from nvcc's ``-Xptxas
+    -v`` output in this process's build (``build.LOGS``).  Prints every
+    function that spills, and the registers of flash and decode attention's
+    instantiations at head dims 120 and 96 and of the RMSNorm backward's
+    kernels; returns {short name: (registers, spill store bytes, spill load
+    bytes)}."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    rows = []
+    for stem, log in sorted(build.LOGS.items()):
+        fn, spill = None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn, spill = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                rows.append((fn, int(m.group(1)), *spill))
+                fn = None
+    if not rows:
+        print("[build] ptxas: nothing was built in this process", flush=True)
+        return {}
+    names = [r[0] for r in rows]
+    if shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = out
+    table = {}
+    for name, (_, regs, st, ld) in zip(names, rows):
+        short = re.sub(r"\(anonymous namespace\)::|^void |\(.*$", "", name)
+        short = re.sub(r"__nv_bfloat16", "bf16", short)
+        table[short] = (regs, st, ld)
+    shown = [k for k, (_, st, _) in table.items()
+             if st or "rmsnorm_bwd" in k or "dscale" in k
+             or re.search(r"(120, 120|96, 96)", k)]
+    print(f"[build] ptxas, {len(table)} kernel functions; spilling or new: " + "; ".join(
+        f"{k} {table[k][0]} regs" + (f", spill {table[k][1]}/{table[k][2]} B" if table[k][1]
+                                     else "") for k in shown), flush=True)
+    return table
+
+
 def kernel_phase(torch, gen) -> dict:
     """Parity sweeps, then parity and timing at each serving path's shapes.
     Returns, per kernel, its records: the first is the kernel's main record
@@ -956,6 +1052,8 @@ def kernel_phase(torch, gen) -> dict:
         # xlstm-1.3B's other width: the mLSTM's inner norm over d_inner 4096
         rmsnorm_record(torch, randn, PATHS["xlstm_1p3b"]["B"] * PATHS["xlstm_1p3b"]["S"], 4096,
                        "xlstm prefill mLSTM inner")]
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
     # The backward kernel: its sweep, then the xLSTM train step's two widths
     # (batch 2 x 1024 tokens: d 2048 and the mLSTM's inner 4096), and the
     # forward's other served widths with the plan as launched.
@@ -969,6 +1067,29 @@ def kernel_phase(torch, gen) -> dict:
         bwd_check(torch, x, (randn(d) * 0.1 + 1).bfloat16(), g, f"rmsnorm_bwd ({rows}, {d})")
         print(f"[kernels] rmsnorm_bwd ({rows}, {d}) bf16 within 2e-2, plan as launched "
               f"{rmsnorm_bwd.last_plan}", flush=True)
+    # h2o-danube3-4B: 32 query heads over 8 KV heads of 120 (the bf16
+    # kernel's tiles padded to 128), window 4096 binding at prompt 4608, and
+    # decode over the full ring of 4096 slots; phi3-vision-4.2B: 32/32 heads
+    # of 96 at prompt 1024.  Each in bf16 and in f32 (the f32 gate's kernels).
+    dn, ph = PATHS["h2o_danube3_4b"], PATHS["phi3_vision_4p2b"]
+    L_ph = ph["S"] + STEPS
+    for dt in ("bfloat16", "float32"):
+        recs["flash_attention"] += [
+            flash_record(torch, randn, dn["B"], dn["S"], 32, 8, 120, 4096,
+                         f"danube prefill {dt}", dtype_name=dt),
+            flash_record(torch, randn, ph["B"], ph["S"], 32, 32, 96, None,
+                         f"phi3-vision prefill {dt}", dtype_name=dt)]
+        recs["decode_attention"] += [
+            decode_record(torch, randn, dn["B"], 4096, 4096, 32, 8, 120, f"danube ring {dt}",
+                          dtype_name=dt),
+            decode_record(torch, randn, ph["B"], L_ph + 1, L_ph, 32, 32, 96,
+                          f"phi3-vision last step {dt}", dtype_name=dt)]
+    # the norm's forward at these paths' widths (danube 3840, phi3 3072, yi
+    # 4096; musicgen's 1536 is granite's), prefill rows and decode rows
+    for d in (3840, 3072):
+        for rows in (4096, 4):
+            x, sc = randn(rows, d, dtype=torch.bfloat16), (randn(d) * 0.1 + 1).bfloat16()
+            close(rmsnorm(x, sc), ref.rmsnorm(x, sc), "bfloat16", f"rmsnorm ({rows}, {d})")
     torch.cuda.synchronize()
     return recs
 
@@ -1393,7 +1514,7 @@ def train_phase(torch) -> dict:
     need(out["restarts"] == 1 and out["losses"] == ref["losses"][5:] and same_params,
          "the resumed reduced loop does not reproduce the uninterrupted run bit for bit")
 
-    # (4) A flash-attention model cannot train on the card yet: its wrapper
+    # (4) A flash-attention model cannot train on the card: its wrapper
     # refuses a grad-requiring input before any launch.
     icfg = C.get_config("internlm2_1p8b").reduced(n_layers=2, d_model=128, vocab=1024)
     ip = init_params(SEED, icfg, device="cuda")
@@ -2414,6 +2535,7 @@ def main() -> int:
     print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: {build_s:.1f} s"
           + ("" if build_s > 0 else " (every library already built)"), flush=True)
     tensor_core_count()
+    ptxas_report()
     phase_done("build")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)

@@ -30,10 +30,13 @@ CSRC = pathlib.Path(__file__).with_name("csrc")
 DEFAULT_BUILD_DIR = pathlib.Path(__file__).with_name("_build")   # gitignored
 BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output by source stem, from the builds this process ran: with
+# ``-Xptxas -v`` it names each kernel's registers, shared memory and spills.
+LOGS: dict[str, str] = {}
 
 
 def set_build_dir(path: str | os.PathLike) -> pathlib.Path:
@@ -85,6 +88,7 @@ def build_all() -> float:
     errors = []
     for src, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        LOGS[src.stem] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src.name} (rc {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
@@ -142,8 +146,9 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-NEXT_SLICE = ("the port's next slice, which brings backward kernels for flash attention and "
-              "the SSD scan (ROADMAP Queue 1)")
+# Why flash attention and the SSD scan refuse a gradient on the card.
+NO_BACKWARD = ("the reference's Pallas kernel has none either; ROADMAP Queue 2 records a "
+               "backward kernel for it as optional work")
 
 
 def refuse_grad(kernel: str, brings: str, *tensors: torch.Tensor | None) -> None:

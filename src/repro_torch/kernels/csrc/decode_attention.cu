@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py::decode_attention.
 //   q (B,Hq,DK), k_cache (B,Smax,Hkv,DK), v_cache (B,Smax,Hkv,DV), lengths
-//   -> o (B,Hq,DV).  (DK, DV) is (32,32), (64,64), (128,128) or MLA's (96,64).
+//   -> o (B,Hq,DV).  (DK, DV) is (32,32), (64,64), (128,128), (120,120),
+//   (96,96) or MLA's (96,64).
 //   The caches are read through their (batch, slot, head) strides, the head
 //   dim contiguous, so MLA's v may stay a slice of the re-expanded latent.
 //   Slot s of sequence b is valid iff s < min(len_b, Smax): validity is by
@@ -27,10 +28,17 @@
 //     its sequence's valid range.  The host picks `splits` so that the grid
 //     fills the SMs four times over with no split shorter than ~64 slots.
 //   - Each K and V row is read by LPS lanes with 16-byte loads (8 bf16 or 4
-//     f32 values): LPS is the largest power of two that divides both rows'
-//     16-byte chunk counts, so each lane takes one chunk of a row where DK =
-//     DV, and at MLA's (96,64) in bf16 4 lanes take 3 K chunks and 2 V chunks
-//     each.  Every lane keeps its columns of the g query rows of its KV head
+//     f32 values), lane li taking chunks li, li + LPS, ... (lane_split):
+//     LPS is the largest power of two that divides both rows' 16-byte chunk
+//     counts, so each lane takes one chunk of a row where DK = DV is a power
+//     of two, and at MLA's (96,64) in bf16 4 lanes take 3 K chunks and 2 V
+//     chunks each.  Where that would leave a lane holding more than
+//     kMaxHeld floats of q and acc (a row of 120: 15 bf16 chunks, a gcd of 1;
+//     a group of 4 or more at 96), LPS is instead the power of two at or
+//     above the longer row's chunk count, at most 32, with each lane's
+//     chunks past its row's end predicated off (their q columns and acc
+//     stay zero): 16 lanes of one chunk at bf16 120, 32 at f32, the registers
+//     of (128,128).  Every lane keeps its columns of the g query rows of its KV head
 //     in registers, in f32 and pre-scaled by scale*log2(e); dot products
 //     reduce across the lanes of a row by xor shuffles.  Each group of lanes
 //     keeps (m, l, acc) for its own slots in registers, and the groups, then
@@ -107,6 +115,24 @@ __host__ __device__ constexpr int pow2_gcd(int a, int b) {
   return p;
 }
 
+// The smallest power of two at or above a, at most 32.
+__host__ __device__ constexpr int pow2_ceil(int a) {
+  int p = 1;
+  while (p < 32 && p < a) p *= 2;
+  return p;
+}
+
+// Floats of q and acc a lane may hold over its group's G query rows before
+// the lane split widens (kernels/decode_attention.py: MAX_HELD).
+constexpr int kMaxHeld = 96;
+
+// Lanes per slot for rows of ck K and cv V 16-byte chunks of nv elements at
+// group G (kernels/decode_attention.py: lane_split mirrors it).
+__host__ __device__ constexpr int lanes_per_slot(int ck, int cv, int nv, int G) {
+  const int p = pow2_gcd(ck, cv);
+  return G * (ck + cv) / p * nv > kMaxHeld ? pow2_ceil(ck > cv ? ck : cv) : p;
+}
+
 // Cache strides in elements; the head dim is contiguous.
 struct Strides {
   long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -120,14 +146,17 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
                     float* __restrict__ part_ml, int Hq, int Hkv, int Smax, int chunk,
                     float sl2, const Strides st) {
   constexpr int NV = Vec<T>::N;        // elements per 16-byte load
-  constexpr int LPS = pow2_gcd(DK / NV, DV / NV);  // lanes per slot
-  constexpr int KPL = DK / NV / LPS;   // 16-byte K chunks per lane
-  constexpr int VPL = DV / NV / LPS;   // 16-byte V chunks per lane
+  constexpr int CK = DK / NV, CV = DV / NV;            // 16-byte chunks of a K, a V row
+  constexpr int LPS = lanes_per_slot(CK, CV, NV, G);   // lanes per slot
+  constexpr int KPL = (CK + LPS - 1) / LPS;  // 16-byte K chunks per lane (the last may be off)
+  constexpr int VPL = (CV + LPS - 1) / LPS;  // 16-byte V chunks per lane
   constexpr int SPW = 32 / LPS;        // slots per warp per step
   constexpr int U = G <= 4 ? 4 : 2;    // steps whose loads are in flight together
   constexpr int STEP = kWarps * SPW * U;
+  static_assert(CK * NV == DK && CV * NV == DV, "rows of whole 16-byte chunks");
   static_assert(LPS <= 32 && 32 % LPS == 0, "a slot's lanes share one warp");
-  static_assert(KPL * LPS * NV == DK && VPL * LPS * NV == DV, "rows split into whole chunks");
+  static_assert(KPL * LPS >= CK && VPL * LPS >= CV && KPL <= 4 && VPL <= 4,
+                "each lane holds at most 4 chunks of a row");
 
   __shared__ float sm_m[kWarps][G], sm_l[kWarps][G], sm_acc[kWarps][G][DV];
 
@@ -142,7 +171,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   const int s0 = split * chunk, s1 = min(s0 + chunk, L);
 
   // This lane's chunks c*LPS + li (c < KPL) of the group's query rows:
-  // columns [(c*LPS + li)*NV, (c*LPS + li)*NV + NV).
+  // columns [(c*LPS + li)*NV, (c*LPS + li)*NV + NV); a chunk past the row
+  // (kon false) stays zero, so it adds nothing to a logit.
+  bool kon[KPL], von[VPL];
+  #pragma unroll
+  for (int c = 0; c < KPL; ++c) kon[c] = KPL * LPS == CK || c * LPS + li < CK;
+  #pragma unroll
+  for (int c = 0; c < VPL; ++c) von[c] = VPL * LPS == CV || c * LPS + li < CV;
   float qr[G][KPL][NV];
   #pragma unroll
   for (int hh = 0; hh < G; ++hh) {
@@ -150,7 +185,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     for (int c = 0; c < KPL; ++c) {
       #pragma unroll
       for (int e = 0; e < NV; ++e) qr[hh][c][e] = 0.f;
-      if (hh < g) {
+      if (hh < g && kon[c]) {
         const T* qrow =
             q + (static_cast<long long>(b) * Hq + kvh * g + hh) * DK + (c * LPS + li) * NV;
         Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(qrow)), qr[hh][c]);
@@ -186,10 +221,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       if (in[u]) {
         #pragma unroll
         for (int c = 0; c < KPL; ++c)
-          kr[u][c] = __ldg(reinterpret_cast<const uint4*>(kb + s * st.k_ss + c * LPS * NV));
+          if (kon[c])
+            kr[u][c] = __ldg(reinterpret_cast<const uint4*>(kb + s * st.k_ss + c * LPS * NV));
         #pragma unroll
         for (int c = 0; c < VPL; ++c)
-          vr[u][c] = __ldg(reinterpret_cast<const uint4*>(vb + s * st.v_ss + c * LPS * NV));
+          if (von[c])
+            vr[u][c] = __ldg(reinterpret_cast<const uint4*>(vb + s * st.v_ss + c * LPS * NV));
       }
     }
     float sc[U][G];
@@ -258,9 +295,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       }
       #pragma unroll
       for (int c = 0; c < VPL; ++c)
-        #pragma unroll
-        for (int e = 0; e < NV; ++e)
-          sm_acc[warp][hh][(c * LPS + li) * NV + e] = acc[hh][c * NV + e];
+        if (von[c])
+          #pragma unroll
+          for (int e = 0; e < NV; ++e)
+            sm_acc[warp][hh][(c * LPS + li) * NV + e] = acc[hh][c * NV + e];
     }
   }
   __syncthreads();
@@ -302,10 +340,11 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return v;
 }
 
-// One block of DV threads per (b, query head): the weighted sum of the splits.
-// The threads share out the splits' (m, l) to form M, the weights 2^(m_s - M)
-// and the denominator; then thread d sums column d.  A split with l = 0 saw no
-// slot and weighs exactly 0.
+// One block per (b, query head), its threads DV rounded up to whole warps
+// (block_reduce's shuffles take full warps: 128 at DV 120): the weighted sum
+// of the splits.  The threads share out the splits' (m, l) to form M, the
+// weights 2^(m_s - M) and the denominator; then thread d < DV sums column d.
+// A split with l = 0 saw no slot and weighs exactly 0.
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml, T* __restrict__ o,
@@ -313,19 +352,20 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   extern __shared__ float w_s[];  // splits
   __shared__ float red[kThreads / 32];
   const long long bh = blockIdx.x;
-  const int d = threadIdx.x;
+  const int d = threadIdx.x, nt = blockDim.x;
   const float* ml = part_ml + bh * splits * 2;
   float mx = kNegInf;
-  for (int s = d; s < splits; s += D)
+  for (int s = d; s < splits; s += nt)
     if (ml[2 * s + 1] > 0.f) mx = fmaxf(mx, ml[2 * s]);
   mx = block_reduce<true>(mx, red);
   float den = 0.f;
-  for (int s = d; s < splits; s += D) {
+  for (int s = d; s < splits; s += nt) {
     const float ls = ml[2 * s + 1], w = ls > 0.f ? exp2f(ml[2 * s] - mx) : 0.f;
     w_s[s] = w;
     den = fmaf(w, ls, den);
   }
   den = block_reduce<false>(den, red);  // its barriers also publish w_s
+  if (d >= D) return;
   const float* acc = part_acc + bh * splits * D + d;
   float num = 0.f;
   #pragma unroll 8
@@ -344,7 +384,7 @@ int launch(const void* q, const void* kc, const void* vc, const int* lens, int l
       len_all, part_acc, part_ml, Hq, Hkv, Smax, chunk, scale * kLog2e, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_combine_kernel<T><<<B * Hq, DV, splits * sizeof(float), stream>>>(
+  decode_combine_kernel<T><<<B * Hq, (DV + 31) / 32 * 32, splits * sizeof(float), stream>>>(
       part_acc, part_ml, static_cast<T*>(o), splits, DV);
   return static_cast<int>(cudaGetLastError());
 }
@@ -365,7 +405,7 @@ int dispatch_g(int g, const void* q, const void* kc, const void* vc, const int* 
 #undef DECODE_LAUNCH
 }
 
-// (DK, DV): (32,32), (64,64), (128,128) or MLA's (96,64).
+// (DK, DV): (32,32), (64,64), (128,128), (120,120), (96,96) or MLA's (96,64).
 template <typename T>
 int dispatch_d(int DK, int DV, int g, const void* q, const void* kc, const void* vc,
                const int* lens, int len_all, void* o, float* part, int B, int Hq, int Hkv,
@@ -376,6 +416,8 @@ int dispatch_d(int DK, int DV, int g, const void* q, const void* kc, const void*
   if (DK == 32 && DV == 32) return DECODE_DISPATCH(32, 32);
   if (DK == 64 && DV == 64) return DECODE_DISPATCH(64, 64);
   if (DK == 128 && DV == 128) return DECODE_DISPATCH(128, 128);
+  if (DK == 120 && DV == 120) return DECODE_DISPATCH(120, 120);
+  if (DK == 96 && DV == 96) return DECODE_DISPATCH(96, 96);
   if (DK == 96 && DV == 64) return DECODE_DISPATCH(96, 64);
   return static_cast<int>(cudaErrorInvalidValue);
 #undef DECODE_DISPATCH

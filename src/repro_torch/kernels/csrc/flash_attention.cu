@@ -3,9 +3,13 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::flash_attention.
 //   q and k (B,Sq|Skv,Hq|Hkv,DK), v (B,Skv,Hkv,DV) -> o (B,Sq,Hq,DV) in q's dtype.
 //   The K head dim and the V head dim are separate template parameters:
-//   (32,32), (64,64), (128,128) for the GQA models, and MLA's (96,64)
-//   (minicpm3: q and k of qk_nope 64 + qk_rope 32, v of 64).  Q.K^T runs over
-//   DK, P.V over DV; nothing is padded to a common width.
+//   (32,32), (64,64), (128,128), (120,120) (h2o-danube3) and (96,96)
+//   (phi3-vision) for the GQA models, and MLA's (96,64) (minicpm3: q and k of
+//   qk_nope 64 + qk_rope 32, v of 64).  Q.K^T runs over DK, P.V over DV;
+//   nothing is padded to a common width.  The bf16 kernel pads a head dim
+//   that is not a multiple of 16 (120) to the next one in shared memory
+//   only: the pad columns are zero-filled there, Q.K^T takes one more k-step
+//   over them, P.V skips the pad's n-tile, and exactly DV columns are stored.
 //   Online softmax in f32; causal, sliding `window` and `kv_offset` masks;
 //   masked logits are -1e30 (not -inf) and the denominator is clamped at 1e-30,
 //   so a row with no valid key averages V exactly as the plain version does.
@@ -282,10 +286,14 @@ constexpr float kAbsent = -__builtin_huge_valf();  // a key past Skv: exp2 gives
 constexpr float kMaskRaw = -0x1p100f;
 static_assert(BQ <= BK, "Q is staged through one stage's K buffer");
 
-// Shared-memory row pitch in bf16 elements: D plus 16 bytes, so the eight
-// 16-byte rows of an ldmatrix 8x8 matrix start in distinct bank quads.  K
-// rows take DK's pitch and V rows DV's.
-template <int D> __host__ __device__ constexpr int pitch() { return D + 8; }
+// A head dim padded to the m16n8k16 k-step (and to ldmatrix.x4's pairs of
+// 8-column matrices): 120 -> 128; 32, 64, 96 and 128 stay.
+template <int D> __host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
+// Shared-memory row pitch in bf16 elements: the padded D plus 16 bytes, so
+// the eight 16-byte rows of an ldmatrix 8x8 matrix start in distinct bank
+// quads (a pitch of 128 + 8 at D 120, not 120 + 8 = 256 bytes, which would
+// start every row in the same quad).  K rows take DK's pitch and V rows DV's.
+template <int D> __host__ __device__ constexpr int pitch() { return padded<D>() + 8; }
 template <int D> __host__ __device__ constexpr int tile_elems() { return BK * pitch<D>(); }
 // One stage: a K tile, then a V tile.
 template <int DK, int DV> __host__ __device__ constexpr int stage_elems() {
@@ -352,26 +360,32 @@ __device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsig
 }
 
 // Rows [r0, r0 + nr) of a (rows, D) bf16 operand with row stride `ss` into a
-// shared tile of `nr` rows; rows at or past `limit` are zero-filled.
+// shared tile of `nr` rows of padded<D>() columns; rows at or past `limit`,
+// and the pad columns past D of every row, are zero-filled.
 template <int D>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long ss, int r0, int nr, int limit, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < nr * CH; idx += kThreads) {
-    const int r = idx / CH, c = idx % CH, row = r0 + r;
-    const bool in = row < limit;
-    cp_async16(smem_addr(dst + r * pitch<D>() + c * 8), src + (in ? row : 0) * ss + c * 8, in);
+  constexpr int CH = D / 8, CHP = padded<D>() / 8;  // 16-byte chunks per row: real, padded
+  for (int idx = tid; idx < nr * CHP; idx += kThreads) {
+    const int r = idx / CHP, c = idx % CHP, row = r0 + r;
+    const bool in = row < limit && c < CH;
+    cp_async16(smem_addr(dst + r * pitch<D>() + c * 8),
+               src + (row < limit ? row : 0) * ss + (c < CH ? c : 0) * 8, in);
   }
 }
 
-// Three blocks per SM at (128,128) (168 registers), four below.
+// Three blocks per SM where the padded dims pass (96,64)'s: (128,128) and
+// (120,120) take 168 registers, (96,96)'s 48 output accumulators would spill
+// at four blocks' 128.  Four blocks at (96,64) and below.
 template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads, DK + DV >= 256 ? 3 : 4)
+__global__ void __launch_bounds__(kThreads, padded<DK>() + padded<DV>() > 160 ? 3 : 4)
 flash_fwd_bf16_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   constexpr int PK = pitch<DK>(), PV = pitch<DV>(), TK = tile_elems<DK>(),
                 STAGE = stage_elems<DK, DV>();
+  constexpr int KSTEPS = padded<DK>() / 16;  // Q.K^T k-steps, the last over zero pad at 120
+  constexpr int NT = DV / 8;                 // P.V n-tiles of 8 output columns (15 at 120)
   // Stage s holds K at smem + s*STAGE and V at smem + s*STAGE + TK.  Q is
   // staged through the last stage's K tile, which the key loop fills first.
   __nv_bfloat16* q_stage = smem + (kStages - 1) * STAGE;
@@ -402,13 +416,13 @@ flash_fwd_bf16_kernel(const Params p) {
   __syncthreads();
 
   // A fragments of the warp's 16 rows: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15).
-  unsigned qf[DK / 16][4];
+  unsigned qf[KSTEPS][4];
   {
     const int row = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
     const int col = (lane >> 4) << 3;
     const unsigned sign = p.scale < 0.f ? 0x80008000u : 0u;  // -q.k |scale| = q.k scale
     #pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
       ldsm_x4(qf[kk], smem_addr(q_stage + row * PK + kk * 16 + col));
       #pragma unroll
       for (int i = 0; i < 4; ++i) qf[kk][i] ^= sign;
@@ -419,9 +433,9 @@ flash_fwd_bf16_kernel(const Params p) {
   const int row0 = q0 + warp * 16 + (lane >> 2);
   const int qpos[2] = {row0 + p.kv_offset, row0 + 8 + p.kv_offset};
   const float sl2 = fabsf(p.scale) * kLog2e;  // exp(scale (s - m)) = exp2(sl2 s - sl2 m)
-  float o_acc[DV / 8][4];
+  float o_acc[NT][4];
   #pragma unroll
-  for (int j = 0; j < DV / 8; ++j)
+  for (int j = 0; j < NT; ++j)
     #pragma unroll
     for (int e = 0; e < 4; ++e) o_acc[j][e] = 0.f;
   float m[2] = {kMaskRaw, kMaskRaw}, l[2] = {0.f, 0.f};  // row max in unscaled units
@@ -451,7 +465,7 @@ flash_fwd_bf16_kernel(const Params p) {
     {
       const int key = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) << 3;
       #pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk) {
+      for (int kk = 0; kk < KSTEPS; ++kk) {
         #pragma unroll
         for (int np = 0; np < BK / 16; ++np) {
           unsigned kb[4];
@@ -500,7 +514,7 @@ flash_fwd_bf16_kernel(const Params p) {
       l[r] = l[r] * alpha + rs;  // this thread's partial row sum, from the f32 p
       if (__any_sync(0xffffffffu, alpha != 1.f)) {  // skipped when no row max of the warp moved
         #pragma unroll
-        for (int j = 0; j < DV / 8; ++j) {
+        for (int j = 0; j < NT; ++j) {
           o_acc[j][2 * r] *= alpha;
           o_acc[j][2 * r + 1] *= alpha;
         }
@@ -508,7 +522,9 @@ flash_fwd_bf16_kernel(const Params p) {
     }
 
     // O += P V: P from registers as a bf16 high part and the bf16 of its
-    // remainder (two products, so P carries ~16 bits), V by ldmatrix.trans.
+    // remainder (two products, so P carries ~16 bits), V by ldmatrix.trans:
+    // one x4 gives the b0/b1 of two n-tiles; at 120 the last x4's second
+    // tile is the pad's, and its products are not issued.
     {
       const int key = (lane & 7) + (((lane >> 3) & 1) << 3), col = (lane >> 4) << 3;
       #pragma unroll
@@ -519,13 +535,13 @@ flash_fwd_bf16_kernel(const Params p) {
         split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
         split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
         #pragma unroll
-        for (int dp = 0; dp < DV / 16; ++dp) {
+        for (int dp = 0; dp < (NT + 1) / 2; ++dp) {
           unsigned vb[4];
           ldsm_x4_trans(vb, smem_addr(sV + (kk * 16 + key) * PV + dp * 16 + col));
           mma_bf16(o_acc[2 * dp], ph, vb[0], vb[1]);
-          mma_bf16(o_acc[2 * dp + 1], ph, vb[2], vb[3]);
+          if (2 * dp + 1 < NT) mma_bf16(o_acc[2 * dp + 1], ph, vb[2], vb[3]);
           mma_bf16(o_acc[2 * dp], pl, vb[0], vb[1]);
-          mma_bf16(o_acc[2 * dp + 1], pl, vb[2], vb[3]);
+          if (2 * dp + 1 < NT) mma_bf16(o_acc[2 * dp + 1], pl, vb[2], vb[3]);
         }
       }
     }
@@ -544,7 +560,7 @@ flash_fwd_bf16_kernel(const Params p) {
     __nv_bfloat16* orow =
         o + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * DV + ((lane & 3) << 1);
     #pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
+    for (int j = 0; j < NT; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
           __floats2bfloat162_rn(o_acc[j][2 * r] * inv, o_acc[j][2 * r + 1] * inv);
   }
@@ -575,7 +591,7 @@ int launch_d(const Params& p, int dtype, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The output is contiguous (B,Sq,Hq,DV).
-// (DK, DV) is one of (32,32), (64,64), (128,128) and (96,64).
+// (DK, DV) is one of (32,32), (64,64), (128,128), (120,120), (96,96) and (96,64).
 // bf16 operands are read by 16-byte copies: their base pointers must be
 // 16-byte aligned and their (b, s, h) strides multiples of 8 elements.
 // Returns a cudaError_t.
@@ -604,6 +620,8 @@ extern "C" int flash_attention_fwd(
       case 32: return launch_d<32, 32>(p, dtype, s);
       case 64: return launch_d<64, 64>(p, dtype, s);
       case 128: return launch_d<128, 128>(p, dtype, s);
+      case 120: return launch_d<120, 120>(p, dtype, s);
+      case 96: return launch_d<96, 96>(p, dtype, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -252,27 +252,57 @@ int launch(const void* x, const void* scale, void* y, int n, int d, float eps, i
 // in f32, dx written in x's dtype and dscale in scale's.
 //
 // Bound on the card: bytes (x and g read, dx written; a few f32 operations an
-// element).  Design: a block of T threads takes one row at a time and steps
-// through its share of the rows (the grid is a small multiple of the SMs,
-// planned on the host, kernels/rmsnorm.py::rmsnorm_bwd_plan).  Per row, a
-// first pass reads x, g and scale (16-byte vectors where the plan allows,
-// as the forward's) and sums x^2 and g*s*x, one block reduction for both;
-// a second pass reads the row again (from L1/L2: a row is at most a few
-// tens of KB) and writes dx.  The same pass adds g * (x * r) into the
-// block's dscale partial, kept in shared memory (d floats), each column
-// owned by one thread, so no atomics.  At the end each block writes its
-// partial row to a (blocks, d) f32 scratch, and rmsnorm_dscale_kernel sums
-// the partials over blocks in a fixed order (32 columns a block, 8 row
-// strides, then a fixed 8-way sum), so two runs give bitwise-equal dscale.
+// element).  The first version (a block a row at a time, 256 threads, two
+// blocks an SM, a block-wide reduction with two barriers a row, each row read
+// twice, a (264, d) f32 partial) took 18.6-18.9 us at (2048, 2048) bf16 on an
+// H100, 15.3-15.5 of them in the row kernel and 3.3 in the partials' sum,
+// against a 7.51 us bound (PERF.md, the kernel table's row 1b).  Design now:
+//   - A team of TPR threads (the fewest, from a warp to the block, that hold
+//     the row in 2 16-byte vectors each; 4 where the block's 512 threads need
+//     them: kernels/rmsnorm.py::rmsnorm_bwd_plan) owns a row at a time; a
+//     block of 512 threads holds 512 / TPR teams, one block an SM, and the
+//     teams step through the rows by the grid's stride.
+//   - Each thread loads its VPT vectors of x and g once and keeps them in
+//     registers through the row's reduction to the dx store.  The next row's
+//     loads are issued before the current row's reduction, so two rows a team
+//     are in flight and a team streams through its rows: at (2048, 2048) bf16
+//     on an H100 the row kernel took 12.4 us with 128-thread teams (4 rows a
+//     team) against 14.9 with 64-thread teams of 4 vectors a thread (2 rows a
+//     team, all loads of the launch in one burst), and 16.0 with no loads
+//     issued ahead.
+//   - The row's two sums (x^2 and g*s*x) reduce by shuffles in each warp and,
+//     where a team spans warps, through shared memory behind a named barrier
+//     of the team's threads alone (double-buffered by row parity, one barrier
+//     a row): no block-wide barrier inside the row loop.
+//   - dscale: each thread adds g * (x * r) of its own columns into registers
+//     across its team's rows; at the end the block's teams add their sums in
+//     team order in shared memory and write one partial row a block (132 at
+//     most on an H100: half the first version's partial bytes), and
+//     rmsnorm_dscale_kernel sums the partials over blocks in a fixed order
+//     with 16 row groups of unrolled loads a column.  No atomics anywhere, so
+//     dscale repeats bit for bit, as the training loop's exact resume needs.
 
-constexpr int kBwdMaxThreads = 256;
+constexpr int kBwdThreads = 512;   // a block: 512 / TPR teams (kernels/rmsnorm.py: BWD_THREADS)
+constexpr int kBwdMaxVpt = 4;      // vectors a thread holds (kernels/rmsnorm.py: BWD_VPT_CHOICES)
+
+// One access of a row: a 16-byte vector, or (V 1) one element in u.x.
+template <typename T, int V>
+__device__ __forceinline__ void load_raw(const T* __restrict__ p, int i, uint4& u) {
+  if constexpr (V > 1) {
+    u = reinterpret_cast<const uint4*>(p)[i];
+  } else if constexpr (sizeof(T) == 2) {
+    u.x = __bfloat16_as_ushort(p[i]);
+  } else {
+    u.x = __float_as_uint(p[i]);
+  }
+}
 
 template <typename T, int V>
-__device__ __forceinline__ void load_v(const T* __restrict__ p, int i, float (&f)[V]) {
-  if constexpr (V == 1) {
-    f[0] = to_f(p[i]);
+__device__ __forceinline__ void unpack_raw(const uint4& u, float (&f)[V]) {
+  if constexpr (V > 1) {
+    unpack(u, f);
   } else {
-    unpack(reinterpret_cast<const uint4*>(p)[i], f);
+    f[0] = __uint_as_float(sizeof(T) == 2 ? u.x << 16 : u.x);
   }
 }
 
@@ -294,158 +324,242 @@ __device__ __forceinline__ void load_s(const TS* __restrict__ s, int e, float (&
   }
 }
 
-// V: elements a thread moves per access (1, or 16 bytes' worth of TX).
-template <typename TX, typename TS, int V>
-__global__ void __launch_bounds__(kBwdMaxThreads)
+__device__ __forceinline__ void team_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// V: elements a thread moves per access (1, or 16 bytes' worth of TX); VPT:
+// accesses a thread holds of a row (thread lr of a team takes vectors lr,
+// lr + tpr, ...; a row has at most VPT * tpr of them); tpr: threads a team,
+// a power of two from 32 to kBwdThreads.
+template <typename TX, typename TS, int V, int VPT>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 rmsnorm_bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ g,
                    const TS* __restrict__ scale, TX* __restrict__ dx,
-                   float* __restrict__ part, int n, int d, float eps) {
-  extern __shared__ float acc[];  // d floats: this block's dscale partial
-  __shared__ float red[2][kBwdMaxThreads / 32];
-  const int nv = d / V, T = blockDim.x, nw = T >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < nv; i += T) {  // the columns this thread owns
-    #pragma unroll
-    for (int e = 0; e < V; ++e) acc[i * V + e] = 0.f;
-  }
+                   float* __restrict__ part, int n, int d, int tpr, float eps) {
+  extern __shared__ float buf[];  // d floats: the block's teams' dscale sums, in team order
+  __shared__ float red[2][kBwdThreads / 32][2];  // [row parity][warp][x^2 | g*s*x]
+  const int nv = d / V, teams = blockDim.x / tpr, team = threadIdx.x / tpr;
+  const int lr = threadIdx.x % tpr, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpt = tpr >> 5, w0 = team * wpt;  // the team's warps
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * teams;
   const float inv_d = 1.f / static_cast<float>(d);
-  for (int64_t row = blockIdx.x; row < n; row += gridDim.x) {
-    const TX* xr = x + row * d;
-    const TX* gr = g + row * d;
-    float ss = 0.f, dot = 0.f;
-    for (int i = threadIdx.x; i < nv; i += T) {
-      float xv[V], gv[V], sv[V];
-      load_v<TX, V>(xr, i, xv);
-      load_v<TX, V>(gr, i, gv);
-      load_s<TS, V>(scale, i * V, sv);
-      #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        ss = fmaf(xv[e], xv[e], ss);
-        dot = fmaf(gv[e] * sv[e], xv[e], dot);
+
+  float acc[VPT][V];
+  #pragma unroll
+  for (int k = 0; k < VPT; ++k)
+    #pragma unroll
+    for (int e = 0; e < V; ++e) acc[k][e] = 0.f;
+
+  int64_t row = static_cast<int64_t>(blockIdx.x) * teams + team;
+  uint4 xv[VPT], gv[VPT];
+  auto load_row = [&](int64_t r, uint4 (&xa)[VPT], uint4 (&ga)[VPT]) {
+    #pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = lr + k * tpr;
+      xa[k] = ga[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < n && i < nv) {
+        load_raw<TX, V>(x + r * d, i, xa[k]);
+        load_raw<TX, V>(g + r * d, i, ga[k]);
       }
     }
+  };
+  load_row(row, xv, gv);
+  for (int parity = 0; row < n; row += stride, parity ^= 1) {
+    uint4 xn[VPT], gn[VPT];  // the next row's, in flight during this row's reduction
+    load_row(row + stride, xn, gn);
+    float ss = 0.f, dot = 0.f;
+    #pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = lr + k * tpr;
+      if (i < nv) {
+        float xf[V], gf[V], sf[V];
+        unpack_raw<TX, V>(xv[k], xf);
+        unpack_raw<TX, V>(gv[k], gf);
+        load_s<TS, V>(scale, i * V, sf);
+        #pragma unroll
+        for (int e = 0; e < V; ++e) {
+          ss = fmaf(xf[e], xf[e], ss);
+          dot = fmaf(gf[e] * sf[e], xf[e], dot);
+        }
+      }
+    }
+    #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
       dot += __shfl_xor_sync(0xffffffffu, dot, o);
     }
-    if (lane == 0) {
-      red[0][warp] = ss;
-      red[1][warp] = dot;
+    if (wpt > 1) {  // the team's warps, in warp order, behind the team's own barrier
+      if (lane == 0) {
+        red[parity][warp][0] = ss;
+        red[parity][warp][1] = dot;
+      }
+      team_barrier(1 + team, tpr);
+      ss = 0.f;
+      dot = 0.f;
+      for (int w = w0; w < w0 + wpt; ++w) {
+        ss += red[parity][w][0];
+        dot += red[parity][w][1];
+      }
     }
-    __syncthreads();
-    ss = 0.f;
-    dot = 0.f;
-    for (int w = 0; w < nw; ++w) {
-      ss += red[0][w];
-      dot += red[1][w];
-    }
-    __syncthreads();  // read before the next row rewrites it
     // r by the forward's formula (its sum of squares may round otherwise)
     const float r = rsqrtf(ss / static_cast<float>(d) + eps);
     const float c = r * r * r * (dot * inv_d);
     TX* dxr = dx + row * d;
-    for (int i = threadIdx.x; i < nv; i += T) {
-      float xv[V], gv[V], sv[V], out[V];
-      load_v<TX, V>(xr, i, xv);
-      load_v<TX, V>(gr, i, gv);
-      load_s<TS, V>(scale, i * V, sv);
-      #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        out[e] = (gv[e] * sv[e]) * r - xv[e] * c;
-        acc[i * V + e] += gv[e] * (xv[e] * r);
+    #pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = lr + k * tpr;
+      if (i < nv) {
+        float xf[V], gf[V], sf[V], out[V];
+        unpack_raw<TX, V>(xv[k], xf);
+        unpack_raw<TX, V>(gv[k], gf);
+        load_s<TS, V>(scale, i * V, sf);
+        #pragma unroll
+        for (int e = 0; e < V; ++e) {
+          out[e] = (gf[e] * sf[e]) * r - xf[e] * c;
+          acc[k][e] += gf[e] * (xf[e] * r);
+        }
+        store_v<TX, V>(dxr, i, out);
       }
-      store_v<TX, V>(dxr, i, out);
+    }
+    #pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      xv[k] = xn[k];
+      gv[k] = gn[k];
     }
   }
+
+  // The block's partial: team 0's sums, plus team 1's, ... in order.
   float* pr = part + static_cast<int64_t>(blockIdx.x) * d;
-  for (int i = threadIdx.x; i < nv; i += T) {  // own columns: no barrier needed
-    #pragma unroll
-    for (int e = 0; e < V; ++e) pr[i * V + e] = acc[i * V + e];
+  for (int t = 0; t < teams; ++t) {
+    if (team == t) {
+      #pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int i = lr + k * tpr;
+        if (i < nv) {
+          #pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float v = t == 0 ? acc[k][e] : buf[i * V + e] + acc[k][e];
+            if (t + 1 == teams) pr[i * V + e] = v;
+            else buf[i * V + e] = v;
+          }
+        }
+      }
+    }
+    if (t + 1 < teams) __syncthreads();
   }
 }
 
-// dscale[j] = sum over the bwd kernel's blocks b of part[b, j], in a fixed
-// order: a block of (32, 8) threads takes 32 columns, thread (j, y) sums
-// blocks y, y + 8, ..., then thread (j, 0) adds the 8 sums in order.
+// dscale[j] = sum over the row kernel's blocks b of part[b, j], in a fixed
+// order: a block of (16, 16) threads takes 16 columns; thread (j, y) sums
+// blocks y, y + 16, ... (8 loads issued at a time), then thread (j, 0) adds
+// the 16 sums in order.
 template <typename TS>
 __global__ void __launch_bounds__(256)
 rmsnorm_dscale_kernel(const float* __restrict__ part, TS* __restrict__ dscale, int blocks,
                       int d) {
-  __shared__ float red[8][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
+  __shared__ float red[16][17];
+  const int col = blockIdx.x * 16 + threadIdx.x;
   float s = 0.f;
-  if (col < d)
-    for (int b = threadIdx.y; b < blocks; b += 8) s += part[static_cast<int64_t>(b) * d + col];
+  if (col < d) {
+    for (int b0 = threadIdx.y; b0 < blocks; b0 += 16 * 8) {
+      float v[8];
+      #pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int b = b0 + 16 * u;
+        v[u] = b < blocks ? part[static_cast<int64_t>(b) * d + col] : 0.f;
+      }
+      #pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
+  }
   red[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && col < d) {
     float t = 0.f;
     #pragma unroll
-    for (int y = 0; y < 8; ++y) t += red[y][threadIdx.x];
+    for (int y = 0; y < 16; ++y) t += red[y][threadIdx.x];
     dscale[col] = from_f<TS>(t);
   }
 }
 
-template <typename TX, typename TS, int V>
+template <typename TX, typename TS, int V, int VPT>
 int launch_bwd(const void* x, const void* g, const void* scale, void* dx, void* dscale,
-               void* part, int n, int d, float eps, int threads, int blocks,
-               cudaStream_t stream) {
+               void* part, int n, int d, float eps, int tpr, int blocks, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  auto kernel = rmsnorm_bwd_kernel<TX, TS, V>;
+  auto kernel = rmsnorm_bwd_kernel<TX, TS, V, VPT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<blocks, threads, smem, stream>>>(
+  kernel<<<blocks, kBwdThreads, smem, stream>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(g), static_cast<const TS*>(scale),
-      static_cast<TX*>(dx), static_cast<float*>(part), n, d, eps);
+      static_cast<TX*>(dx), static_cast<float*>(part), n, d, tpr, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rmsnorm_dscale_kernel<TS><<<(d + 31) / 32, dim3(32, 8), 0, stream>>>(
+  rmsnorm_dscale_kernel<TS><<<(d + 15) / 16, dim3(16, 16), 0, stream>>>(
       static_cast<const float*>(part), static_cast<TS*>(dscale), blocks, d);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TX, typename TS, int V>
+int launch_bwd_vpt(const void* x, const void* g, const void* scale, void* dx, void* dscale,
+                   void* part, int n, int d, float eps, int vpt, int tpr, int blocks,
+                   cudaStream_t stream) {
+  switch (vpt) {
+    case 1: return launch_bwd<TX, TS, V, 1>(x, g, scale, dx, dscale, part, n, d, eps, tpr,
+                                           blocks, stream);
+    case 2: return launch_bwd<TX, TS, V, 2>(x, g, scale, dx, dscale, part, n, d, eps, tpr,
+                                           blocks, stream);
+    case 4: return launch_bwd<TX, TS, V, 4>(x, g, scale, dx, dscale, part, n, d, eps, tpr,
+                                           blocks, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename TX, typename TS>
 int launch_bwd_vec(const void* x, const void* g, const void* scale, void* dx, void* dscale,
-                   void* part, int n, int d, float eps, int vec, int threads, int blocks,
+                   void* part, int n, int d, float eps, int vec, int vpt, int tpr, int blocks,
                    cudaStream_t stream) {
   constexpr int V = 16 / sizeof(TX);
-  if (threads < 32 || threads > kBwdMaxThreads || threads % 32 || blocks < 1
-      || (vec != 1 && (vec != V || d % V)))
+  if (tpr < 32 || tpr > kBwdThreads || (tpr & (tpr - 1)) || blocks < 1 || vpt < 1
+      || vpt > kBwdMaxVpt || (vec != 1 && (vec != V || d % V))
+      || static_cast<int64_t>(vpt) * tpr * vec < d)
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec == 1)
-    return launch_bwd<TX, TS, 1>(x, g, scale, dx, dscale, part, n, d, eps, threads, blocks,
-                                 stream);
-  return launch_bwd<TX, TS, V>(x, g, scale, dx, dscale, part, n, d, eps, threads, blocks,
-                               stream);
+    return launch_bwd_vpt<TX, TS, 1>(x, g, scale, dx, dscale, part, n, d, eps, vpt, tpr,
+                                     blocks, stream);
+  return launch_bwd_vpt<TX, TS, V>(x, g, scale, dx, dscale, part, n, d, eps, vpt, tpr, blocks,
+                                   stream);
 }
 
 }  // namespace
 
 // x, g, dx: (n, d) in x's dtype; scale, dscale: (d,) in scale's dtype; part:
 // (blocks, d) f32 scratch.  vec: elements per access (1, or 16 bytes' worth:
-// then x, g, dx and scale 16-byte aligned and d a multiple of vec); threads
-// and blocks: the launch of rmsnorm_bwd_kernel.  Two kernels run, in order on
-// the stream.  Returns a cudaError_t.
+// then x, g, dx and scale 16-byte aligned and d a multiple of vec); vpt:
+// accesses a thread holds (1, 2 or 4; vpt * tpr * vec >= d); tpr: threads on
+// a row (a power of two, 32..512); blocks: the grid of rmsnorm_bwd_kernel,
+// of 512 threads each.  Two kernels run, in order on the stream.  Returns a
+// cudaError_t.
 extern "C" int rmsnorm_bwd(const void* x, const void* g, const void* scale, void* dx,
                            void* dscale, void* part, int n, int d, float eps, int x_dtype,
-                           int s_dtype, int vec, int threads, int blocks, void* stream) {
+                           int s_dtype, int vec, int vpt, int tpr, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (x_dtype == 0 && s_dtype == 0)
-    return launch_bwd_vec<float, float>(x, g, scale, dx, dscale, part, n, d, eps, vec,
-                                        threads, blocks, s);
+    return launch_bwd_vec<float, float>(x, g, scale, dx, dscale, part, n, d, eps, vec, vpt,
+                                        tpr, blocks, s);
   if (x_dtype == 0 && s_dtype == 1)
     return launch_bwd_vec<float, __nv_bfloat16>(x, g, scale, dx, dscale, part, n, d, eps, vec,
-                                                threads, blocks, s);
+                                                vpt, tpr, blocks, s);
   if (x_dtype == 1 && s_dtype == 0)
     return launch_bwd_vec<__nv_bfloat16, float>(x, g, scale, dx, dscale, part, n, d, eps, vec,
-                                                threads, blocks, s);
+                                                vpt, tpr, blocks, s);
   if (x_dtype == 1 && s_dtype == 1)
     return launch_bwd_vec<__nv_bfloat16, __nv_bfloat16>(x, g, scale, dx, dscale, part, n, d,
-                                                        eps, vec, threads, blocks, s);
+                                                        eps, vec, vpt, tpr, blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

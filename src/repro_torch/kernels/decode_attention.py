@@ -9,7 +9,8 @@ its slots across a grid of (B*Hkv, splits) blocks that stream K and V with
 the same C entry point, combines them.  The number of splits comes from the
 host alone (``num_splits``): the device lengths are never read back.  See the
 source note in the ``.cu`` file.  The K head dim and the V head dim may
-differ (MLA: 96 and 64), and the caches are read through their strides, so
+differ (MLA: 96 and 64), a row need not split evenly over a slot's lanes
+(120: ``lane_split``), and the caches are read through their strides, so
 MLA's v stays a slice of its re-expanded latent: a contiguous copy would move
 about 22 MB a layer a step at B 4, 1089 slots, about as much again as the
 kernel reads.
@@ -22,15 +23,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .ref import decode_attention as plain
 
-# (K head dim, V head dim) pairs (csrc: dispatch_d): the GQA models' and MLA's.
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
+# (K head dim, V head dim) pairs (csrc: dispatch_d): the GQA models' (120:
+# h2o-danube3, 96: phi3-vision) and MLA's.
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (120, 120), (96, 96), (96, 64))
 MAX_GROUP = 8      # query heads per KV head (csrc: kMaxGroup)
+GROUPS = (1, 2, 4, 5, 8)  # csrc: dispatch_g's instantiations; g is rounded up to one
+MAX_HELD = 96      # floats of q and acc a lane may hold (csrc: kMaxHeld)
 MIN_SPLIT = 64     # slots: no split is shorter when the length allows
 BLOCKS_PER_SM = 4  # the grid's target: four blocks per SM
 # q, k_cache, v_cache, lens, len_all, o, part, B, Hq, Hkv, Smax, DK, DV,
@@ -38,6 +43,36 @@ BLOCKS_PER_SM = 4  # the grid's target: four blocks per SM
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 2
              + (ctypes.c_int,) * 8 + (ctypes.c_longlong,) * 6
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+class LaneSplit(NamedTuple):
+    lanes: int    # lanes that read one slot's K and V rows (a power of two, <= 32)
+    k_chunks: int  # 16-byte chunks of the K row a lane holds (the last may be off)
+    v_chunks: int  # of the V row
+    held: int     # floats of q and acc a lane holds over the group's rows
+
+
+def lane_split(dk: int, dv: int, elem_bytes: int, g: int) -> LaneSplit:
+    """How ``decode_split_kernel`` cuts a slot's rows over lanes at head dims
+    (dk, dv), ``elem_bytes`` an element and a group of ``g`` query heads
+    (rounded up to its instantiation): csrc's ``lanes_per_slot``, mirrored.
+    The lanes are the largest power of two dividing both rows' chunk
+    counts, unless a lane would then hold more than ``MAX_HELD`` floats of
+    q and acc; then the power of two at or above the longer row's chunks
+    (at most 32), each lane taking one chunk and the lanes past a row's end
+    none: a row of 120 bf16 is 15 chunks over 16 lanes."""
+    nv = 16 // elem_bytes
+    ck, cv = dk // nv, dv // nv
+    G = next(x for x in GROUPS if x >= g)
+    p = 1
+    while p < 32 and ck % (2 * p) == 0 and cv % (2 * p) == 0:
+        p *= 2
+    if G * (ck + cv) // p * nv > MAX_HELD:
+        p = 1
+        while p < 32 and p < max(ck, cv):
+            p *= 2
+    kpl, vpl = -(-ck // p), -(-cv // p)
+    return LaneSplit(p, kpl, vpl, G * (kpl + vpl) * nv)
 
 
 def num_splits(bh: int, length: int, n_sm: int) -> int:

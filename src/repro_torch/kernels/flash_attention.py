@@ -10,7 +10,9 @@ remainder for P·V); f32 inputs keep exact f32 arithmetic on the CUDA cores.  Bo
 place instead of copying K and V per group, mask the ragged edges in the
 kernel instead of padding, and skip key tiles the mask empties.  See the
 source note in the ``.cu`` file.  The K head dim and the V head dim may
-differ: MLA's q and k have 96 (qk_nope 64 + qk_rope 32) and its v 64.
+differ: MLA's q and k have 96 (qk_nope 64 + qk_rope 32) and its v 64.  A
+head dim need not be a multiple of the tensor cores' k-step of 16: at 120
+the bf16 kernel zero-pads its shared tiles to 128 and stores 120 columns.
 
 A CPU tensor goes to the plain version (``ref.attention``); a CUDA tensor
 launches the kernel or raises.
@@ -26,8 +28,9 @@ from . import build
 from .ref import attention as plain
 
 # (K head dim, V head dim) pairs the kernel is instantiated for (csrc:
-# flash_attention_fwd's switch): the GQA models' and MLA's.
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
+# flash_attention_fwd's switch): the GQA models' (120: h2o-danube3, whose
+# bf16 tiles are padded to 128 in shared memory; 96: phi3-vision) and MLA's.
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (120, 120), (96, 96), (96, 64))
 # q, k, v, o, B, Sq, Skv, Hq, Hkv, DK, DV, (b, s, h) strides of q, k and v,
 # scale, causal, window, kv_offset, dtype, stream
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 9
@@ -66,7 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_offset=kv_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q {q.device}, k {k.device}, v {v.device}")
-    build.refuse_grad("flash_attention", f"its backward comes with {build.NEXT_SLICE}", q, k, v)
+    build.refuse_grad("flash_attention", build.NO_BACKWARD, q, k, v)
     DK, DV = head_dims(q, k, v)
     B, Sq, Hq, _ = q.shape
     _, Skv, Hkv, _ = k.shape

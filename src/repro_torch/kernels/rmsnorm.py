@@ -144,39 +144,62 @@ class _RmsnormFunction(torch.autograd.Function):
 # backward
 # ---------------------------------------------------------------------------
 
-BWD_THREADS = 256       # csrc: kBwdMaxThreads, a block's threads on a wide row
-BWD_BLOCKS_PER_SM = 2   # the backward's grid: at most this many blocks an SM
-MAX_BWD_D = 57344       # d floats of shared memory a block: 224 KiB of the 227
+BWD_THREADS = 512       # csrc: kBwdThreads, a block of BWD_THREADS / tpr teams
+BWD_VPT_CHOICES = (1, 2, 4)  # csrc: the instantiated accesses a thread holds (kBwdMaxVpt 4)
+BWD_TARGET_VPT = 2      # accesses a thread holds where the team may widen (see the plan)
+BWD_BLOCKS_PER_SM = 1   # the backward's grid: at most this many blocks an SM
 
 # x, g, scale, dx, dscale, partials, n rows, d, eps, x dtype, scale dtype,
-# vec, threads, blocks, stream
+# vec, vpt, tpr, blocks, stream
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 2 + (ctypes.c_float,)
-                 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+                 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
 
 
 class RmsnormBwdPlan(NamedTuple):
-    vec: int      # elements a thread moves per access (1: the scalar path)
-    threads: int  # per block; a block takes one row at a time
-    blocks: int   # grid; also the rows of the dscale partials
+    vec: int     # elements a thread moves per access (1: the scalar path)
+    vpt: int     # accesses of a row a thread holds in registers
+    tpr: int     # threads on a row (a team); a block holds BWD_THREADS / tpr teams
+    blocks: int  # grid; also the rows of the dscale partials
+
+
+def max_bwd_d(vec: int) -> int:
+    """The widest row the backward takes at ``vec`` elements an access: a
+    block's ``BWD_THREADS`` threads on one row, each holding the most
+    accesses, ``max(BWD_VPT_CHOICES)`` (16384 bf16 or 8192 f32 elements on
+    the vector path, 2048 on the scalar path)."""
+    return BWD_THREADS * max(BWD_VPT_CHOICES) * vec
 
 
 @functools.lru_cache(maxsize=None)
 def rmsnorm_bwd_plan(d: int, elem_bytes: int, aligned: bool, n_rows: int,
-                     sms: int) -> RmsnormBwdPlan:
+                     sms: int) -> RmsnormBwdPlan | None:
     """The backward's launch for ``n_rows`` rows of ``d`` elements of
-    ``elem_bytes`` bytes on a card of ``sms`` SMs.
+    ``elem_bytes`` bytes on a card of ``sms`` SMs, or None where the row is
+    wider than ``max_bwd_d``.
 
     16-byte vectors where ``aligned`` (x, g, dx and scale 16-byte aligned)
-    and d is a multiple of the vector width, else the scalar path.  A block
-    has the fewest threads (a multiple of a warp, at most ``BWD_THREADS``)
-    that give each thread one access of the row, and the grid is at most
-    ``BWD_BLOCKS_PER_SM`` blocks an SM: each block steps through n / blocks
-    rows, and its dscale partial (a row of f32) is what the second kernel
-    sums, so fewer blocks move fewer partial bytes."""
+    and d is a multiple of the vector width, else the scalar path.  A row's
+    team is the fewest threads (a power of two, a warp at least, a block at
+    most) that hold it in ``BWD_TARGET_VPT`` accesses each, and each thread
+    holds the fewest accesses of ``BWD_VPT_CHOICES`` that cover the row, so
+    x and g stay in registers from the load to the dx store.  Wide teams
+    mean few of them: on an H100 at (2048, 2048) bf16, 528 teams of 128
+    threads (4 rows each, the next row's loads in flight) took 12.4 µs where
+    1056 teams of 64 (2 rows each, 4 accesses a thread) took 14.9.  The grid
+    is at most ``BWD_BLOCKS_PER_SM`` blocks an SM, and no more than the rows
+    need: each block's teams step through the rows, and its dscale partial
+    (a row of f32) is what the second kernel sums, so fewer blocks move
+    fewer partial bytes."""
     vec = 16 // elem_bytes if aligned and d % (16 // elem_bytes) == 0 else 1
+    if d > max_bwd_d(vec):
+        return None
     nv = max(d // vec, 1)
-    threads = min(BWD_THREADS, max(32, -(-nv // 32) * 32))
-    return RmsnormBwdPlan(vec, threads, max(1, min(n_rows, BWD_BLOCKS_PER_SM * sms)))
+    tpr = 32
+    while tpr * BWD_TARGET_VPT < nv and tpr < BWD_THREADS:
+        tpr *= 2
+    vpt = next(k for k in BWD_VPT_CHOICES if k * tpr >= nv)
+    blocks = min(-(-n_rows // (BWD_THREADS // tpr)), BWD_BLOCKS_PER_SM * sms)
+    return RmsnormBwdPlan(vec, vpt, tpr, max(1, blocks))
 
 
 @functools.cache
@@ -200,16 +223,19 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                          f"{tuple(scale.shape)}, g {tuple(g.shape)} {g.dtype}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("rmsnorm_bwd: x, scale and g must be contiguous")
-    if d > MAX_BWD_D:
-        raise ValueError(f"rmsnorm_bwd: d {d} exceeds the kernel's {MAX_BWD_D}")
     n = x.numel() // max(d, 1)
     dx = torch.empty_like(x)
+    ptrs = (x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr())
+    plan = rmsnorm_bwd_plan(d, x.element_size(), not any(p % 16 for p in ptrs), max(n, 1),
+                            _sm_count(x.get_device()))
+    if plan is None:
+        raise ValueError(f"rmsnorm_bwd: d {d} exceeds the kernel's "
+                         f"{max_bwd_d(16 // x.element_size())} (16-byte vectors) or "
+                         f"{max_bwd_d(1)} (the scalar path, where x is unaligned or d is "
+                         "not a multiple of the vector width)")
     if n == 0 or d == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
-    ptrs = (x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr())
-    plan = rmsnorm_bwd_plan(d, x.element_size(), not any(p % 16 for p in ptrs), n,
-                            _sm_count(x.get_device()))
     part = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
     kernel = build.function("rmsnorm", "rmsnorm_bwd", _BWD_ARGTYPES)
     rc = kernel(*ptrs[:3], dx.data_ptr(), dscale.data_ptr(), part.data_ptr(), n, d,

@@ -86,7 +86,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             return plain(x, a, b, c, h0, chunk=chunk)
         raise ValueError(f"ssd_scan: x on {dev}, a {a.device}, b {b.device}, c {c.device}"
                          + ("" if h0 is None else f", h0 {h0.device}"))
-    build.refuse_grad("ssd_scan", f"its backward comes with {build.NEXT_SLICE}", x, a, b, c, h0)
+    build.refuse_grad("ssd_scan", build.NO_BACKWARD, x, a, b, c, h0)
     if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape:
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, b {tuple(b.shape)}, "
                          f"c {tuple(c.shape)}")

@@ -11,6 +11,10 @@ steps of the full-width bf16 model under ``torch.profiler``.
         --arch granite_moe_3b --batch 4 --prompt-len 1024 --steps 16
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch xlstm_1p3b --batch 4 --prompt-len 1024 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch h2o_danube3_4b --batch 4 --prompt-len 4608 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch phi3_vision_4p2b --batch 4 --prompt-len 1024 --steps 16
 
 Prints, for prefill and for decode, the host wall time (ended by a
 synchronise) with and without the profiler, the summed device time of all

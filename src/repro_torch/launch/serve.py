@@ -12,6 +12,10 @@ placed CNN inference over a simulated pool with any registered planner.
         --batch 4 --prompt-len 1024 --steps 64      # MoE
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1p3b \\
         --batch 4 --prompt-len 1024 --steps 64      # xLSTM (mLSTM and sLSTM)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b \\
+        --batch 4 --prompt-len 4608 --steps 64      # heads of 120, window 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3_vision_4p2b \\
+        --batch 4 --prompt-len 1024 --steps 64      # heads of 96
     PYTHONPATH=src python -m repro_torch.launch.serve --execute \\
         --planner ould-dp --pool-nodes 8
 

@@ -52,6 +52,15 @@ FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset
     (1, 1024, 1024, 16, 8, 128, True, None, 0),
     (1, 1536, 1536, 25, 5, 64, True, 1024, 0),
     (1, 1000, 1000, 4, 2, 128, True, None, 0),
+    # h2o-danube3's head dim 120 (the bf16 tiles padded to 128), g = 4: a
+    # ragged Sq under a window, a kv_offset, rows with no valid key, and the
+    # window binding at length; phi3-vision's 96/96, g = 1
+    (1, 100, 100, 8, 2, 120, True, 32, 0),
+    (2, 48, 176, 8, 2, 120, True, None, 128),
+    (1, 64, 64, 4, 1, 120, True, 8, 100),
+    (1, 1100, 1100, 8, 2, 120, True, 1024, 0),
+    (2, 130, 130, 4, 4, 96, True, None, 0),
+    (1, 1024, 1024, 8, 8, 96, True, None, 0),
 ]
 DECODE_CASES = [  # B, Smax, Hq, Hkv, D, valid length
     (2, 256, 4, 2, 64, 100), (3, 100, 6, 6, 32, 100),
@@ -59,6 +68,11 @@ DECODE_CASES = [  # B, Smax, Hq, Hkv, D, valid length
     (2, 96, 4, 2, 64, 0),
     # split-K at length: few (b, kvh) pairs, no valid slot, hymba's ring
     (1, 4096, 8, 1, 128, 4000), (1, 4096, 4, 2, 64, 0), (4, 1024, 25, 5, 64, 1024),
+    # head dim 120 (15 16-byte chunks in bf16 over 16 lanes, 30 in f32 over
+    # 32, the last lanes' chunks off) at g 4, danube's ring, no valid slot;
+    # phi3-vision's 96/96 at g 1
+    (2, 300, 8, 2, 120, 290), (2, 4096, 32, 8, 120, 4096), (2, 96, 8, 2, 120, 0),
+    (2, 1089, 4, 4, 96, 1088), (1, 200, 8, 1, 96, 150),
 ]
 RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4096, 2048), (4, 3200),
                   # the scalar path (d = 100 in bf16), the served widths, a row
@@ -163,13 +177,14 @@ def test_decode_attention_kernel_per_seq_lengths(cuda):
                                rtol=3e-5, atol=3e-5)
 
 
+@pytest.mark.parametrize("D", [128, 120, 96])
 @pytest.mark.parametrize("name", list(DTYPES))
-def test_decode_attention_kernel_per_seq_lengths_split_k(cuda, name):
+def test_decode_attention_kernel_per_seq_lengths_split_k(cuda, name, D):
     """Device lengths size the splits from Smax: the short sequences' later
     splits lie wholly past their lengths and must weigh nothing."""
     dt = DTYPES[name]
-    q, kc, vc = (normal(0, 3, 8, 128, dtype=dt), normal(1, 3, 4096, 2, 128, dtype=dt),
-                 normal(2, 3, 4096, 2, 128, dtype=dt))
+    q, kc, vc = (normal(0, 3, 8, D, dtype=dt), normal(1, 3, 4096, 2, D, dtype=dt),
+                 normal(2, 3, 4096, 2, D, dtype=dt))
     lens = torch.tensor([1, 700, 4096], dtype=torch.int32, device=cuda)
     n0 = decode_attention.n_launches
     got = decode_attention(q, kc, vc, lens)
@@ -221,7 +236,7 @@ def test_flash_attention_kernel_mla_head_dims_match_plain(cuda, B, Sq, Skv, Hq, 
                                    atol=2.0 ** -12 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("D,DV", [(64, 64), (96, 64)])
+@pytest.mark.parametrize("D,DV", [(64, 64), (96, 64), (120, 120), (96, 96)])
 def test_flash_attention_bf16_kernel_matches_its_scheme_at_a_given_scale(cuda, D, DV):
     """``attention_bf16_scheme`` takes the caller's scale (here neither
     D^-0.5 nor positive) and v's own head dim."""
@@ -328,7 +343,12 @@ def test_rmsnorm_kernel_offset_view_takes_the_scalar_path(cuda, name):
 # ---------------------------------------------------------------------------
 
 RMSNORM_BWD_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512), (4, 3200), (5, 100), (3, 7, 8192),
-                      (2048, 2048), (2048, 4096), (4, 4096)]
+                      (2048, 2048), (2048, 4096), (4, 4096),
+                      # rows a team covers with lanes to spare (1600 bf16: 200 of
+                      # 256 vectors), more rows than the grid's teams hold at once
+                      # (each team takes several, the next row's loads in flight),
+                      # and a block whose teams run out of rows
+                      (2048, 1600), (9000, 256), (300, 768), (3, 2048)]
 
 
 @pytest.mark.parametrize("sname", list(DTYPES))
@@ -349,6 +369,18 @@ def test_rmsnorm_bwd_kernel_matches_plain_autograd(cuda, shape, name, sname):
         assert err <= tol(n)["rtol"], (n, err.item())
     dx2, ds2 = rmsnorm_bwd(x, s, g)
     assert torch.equal(ds, ds2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.parametrize("d,dtype", [(16392, torch.bfloat16), (8196, torch.float32)])
+def test_rmsnorm_bwd_refuses_rows_wider_than_a_block_holds(cuda, d, dtype):
+    """A row is held in registers by at most 512 threads of 4 accesses each:
+    16384 bf16 or 8192 f32 elements on the vector path; wider rows raise
+    before any launch."""
+    x = normal(0, 2, d, dtype=dtype)
+    n0 = rmsnorm_bwd.n_launches
+    with pytest.raises(ValueError, match="exceeds"):
+        rmsnorm_bwd(x, normal(1, d).to(dtype), x)
+    assert rmsnorm_bwd.n_launches == n0
 
 
 def test_rmsnorm_bwd_kernel_matches_finite_differences(cuda):
@@ -536,8 +568,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         flash_attention(*(normal(0, 1, 8, 2, 48) for _ in range(3)))
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(normal(0, 1, 8, 2, 64), normal(1, 1, 8, 2, 64), normal(2, 1, 8, 2, 96))
+    with pytest.raises(ValueError, match="head dims"):  # (96, 96) and (120, 120) launch
+        decode_attention(normal(0, 1, 2, 80), normal(1, 1, 8, 2, 80), normal(2, 1, 8, 2, 80), 4)
     with pytest.raises(ValueError, match="head dims"):
-        decode_attention(normal(0, 1, 2, 96), normal(1, 1, 8, 2, 96), normal(2, 1, 8, 2, 96), 4)
+        decode_attention(normal(0, 1, 2, 120), normal(1, 1, 8, 2, 120), normal(2, 1, 8, 2, 64),
+                         4)
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm(normal(0, 8, 64)[:, ::2], normal(1, 32))
     with pytest.raises(TypeError):
@@ -567,8 +602,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ssd_scan(x.half(), a, b, c)
 
 
+# Reduced widths a path serves at: h2o-danube3 and phi3-vision keep their
+# published head dims (120 at g 4, and 96 at g 1), which the kernels take.
+SERVED_REDUCED = {"h2o_danube3_4b": dict(d_model=960, n_heads=8, n_kv=2),
+                  "phi3_vision_4p2b": dict(d_model=384, n_heads=4)}
+
+
 @pytest.mark.parametrize("arch", ["internlm2_1p8b", "hymba_1p5b", "minicpm3_4b",
-                                  "granite_moe_3b"])
+                                  "granite_moe_3b", "h2o_danube3_4b", "phi3_vision_4p2b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_server_kernel_path_matches_plain(cuda, dtype, arch):
     """A small model end to end on the card: the kernel path's logits against
@@ -582,8 +623,11 @@ def test_server_kernel_path_matches_plain(cuda, dtype, arch):
     The kernel path's MoE layers dispatch to the plain path's experts
     (``PinnedRoutes``): in bf16 a near-tie among the router's logits sends a
     token to another expert, a discrete jump (0.137 against 0.077 once in
-    four card runs), not the kernels' arithmetic."""
-    cfg = C.get_config(arch).reduced(n_layers=4, d_model=256, n_heads=4, vocab=1000)
+    four card runs), not the kernels' arithmetic.  h2o-danube3 (window 32
+    after ``reduced``) rolls its ring at head dim 120, and phi3-vision
+    serves token prompts through its embedding table at 96."""
+    kw = SERVED_REDUCED.get(arch, dict(d_model=256, n_heads=4))
+    cfg = C.get_config(arch).reduced(n_layers=4, vocab=1000, **kw)
     cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
     if cfg.mla is not None:
         cfg = dataclasses.replace(cfg, mla=C.MLAConfig(q_lora_rank=64, kv_lora_rank=32))

@@ -23,7 +23,8 @@ from repro.kernels.decode_attention import decode_attention as pallas_decode_att
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, MIN_SPLIT, decode_attention,
+from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, GROUPS, HEAD_DIMS, MAX_HELD,
+                                                  MIN_SPLIT, decode_attention, lane_split,
                                                   num_splits, split_plan)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import VPT_CHOICES, rmsnorm, rmsnorm_plan
@@ -37,10 +38,16 @@ FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset
     (1, 256, 256, 8, 2, 64, True, 64, 0),
     (2, 128, 128, 4, 2, 64, False, None, 0),
     (1, 64, 64, 2, 2, 128, True, None, 0),
+    # h2o-danube3's head dim 120 at g 4 (a ragged Sq under a window, a
+    # kv_offset) and phi3-vision's 96/96 at g 1
+    (1, 100, 100, 8, 2, 120, True, 32, 0),
+    (2, 48, 112, 4, 1, 120, True, None, 64),
+    (2, 70, 70, 2, 2, 96, True, None, 0),
 ]
 DECODE_CASES = [  # B, Smax, Hq, Hkv, D, valid length
     (2, 256, 4, 2, 64, 100), (3, 100, 6, 6, 32, 100),
     (2, 512, 8, 2, 128, 511), (1, 64, 4, 1, 64, 64),
+    (2, 192, 8, 2, 120, 150), (2, 100, 4, 4, 96, 77),
 ]
 RMSNORM_SHAPES = [(4, 37, 256), (2, 8, 64), (1, 1, 512)]
 
@@ -261,8 +268,84 @@ def test_flash_bf16_scheme_matches_pallas(B, Sq, Skv, Hq, Hkv, D, causal, window
 
 
 # (B, Hkv, Smax, valid slots) of each served decode: internlm2's cache of
-# prompt 1024 + 64 steps at its first and last step, hymba's full ring.
-SERVED_DECODES = [(4, 8, 1089, 1025), (4, 8, 1089, 1088), (4, 5, 1024, 1024)]
+# prompt 1024 + 64 steps at its first and last step, hymba's full ring,
+# h2o-danube3's ring of 4096 and phi3-vision's 32 KV heads.
+SERVED_DECODES = [(4, 8, 1089, 1025), (4, 8, 1089, 1088), (4, 5, 1024, 1024),
+                  (4, 8, 4096, 4096), (4, 32, 1089, 1088)]
+
+
+def lane_decode(q, kc, vc, elem_bytes):
+    """Each slot's logit and weighted v as ``decode_split_kernel`` forms
+    them under ``lane_split``: lane li of a slot takes the 16-byte chunks li,
+    li + lanes, ... of the K and V rows, a chunk past a row's end is off (its
+    q columns zero, its acc columns never stored), and the lanes' partial
+    dot products sum in the xor-shuffle tree's order.  Returns (logits
+    (B, Hq, Smax), per-lane V columns written (B, Hq, Smax, DV))."""
+    B, Hq, DK = q.shape
+    _, Smax, Hkv, DV = vc.shape
+    g = Hq // Hkv
+    nv = 16 // elem_bytes
+    lanes, kpl, vpl, _ = lane_split(DK, DV, elem_bytes, g)
+    kf = kc.float().repeat_interleave(g, dim=2)          # (B, Smax, Hq, DK)
+    part = []
+    for li in range(lanes):
+        chunks = [c * lanes + li for c in range(kpl) if c * lanes + li < DK // nv]
+        cols = [ch * nv + e for ch in chunks for e in range(nv)]
+        part.append(torch.einsum("bhd,bshd->bhs", q.float()[..., cols], kf[..., cols])
+                    if cols else torch.zeros(B, Hq, Smax))
+    while len(part) > 1:   # the tree: offsets lanes/2, ..., 1
+        half = len(part) // 2
+        part = [part[i] + part[i + half] for i in range(half)]
+    written = torch.zeros(DV, dtype=torch.int64)
+    for li in range(lanes):
+        for c in range(vpl):
+            ch = c * lanes + li
+            if ch < DV // nv:
+                written[ch * nv:(ch + 1) * nv] += 1
+    return part[0], written
+
+
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("dk,dv", HEAD_DIMS)
+def test_lane_split_covers_each_row_once_within_the_register_budget(dk, dv, elem_bytes, g):
+    """Every instantiated (DK, DV, dtype, group): a slot's lanes are a power
+    of two within a warp, each lane holds at most 4 chunks a row, the lanes'
+    chunks cover each row, and a lane holds no more than MAX_HELD floats of
+    q and acc where the even split would exceed it.  The rows the earlier
+    instantiations took split as before (the largest power of two dividing
+    both chunk counts) wherever that stays within MAX_HELD."""
+    nv = 16 // elem_bytes
+    ck, cv = dk // nv, dv // nv
+    lanes, kpl, vpl, held = lane_split(dk, dv, elem_bytes, g)
+    assert lanes & (lanes - 1) == 0 and lanes <= 32
+    assert kpl <= 4 and vpl <= 4 and kpl * lanes >= ck and vpl * lanes >= cv
+    assert (kpl - 1) * lanes < ck and (vpl - 1) * lanes < cv   # no lane wholly idle a row
+    even = max(p for p in (1, 2, 4, 8, 16, 32) if ck % p == 0 and cv % p == 0)
+    G = next(x for x in GROUPS if x >= g)
+    if G * (ck + cv) // even * nv <= MAX_HELD:
+        assert lanes == even and (kpl, vpl) == (ck // even, cv // even)
+    else:   # one chunk a lane: the registers of (128, 128)
+        assert (kpl, vpl) == (1, 1) and held == 2 * G * nv and lanes >= even
+    if (dk, dv) == (120, 120):   # 15 bf16 chunks over 16 lanes, 30 f32 over 32
+        assert (lanes, kpl, vpl) == ((16, 1, 1) if elem_bytes == 2 else (32, 1, 1))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("dk,dv,g", [(120, 120, 4), (120, 120, 1), (96, 96, 1), (96, 96, 8),
+                                     (96, 64, 4), (128, 128, 8)])
+def test_lane_split_logits_match_the_plain_ones(dk, dv, g, name):
+    """The kernel's per-lane logits, with the chunks past a row's end off,
+    against the plain logits q·k, and each V column written by exactly one
+    lane of a slot (no lane's zero columns overwrite another's)."""
+    tdt = DTYPES[name][1]
+    q = torch.from_numpy(normal(0, 2, 2 * g, dk)).to(tdt)
+    kc = torch.from_numpy(normal(1, 2, 16, 2, dk)).to(tdt)
+    vc = torch.from_numpy(normal(2, 2, 16, 2, dv)).to(tdt)
+    logits, written = lane_decode(q, kc, vc, tdt.itemsize)
+    want = torch.einsum("bhd,bshd->bhs", q.float(), kc.float().repeat_interleave(g, dim=2))
+    np.testing.assert_allclose(logits.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(written, torch.ones(dv, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("B,Hkv,Smax,ln", SERVED_DECODES)

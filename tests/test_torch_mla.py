@@ -240,7 +240,8 @@ def test_decode_wrapper_takes_mla_head_dims_and_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL)
 
 
-@pytest.mark.parametrize("dk,dv", [(32, 32), (64, 64), (128, 128), (96, 64)])
+@pytest.mark.parametrize("dk,dv", [(32, 32), (64, 64), (128, 128), (96, 64), (96, 96),
+                                   (120, 120)])
 def test_wrappers_name_the_head_dims_they_launch(dk, dv):
     """The checks a CUDA tensor meets before launch, run on CPU tensors:
     each instantiated (DK, DV) passes."""
@@ -249,7 +250,7 @@ def test_wrappers_name_the_head_dims_they_launch(dk, dv):
     assert decode_mod.head_dims(q[:, 0], k, v) == (dk, dv)
 
 
-@pytest.mark.parametrize("dk,dv", [(48, 48), (64, 96), (96, 96), (96, 32), (16, 8)])
+@pytest.mark.parametrize("dk,dv", [(48, 48), (64, 96), (120, 64), (96, 32), (16, 8), (80, 80)])
 def test_wrappers_refuse_pairs_without_a_kernel(dk, dv):
     q, k, v = torch.zeros(1, 8, 4, dk), torch.zeros(1, 8, 2, dk), torch.zeros(1, 8, 2, dv)
     with pytest.raises(ValueError, match=rf"head dims \(k {dk}, v {dv}\)"):

@@ -246,9 +246,8 @@ def test_kernels_refuse_gradients_they_cannot_carry():
     their card path, before any launch (``tests/test_torch_gpu.py``)."""
     from repro_torch.kernels import build
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="flash_attention.*next slice"):
-        build.refuse_grad("flash_attention", f"its backward comes with {build.NEXT_SLICE}",
-                          None, x)
+    with pytest.raises(NotImplementedError, match="flash_attention.*ROADMAP Queue 2"):
+        build.refuse_grad("flash_attention", build.NO_BACKWARD, None, x)
     with torch.no_grad():
         build.refuse_grad("flash_attention", "", x)
     with torch.inference_mode():

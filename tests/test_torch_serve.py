@@ -127,6 +127,40 @@ def test_generate_tokens_equal_reference(f32_model):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+# The published head dims at reduced widths: h2o-danube3's 3840 / 32 = 120
+# (window 32 after ``reduced``) and phi3-vision's 3072 / 32 = 96, which the
+# port's attention kernels take on the card.
+HEAD_DIM_CONFIGS = {"h2o_danube3_4b": (dict(d_model=240, n_heads=2), 120),
+                    "phi3_vision_4p2b": (dict(d_model=192, n_heads=2), 96)}
+
+
+def head_dim_configs(arch):
+    kw, hd = HEAD_DIM_CONFIGS[arch]
+    kw = dict(n_layers=2, vocab=512, **kw)
+    jcfg, tcfg = JC.get_config(arch).reduced(**kw), TC.get_config(arch).reduced(**kw)
+    assert tcfg.hd == jcfg.hd == hd
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("arch", list(HEAD_DIM_CONFIGS))
+def test_published_head_dims_prefill_caches_and_decode_match_reference(arch):
+    """A 40-token prompt (past danube's window: the ring rolls, decode
+    wraps) through each model at its published head dim, in f32."""
+    jcfg, tcfg = head_dim_configs(arch)
+    _prefill_and_decode(jcfg, tcfg, *converted(jcfg, tcfg), B=2, S=40, steps=3,
+                        check=_f32_check)
+
+
+@pytest.mark.parametrize("arch", list(HEAD_DIM_CONFIGS))
+def test_published_head_dims_generate_tokens_equal_reference(arch):
+    jcfg, tcfg = head_dim_configs(arch)
+    jp, tp = converted(jcfg, tcfg)
+    toks = prompts(2, 36, tcfg.vocab, seed=3)
+    want = JaxServer(jcfg, jp, JaxServeConfig(max_len=44, batch_size=2)).generate(toks, 6)
+    got = Server(tcfg, tp, ServeConfig(max_len=44, batch_size=2), device="cpu").generate(toks, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def test_bf16_prefill_logits_match_reference():
     """bf16 weights and compute (production_cfg's form).  Tolerance: bf16's
     2e-2 scaled by the logits' magnitude — bf16 keeps 8 significant bits and

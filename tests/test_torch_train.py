@@ -156,18 +156,99 @@ def test_rmsnorm_function_carries_gradients_to_x_and_scale(monkeypatch):
 
 
 def test_rmsnorm_bwd_plan():
-    """The backward's launch: 16-byte vectors where aligned, a block's
-    threads cover a row in one access each (a warp at least, 256 at most),
-    at most two blocks an SM."""
+    """The backward's launch: 16-byte vectors where aligned, a team of the
+    fewest threads (a warp at least, a block at most) that hold a row in 2
+    accesses each, 512-thread blocks of teams, at most one block an SM and
+    no more than the rows need; rows wider than a block holds are refused."""
     plan = rmsnorm_mod.rmsnorm_bwd_plan
-    assert plan(2048, 2, True, 2048, 132) == (8, 256, 264)
-    assert plan(4096, 2, True, 2048, 132) == (8, 256, 264)
-    assert plan(2048, 4, True, 2048, 132) == (4, 256, 264)
-    assert plan(4096, 2, True, 4, 132) == (8, 256, 4)
-    assert plan(64, 2, True, 100, 132) == (8, 32, 100)
-    assert plan(100, 2, True, 5, 132) == (1, 128, 5)       # d not a multiple of 8
-    assert plan(2048, 2, False, 6, 132) == (1, 256, 6)     # unaligned: the scalar path
-    assert rmsnorm_mod.MAX_BWD_D * 4 <= 232448
+    assert plan(2048, 2, True, 2048, 132) == (8, 2, 128, 132)   # xlstm's train d
+    assert plan(4096, 2, True, 2048, 132) == (8, 2, 256, 132)   # its mLSTM inner
+    assert plan(2048, 4, True, 2048, 132) == (4, 2, 256, 132)
+    assert plan(4096, 2, True, 4, 132) == (8, 2, 256, 2)
+    assert plan(64, 2, True, 100, 132) == (8, 1, 32, 7)         # 16 teams a block
+    assert plan(1600, 2, True, 2048, 132) == (8, 2, 128, 132)   # 200 of 256 vectors
+    assert plan(100, 2, True, 5, 132) == (1, 2, 64, 1)          # d not a multiple of 8
+    assert plan(2048, 2, False, 6, 132) == (1, 4, 512, 6)       # unaligned: the scalar path
+    assert plan(16384, 2, True, 2, 132) == (8, 4, 512, 2)
+    assert plan(16392, 2, True, 2, 132) is None and plan(2056, 2, False, 2, 132) is None
+    assert [rmsnorm_mod.max_bwd_d(v) for v in (8, 4, 1)] == [16384, 8192, 2048]
+
+
+@pytest.mark.parametrize("d,elem_bytes,aligned", [
+    (2048, 2, True), (4096, 2, True), (1600, 2, True), (3200, 2, True), (2560, 2, True),
+    (768, 2, True), (256, 2, True), (1536, 2, True), (2048, 4, True), (100, 2, True),
+    (8192, 4, True), (2048, 2, False), (7, 4, False)])
+@pytest.mark.parametrize("n_rows", [1, 4, 300, 2048])
+def test_rmsnorm_bwd_plan_holds_each_row_in_registers(d, elem_bytes, aligned, n_rows):
+    """At every width the training paths and the sweeps give the norm: the
+    team's accesses cover the row (at most 4 a thread, the team a power of
+    two from a warp to a block, no narrower team holds it in 2 accesses a
+    thread), and every team
+    of the grid has a row to start on unless the rows run out first."""
+    p = rmsnorm_mod.rmsnorm_bwd_plan(d, elem_bytes, aligned, n_rows, 132)
+    nv = d // p.vec
+    assert p.vec == (16 // elem_bytes if aligned and d % (16 // elem_bytes) == 0 else 1)
+    assert p.vpt in rmsnorm_mod.BWD_VPT_CHOICES and p.vpt * p.tpr >= nv
+    assert p.tpr & (p.tpr - 1) == 0 and 32 <= p.tpr <= rmsnorm_mod.BWD_THREADS
+    assert p.tpr == 32 or (p.tpr // 2) * rmsnorm_mod.BWD_TARGET_VPT < nv
+    teams = rmsnorm_mod.BWD_THREADS // p.tpr
+    assert 1 <= p.blocks <= 132 and (p.blocks - 1) * teams < n_rows
+
+
+def emulate_bwd(x, s, g, plan, eps=1e-5):
+    """csrc/rmsnorm.cu's backward schedule in f32: team t of block b takes
+    rows b*teams + t, then every (blocks*teams)-th row after it; a thread's
+    columns sum g*(x*r) over its team's rows in that order; a block's
+    partial adds its teams' sums in team order; the dscale kernel sums
+    the partials over blocks in 16 interleaved groups (each in steps of 8
+    loads), then the groups in order.  Returns (dx, dscale, rows visited)."""
+    n, d = x.shape
+    teams = rmsnorm_mod.BWD_THREADS // plan.tpr
+    stride = plan.blocks * teams
+    xf, gf, sf = x.float(), g.float(), s.float()
+    dx = torch.empty_like(xf)
+    seen = torch.zeros(n, dtype=torch.int64)
+    part = torch.zeros(plan.blocks, d)
+    for b in range(plan.blocks):
+        for t in range(teams):
+            acc = torch.zeros(d)
+            for row in range(b * teams + t, n, stride):
+                seen[row] += 1
+                r = torch.rsqrt((xf[row] * xf[row]).sum() / d + eps)
+                c = r * r * r * ((gf[row] * sf * xf[row]).sum() / d)
+                dx[row] = (gf[row] * sf) * r - xf[row] * c
+                acc = acc + gf[row] * (xf[row] * r)
+            part[b] = acc if t == 0 else part[b] + acc
+    groups = []
+    for y in range(16):
+        acc = torch.zeros(d)
+        for b0 in range(y, plan.blocks, 16 * 8):
+            for u in range(8):
+                if b0 + 16 * u < plan.blocks:
+                    acc = acc + part[b0 + 16 * u]
+        groups.append(acc)
+    ds = groups[0]
+    for grp in groups[1:]:
+        ds = ds + grp
+    return dx, ds, seen
+
+
+@pytest.mark.parametrize("n,d,sms", [(300, 64, 132), (2048, 256, 132), (37, 512, 4),
+                                     (9, 1600, 2)])
+def test_rmsnorm_bwd_schedule_emulation_matches_plain(n, d, sms):
+    """The kernel's row assignment visits every row exactly once, and its
+    fixed-order sums (teams, blocks, the 16 groups) give dx and dscale
+    within f32's 3e-5 of autograd through the plain rmsnorm."""
+    x, g = (torch.from_numpy(np.random.default_rng(i).standard_normal((n, d)).astype(np.float32))
+            for i in (0, 2))
+    s = torch.from_numpy(np.random.default_rng(1).standard_normal(d).astype(np.float32)) * 0.1 + 1
+    plan = rmsnorm_mod.rmsnorm_bwd_plan(d, 4, True, n, sms)
+    dx, ds, seen = emulate_bwd(x, s, g, plan)
+    assert torch.equal(seen, torch.ones(n, dtype=torch.int64))
+    px, ps = torch_ref.rmsnorm_bwd(x, s, g)
+    for got, want in ((dx, px), (ds, ps)):
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= TOL["float32"], err.item()
 
 
 def test_rmsnorm_wrapper_cpu_paths_launch_nothing():
