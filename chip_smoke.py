@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, placement and swarm
-paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch/CUDA port's serving, parallel, training, placement and
+swarm paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -62,7 +62,28 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                (32 layers, heads of 96, g 1), yi-6B (heads of 128, g 8) and
                musicgen-medium (48 layers, heads of 64, g 1), the last three
                at prompt 1024.
-  5. train   — xlstm-1.3B at full width: one pattern period's (8 layers)
+  5. parallel — the parallel layer on a world-one NCCL group (meshes
+               (data, model) = (1, 1), (stage,) = (1,) and (data,) = (1,);
+               ``make_production_mesh()`` raises on one card): internlm2-1.8B's
+               params placed by ``shard_params(param_pspecs(...))``, each
+               ``full_tensor()`` bit-identical; its 24-layer block stack (batch
+               4 x 1024, bf16) through ``pipeline_forward_stages`` over one
+               stage at n_micro 4 and 2 on the placed layers' local shards,
+               with exact rmsnorm and flash-attention launches, held to plain
+               f32 at 1.25 x the plain bf16 path's distance and in f32 at
+               F32_GATE, walls beside the unpipelined stack; a checkpoint of
+               those params restored with ``shardings=`` onto the (1, 1) mesh
+               bit for bit; granite-moe-3B's prefill at batch 4 x 4096 =
+               16,384 tokens (``impl="shard_map"``, the reference's
+               threshold) through the expert-parallel path in all 32 MoE
+               layers, exact launches, its NCCL all-gathers and all-reduces
+               counted in its ``torch.profiler`` trace, held to the same
+               prefill through scatter (top-k agreement, ROUTE_AGREE) and to
+               plain f32 at the floor gate; placed VGG-16 on four frames
+               through ``ExecutionEngine(mesh=(1,) data mesh)`` bit for bit
+               equal to the run without a mesh.  The group is destroyed at
+               the phase's end.
+  6. train   — xlstm-1.3B at full width: one pattern period's (8 layers)
                loss and gradient against plain f32, each path at 1.25 x a
                floor path's distance (``PERIOD_GATES``: the kernel path in
                bf16 against the plain bf16 path, in f32 against norms that
@@ -78,7 +99,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                failure bit for bit as an uninterrupted run; and a reduced
                internlm2 train step refused by the flash-attention wrapper
                (no backward kernel: the reference's Pallas kernel has none).
-  6. place   — the paper's placement path.  With every launch count set to 0:
+  7. place   — the paper's placement path.  With every launch count set to 0:
                the batched ``ould-dp-sparse`` planner on the card
                (``batch_solve=True``) on the S7 swarm (LeNet, N = 1024,
                1024 requests; benchmarks/bench_swarm.py), on VGG-16 at
@@ -95,7 +116,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                launched, times, bound and critical-path floor, the host
                stages of one sweep call, per-stage walls and the calibrated
                re-solve's MAE are printed.
-  7. swarm   — the swarm serving runtime (``runtime/swarm.py``).  With every
+  8. swarm   — the swarm serving runtime (``runtime/swarm.py``).  With every
                launch count set to 0: benchmarks/bench_swarm.py's CHURN
                under every policy, its OVERLOAD and an N = 1024 swarm under
                ``incremental-sparse``, each with its epoch re-solves batched
@@ -109,7 +130,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                warms its engine on a churn rejoin; the policies' miss,
                rejection and p99, the walls, the sweeps' device µs and the
                bound of each batched call's sweep are printed.
-  8. transport — the byte-moving transports.  With every launch count set
+  9. transport — the byte-moving transports.  With every launch count set
                to 0: executed mode (``SWARM_EXEC``, seed 3) under
                ``incremental-sparse`` with its re-solves batched on the card,
                over ``loopback`` (plain worker processes) and ``multiproc``
@@ -129,7 +150,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                build directory the CUDA context, ``measure_warm_start`` over
                LeNet's [(0, 3), (3, 7)] and the first ``dp_sweep`` launch (a
                load, no nvcc) beside the build phase's nvcc wall.
-  9. report  — a ``kernels`` JSON line, the card line, and as the last line
+  10. report — a ``kernels`` JSON line, the card line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each phase prints the seconds it took.
@@ -2495,6 +2516,272 @@ def transport_phase(torch, build_s: float) -> dict:
     return launches
 
 
+# The parallel phase: the parallel layer on a world-one NCCL group.
+# internlm2-1.8B's 24-layer block stack pipelined over one stage at each
+# N_MICRO (two norms and one flash attention a layer a microbatch), granite's
+# MoE prefill at the reference's expert-parallel threshold (B x S = 16,384
+# tokens: every one of its 32 MoE layers takes the expert path), placed
+# VGG-16 through the engine on a (1,) data mesh, and a checkpoint of
+# internlm2's params restored onto the (1, 1) mesh.
+PARALLEL = dict(stack="internlm2_1p8b", B=4, S=1024, n_micro=(4, 2),
+                moe="granite_moe_3b", moe_B=4, moe_S=4096)
+NO_LAUNCH = {"decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0, "rmsnorm_bwd": 0}
+
+
+def rel_max(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def counted(torch, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, its launches by kernel, its synchronised wall s)."""
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.n_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.n_launches for name, k in kernels.items()}, time.perf_counter() - t0
+
+
+def nccl_events(torch, fn) -> dict:
+    """``torch.profiler`` over fn(): the count of each host and device event
+    whose name says NCCL, by (device type, name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if "nccl" in e.name.lower():
+            key = (str(e.device_type).split(".")[-1], e.name[:60])
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def parallel_phase(torch) -> dict:
+    """(a) a world-one NCCL group and its meshes; (b) internlm2's block stack
+    pipelined; (c) granite's expert-parallel prefill; (d) VGG-16 through the
+    engine on a data mesh; (e) a checkpoint re-sharded.  Returns the main
+    path's launches by kernel: (b)'s pipelined runs and (c)'s prefill, each
+    counted from 0."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch import configs as C
+    from repro_torch import exec as X
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import init_params, moe, prefill, transformer
+    from repro_torch.parallel import (MeshAxes, named_shardings, param_pspecs,
+                                      pipeline_forward_stages, set_active_mesh, shard_params)
+
+    # (a)
+    launch_mesh.init_process_group("cuda")
+    need(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+         f"process group {dist.get_backend()} of {dist.get_world_size()}")
+    mesh11 = launch_mesh.make_mesh((1, 1), ("data", "model"))
+    stage = launch_mesh.make_mesh((1,), ("stage",))
+    data = launch_mesh.make_mesh((1,), ("data",))
+    try:
+        launch_mesh.make_production_mesh()
+    except RuntimeError as e:
+        need("(16, 16) needs 256 ranks" in str(e),
+             f"make_production_mesh() on one card raised another error: {e!r}")
+        print(f"[parallel] make_production_mesh() on one card raises: {e}", flush=True)
+    else:
+        need(False, "make_production_mesh() built a (16, 16) mesh on one card")
+    print(f"[parallel] NCCL world of {dist.get_world_size()}: meshes {mesh11}, {stage}, {data}",
+          flush=True)
+    launches = {name: 0 for name in all_kernels()}
+    try:
+        # (b)
+        arch, B, S = PARALLEL["stack"], PARALLEL["B"], PARALLEL["S"]
+        cfg = C.production_cfg(C.get_config(arch))
+        params = init_params(SEED, cfg, device="cuda")
+        specs = param_pspecs(params, mesh11)
+        t0 = time.perf_counter()
+        placed = shard_params(params, mesh11, specs)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        pairs = list(zip(_leaves(params), _leaves(placed)))
+        need(all(torch.equal(b.full_tensor(), a) for a, b in pairs),
+             f"{arch}: a placed leaf's full_tensor() differs from the weight")
+        local = [_tree_map(p, lambda t: t.to_local()) for p in placed["blocks"]]
+        sharded = sum(any(e is not None for e in s) for s in _leaves(specs))
+        print(f"[parallel] {arch}: {len(pairs)} leaves placed by shard_params(param_pspecs) in "
+              f"{place_s:.3f} s ({sharded} with a sharded dim on the (1, 1) mesh), each "
+              "full_tensor() bit-identical to its weight", flush=True)
+        toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (B, S)),
+                               device="cuda")
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        blocks32 = [_tree_map(p, lambda t: t.float()) for p in params["blocks"]]
+
+        def stack(fn, blocks, x):
+            for p in blocks:
+                x = fn(p, x)
+            return x
+
+        with torch.inference_mode():
+            x = F.embedding(toks, params["embed"]["table"])
+            kernel, plain = transformer.block_fn(cfg), transformer.block_fn(cfg, plain=True)
+            stack(kernel, local, x)   # warm-up: first cuBLAS calls at these shapes
+            ref32 = stack(transformer.block_fn(cfg32, plain=True), blocks32, x.float())
+            floor = rel_max(stack(plain, params["blocks"], x), ref32)
+            unpiped, _, unpiped_s = counted(torch, lambda: stack(kernel, local, x))
+            print(f"[parallel] {arch} block stack ({cfg.n_layers} layers, x {tuple(x.shape)} "
+                  f"bf16) unpipelined: wall {unpiped_s * 1e3:.2f} ms; plain bf16 vs plain f32 "
+                  f"(the floor) {floor:.3e}", flush=True)
+            for n_micro in PARALLEL["n_micro"]:
+                out, got, wall = counted(torch, lambda m=n_micro: pipeline_forward_stages(
+                    kernel, local, x, mesh=stage, stage_sizes=[cfg.n_layers], n_micro=m))
+                want = {**{k: 0 for k in launches}, "rmsnorm": 2 * cfg.n_layers * n_micro,
+                        "flash_attention": cfg.n_layers * n_micro}
+                need(got == want, f"pipelined n_micro {n_micro}: launches {got} != {want}")
+                for k in launches:
+                    launches[k] += got[k]
+                err = rel_max(out, ref32)
+                print(f"[parallel] {arch} pipelined, 1 stage, n_micro {n_micro}: wall "
+                      f"{wall * 1e3:.2f} ms (unpipelined {unpiped_s * 1e3:.2f}); launches "
+                      f"{got}; vs plain f32 {err:.3e} = {err / floor:.3f} x the floor (gate "
+                      f"{BF16_FLOOR_RATIO}); vs the unpipelined kernel path "
+                      f"{rel_max(out, unpiped):.3e} (information)", flush=True)
+                need(err <= BF16_FLOOR_RATIO * floor, f"pipelined n_micro {n_micro}: {err:.3e} "
+                     f"from f32 > {BF16_FLOOR_RATIO} x the floor {floor:.3e}")
+            out32 = pipeline_forward_stages(transformer.block_fn(cfg32), blocks32, x.float(),
+                                            mesh=stage, stage_sizes=[cfg.n_layers],
+                                            n_micro=PARALLEL["n_micro"][0])
+            err32 = rel_max(out32, ref32)
+            print(f"[parallel] {arch} pipelined in f32 (the kernels' f32 instantiations) vs "
+                  f"plain f32: {err32:.3e} (gate {F32_GATE})", flush=True)
+            need(err32 <= F32_GATE, f"pipelined f32 {err32:.3e} > {F32_GATE}")
+        del blocks32, ref32, out32, placed, local
+
+        # (e) the checkpoint of (b)'s params, restored onto the (1, 1) mesh
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            t0 = time.perf_counter()
+            mgr.save(0, params)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            restored, _ = mgr.restore(0, params, shardings=named_shardings(mesh11, specs))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        need(all(b.device_mesh is mesh11 and torch.equal(b.full_tensor(), a)
+                 for a, b in zip(_leaves(params), _leaves(restored))),
+             f"{arch}: a re-sharded leaf differs from the saved weight")
+        print(f"[parallel] checkpoint of {arch}'s params: save {save_s:.2f} s, restore onto "
+              f"the (1, 1) mesh as DTensors {restore_s:.2f} s, every leaf bit-identical",
+              flush=True)
+        del params, restored
+        torch.cuda.empty_cache()
+
+        # (c) granite's expert-parallel prefill at the threshold
+        arch, B, S = PARALLEL["moe"], PARALLEL["moe_B"], PARALLEL["moe_S"]
+        cfg = C.production_cfg(C.get_config(arch))
+        need(cfg.moe.impl == "shard_map" and B * S >= moe.SHARD_MAP_MIN_TOKENS,
+             f"{arch}: impl {cfg.moe.impl}, {B * S} tokens")
+        E = cfg.moe.num_experts
+        cap = max(1, int(B * S * cfg.moe.top_k * cfg.moe.capacity_factor / E))
+        params = init_params(SEED, cfg, device="cuda")
+        toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (B, S)),
+                               device="cuda")
+        cfg_sc = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="scatter"))
+        cfg32 = dataclasses.replace(cfg_sc, param_dtype="float32", compute_dtype="float32")
+        params32 = _tree_map(params, lambda t: t.float())
+        calls = {"expert": 0, "scatter": 0}
+        real_ep, real_sc = moe._moe_expert_parallel, moe._moe_scatter
+
+        def spy_ep(*a):
+            calls["expert"] += 1
+            return real_ep(*a)
+
+        def spy_sc(*a):
+            calls["scatter"] += 1
+            return real_sc(*a)
+
+        moe._moe_expert_parallel, moe._moe_scatter = spy_ep, spy_sc
+        set_active_mesh(mesh11, MeshAxes())
+        try:
+            with torch.inference_mode():
+                batch = {"tokens": toks}
+                prefill(params, cfg, batch)   # warm-up
+                calls.update(expert=0, scatter=0)
+                (ep_logits, _), got, ep_s = counted(torch, lambda: prefill(params, cfg, batch))
+                want = {**{k: 0 for k in launches}, "rmsnorm": 2 * cfg.n_layers + 1,
+                        "flash_attention": cfg.n_layers}
+                need(got == want, f"{arch} expert-path prefill: launches {got} != {want}")
+                need(calls == {"expert": cfg.n_layers, "scatter": 0},
+                     f"{arch}: MoE layers by path {calls}, not all {cfg.n_layers} expert-parallel")
+                for k in launches:
+                    launches[k] += got[k]
+                print(f"[parallel] {arch} prefill (B {B}, S {S}: {B * S} tokens, E_pad {E}, "
+                      f"cap {cap}) through the expert path in all {cfg.n_layers} MoE layers: "
+                      f"wall {ep_s * 1e3:.2f} ms; launches {got}", flush=True)
+                # Each MoE layer gathers its three expert weights and its
+                # rows over data and sums over model, and averages aux over
+                # data.  NCCL runs a one-rank collective without a kernel of
+                # its own: an out-of-place all-gather becomes a device copy
+                # (under its nccl:all_gather range on the card's stream), an
+                # in-place sum nothing.
+                events = nccl_events(torch, lambda: prefill(params, cfg, batch))
+                print(f"[parallel] {arch} expert-path prefill under torch.profiler: NCCL "
+                      f"events {events}", flush=True)
+                want_events = {("CPU", "nccl:all_gather"): 4 * cfg.n_layers,
+                               ("CUDA", "nccl:all_gather"): 4 * cfg.n_layers,
+                               ("CPU", "nccl:all_reduce"): 2 * cfg.n_layers}
+                need(all(events.get(k) == n for k, n in want_events.items()),
+                     f"{arch}: NCCL collectives {events}, not {want_events}")
+                (_, _), _, sc_s = counted(torch, lambda: prefill(params, cfg_sc, batch))
+                # the comparison: every path dispatches to the f32 path's experts
+                routes = RouteLog("f32")
+                logits = {}
+                with routes:
+                    for name, c, prm, pl in (("f32", cfg32, params32, True),
+                                             ("ep", cfg, params, False),
+                                             ("scatter", cfg_sc, params, False),
+                                             ("plain", cfg_sc, params, True)):
+                        routes.path = name
+                        logits[name] = prefill(prm, c, batch, plain=pl)[0]
+                    routes.compare(["ep-scatter", "ep-f32"])
+        finally:
+            set_active_mesh(None)
+            moe._moe_expert_parallel, moe._moe_scatter = real_ep, real_sc
+        agree = routes.agreement("ep-scatter")
+        floor, err = rel_max(logits["plain"], logits["f32"]), rel_max(logits["ep"], logits["f32"])
+        ep_sc = rel_max(logits["ep"], logits["scatter"])
+        print(f"[parallel] {arch} expert path vs scatter: prefill wall {ep_s * 1e3:.2f} vs "
+              f"{sc_s * 1e3:.2f} ms; own top-k sets agree in {agree:.6f} of (layer, token) rows "
+              f"(gate {ROUTE_AGREE}; vs f32 {routes.agreement('ep-f32'):.6f}); logits, dispatch "
+              f"pinned to f32's routing: ep vs scatter {ep_sc:.3e}, ep vs f32 {err:.3e} = "
+              f"{err / floor:.3f} x the floor {floor:.3e} (gate {BF16_FLOOR_RATIO})", flush=True)
+        need(agree >= ROUTE_AGREE, f"{arch}: top-k agreement {agree:.6f} < {ROUTE_AGREE}")
+        need(all(bool(torch.isfinite(t).all()) for t in logits.values())
+             and ep_logits.shape == (B, cfg.vocab), f"{arch}: logits not finite or misshapen")
+        need(err <= BF16_FLOOR_RATIO * floor, f"{arch}: expert path {err:.3e} from f32 > "
+             f"{BF16_FLOOR_RATIO} x the floor {floor:.3e}")
+        del params, params32, logits
+        torch.cuda.empty_cache()
+
+        # (d) placed VGG-16 through the engine on a (1,) data mesh
+        run = placed_setup(torch, "vgg16")
+        alone = run["engine"].run(run["graph"], run["frames"])
+        on_mesh = X.ExecutionEngine(run["layers"](run["params"]), mesh=data,
+                                    device="cuda").run(run["graph"], run["frames"])
+        need(all(np.array_equal(on_mesh.outputs[r], alone.outputs[r]) for r in alone.outputs),
+             "vgg16 on a (1,) data mesh differs from the run without a mesh")
+        print(f"[parallel] placed vgg16 on {FRAMES} frames through ExecutionEngine(mesh=(1,) "
+              f"data): outputs bit-identical to the run without a mesh; stage walls "
+              f"{[round(t.wall_s * 1e3, 3) for t in on_mesh.stage_timings]} ms (without "
+              f"{[round(t.wall_s * 1e3, 3) for t in alone.stage_timings]})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2547,6 +2834,9 @@ def main() -> int:
         by_path[arch] = serve_phase(torch, arch)
         torch.cuda.empty_cache()
         phase_done(f"serve {arch}")
+    by_path["parallel"] = parallel_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("parallel")
     by_path["train"] = train_phase(torch)
     torch.cuda.empty_cache()
     phase_done("train")

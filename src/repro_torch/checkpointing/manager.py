@@ -9,9 +9,10 @@ bfloat16, so a bf16 leaf is saved as its 16-bit pattern (uint16) and the
 manifest records "bfloat16"; every other dtype is saved as it is, so a
 checkpoint the reference wrote (f32, int32) restores leaf for leaf.
 ``AsyncCheckpointer`` copies to host memory synchronously and writes on a
-background thread.  ``restore`` puts each leaf on the template leaf's device
-(or ``device``); re-sharding onto another mesh waits for the port's
-Parallel slice.
+background thread; a DTensor leaf is saved as its whole value.  ``restore``
+puts each leaf on the template leaf's device (or ``device``), or with
+``shardings`` lays it out as a DTensor on a mesh, whatever the mesh it was
+saved from: the elastic re-shard.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _flatten(tree: Any, path=()) -> list[tuple[str, Any]]:
@@ -55,6 +57,8 @@ def _unflatten_like(template: Any, leaves: dict[str, Any], path=()) -> Any:
 
 def _to_host(leaf: Any) -> tuple[np.ndarray, str]:
     """A leaf as a host array to save, and the dtype the manifest records."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -117,14 +121,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template: Any,
+    def restore(self, step: int, template: Any, shardings: Any | None = None,
                 device: str | torch.device | None = None) -> tuple[Any, dict]:
         """Restore into ``template``'s structure: each leaf a tensor of the
         saved dtype on ``device``, or else on the template leaf's device
-        (the CPU for a leaf that is not a tensor)."""
+        (the CPU for a leaf that is not a tensor).  With ``shardings`` (a
+        matching tree of ``parallel.sharding.NamedSharding``: a spec on a
+        mesh) each leaf becomes a DTensor on its mesh, each rank keeping its
+        own slice of the saved value."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         where = dict(_flatten(template))
+        placed = dict(_flatten(shardings)) if shardings is not None else {}
         leaves = {}
         for name, meta in manifest["leaves"].items():
             if name not in where:
@@ -132,7 +140,9 @@ class CheckpointManager:
             tmpl = where[name]
             dev = torch.device(device) if device is not None else (
                 tmpl.device if isinstance(tmpl, torch.Tensor) else torch.device("cpu"))
-            leaves[name] = _from_host(np.load(d / meta["file"]), meta["dtype"], dev)
+            leaf = _from_host(np.load(d / meta["file"]), meta["dtype"],
+                              torch.device("cpu") if name in placed else dev)
+            leaves[name] = placed[name].place(leaf) if name in placed else leaf
         return _unflatten_like(template, leaves), manifest["extra"]
 
 

@@ -26,8 +26,11 @@ Walls are host clock readings between ``torch.cuda.synchronize()`` calls
 = measured stage walls along its path + modeled link delays — the realized
 counterpart of ``Evaluation.per_request_s``.
 
-The reference's ``mesh`` batch-sharding has no meaning on one card; it waits
-for the port's parallel slice (ROADMAP).
+With a ``mesh`` (a ``DeviceMesh``) whose ``data_axis`` has n > 1 ranks, a
+batch that n divides is split over them: each rank runs its slice of every
+measured or executed stage and the outputs are all-gathered over the axis,
+as the reference shards the batch over its mesh.  Any other batch, and an
+engine with no mesh or a data axis of one, runs the one-device path.
 """
 
 from __future__ import annotations
@@ -38,11 +41,14 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.profiles import ModelProfile
 from ..device import resolve_device
 from ..models import cnn
 from ..obs import ENGINE, NULL_TRACER
+from ..parallel.collectives import axis_group
+from ..parallel.sharding import mesh_sizes
 from ..transport import InProcTransport, Transport
 from .stage_graph import StageGraph, StageTask
 
@@ -138,11 +144,16 @@ class ExecutionEngine:
     the warm-up once per unique range and shape.
     """
 
-    def __init__(self, layer_fns: Sequence[Callable], *,
-                 transport: Transport | None = None, tracer=None,
-                 device: str | torch.device = "cuda"):
+    def __init__(self, layer_fns: Sequence[Callable], *, mesh=None,
+                 data_axis: str = "data", transport: Transport | None = None,
+                 tracer=None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.layer_fns = list(layer_fns)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        # (group, this rank's index, n) of a data axis of n > 1 ranks, else None
+        self._split = (axis_group(mesh, data_axis)
+                       if mesh is not None and mesh_sizes(mesh).get(data_axis, 1) > 1 else None)
         self.transport = transport if transport is not None else InProcTransport()
         # Observability: engine spans are real-time (``tracer.now()``) and
         # reconstructed from the measured walls the engine takes anyway.
@@ -171,6 +182,26 @@ class ExecutionEngine:
             self._closures[rng] = _run
         return self._closures[rng]
 
+    def _sharded(self, layer_start: int, layer_end: int) -> Callable:
+        """The range's callable, with a divisible batch split over the
+        mesh's data axis: each rank runs its slice, and the outputs are
+        gathered."""
+        fn = self.closure(layer_start, layer_end)
+        if self._split is None:
+            return fn
+        group, i, n = self._split
+
+        def run(x: torch.Tensor) -> torch.Tensor:
+            if x.shape[0] % n:
+                return fn(x)
+            y = fn(x.chunk(n)[i].contiguous()).contiguous()
+            with torch.inference_mode():
+                parts = [torch.empty_like(y) for _ in range(n)]
+                dist.all_gather(parts, y, group=group)
+                return torch.cat(parts)
+
+        return run
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -191,7 +222,7 @@ class ExecutionEngine:
     def _warm_up(self, layer_start: int, layer_end: int, x: torch.Tensor) -> None:
         key = (layer_start, layer_end, tuple(x.shape))
         if key not in self._warm:              # first run off the clock
-            self.closure(layer_start, layer_end)(x)
+            self._sharded(layer_start, layer_end)(x)
             self._sync()
             self._warm.add(key)
 
@@ -199,7 +230,7 @@ class ExecutionEngine:
                       repeats: int = 1) -> float:
         """Measured wall of layers [layer_start, layer_end) on ``x`` (min of
         ``repeats``, warm-up excluded)."""
-        fn = self.closure(layer_start, layer_end)
+        fn = self._sharded(layer_start, layer_end)
         x = self._put(x)
         self._warm_up(layer_start, layer_end, x)
         best = min(self._timed(fn, x)[1] for _ in range(max(1, repeats)))
@@ -234,7 +265,7 @@ class ExecutionEngine:
     def _launch(self, task: StageTask, x: torch.Tensor) -> tuple[torch.Tensor, float]:
         """Run one batched stage; returns (output, measured wall seconds)."""
         self._warm_up(task.layer_start, task.layer_end, x)
-        return self._timed(self.closure(task.layer_start, task.layer_end), x)
+        return self._timed(self._sharded(task.layer_start, task.layer_end), x)
 
     # -- execution -----------------------------------------------------------
     def run(self, graph: StageGraph, frames: np.ndarray, *,

@@ -25,6 +25,7 @@ import threading
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 DEFAULT_BUILD_DIR = pathlib.Path(__file__).with_name("_build")   # gitignored
@@ -160,3 +161,13 @@ def refuse_grad(kernel: str, brings: str, *tensors: torch.Tensor | None) -> None
         raise NotImplementedError(
             f"{kernel}: an input requires grad, and this CUDA kernel has no backward kernel "
             f"({brings}); it refuses rather than return an output without a gradient")
+
+
+def refuse_dtensor(kernel: str, *tensors: torch.Tensor | None) -> None:
+    """Raise where a DTensor reaches a kernel wrapper: the kernels (and their
+    plain versions) take local tensors, a stage's ``.to_local()`` shard or a
+    plain tensor.  Taking a DTensor's local shard here, or gathering it,
+    would quietly compute on another value than the caller laid out."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{kernel}: got a DTensor; pass its local shard (.to_local()) or a "
+                        "plain tensor")

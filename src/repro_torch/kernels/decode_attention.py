@@ -136,6 +136,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     unused, as in the reference: validity is by slot.  q must be contiguous;
     the caches may have any (batch, slot, head) strides that are multiples
     of 16 bytes, the head dim contiguous."""
+    build.refuse_dtensor("decode_attention", q, k_cache, v_cache, cache_len)
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, cache_len, window=window, scale=scale)
     dev = q.device

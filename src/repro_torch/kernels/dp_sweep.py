@@ -171,6 +171,7 @@ def dp_sweep(spb: torch.Tensor, Kv: torch.Tensor, Ks: float, srcs: torch.Tensor,
     column, lanes a column in the pass, tile, slots, tiles staged ahead,
     candidates resident in shared memory, dynamic shared bytes)."""
     ts = [spb, Kv, srcs, cand, valid] + ([cc] if cc is not None else [])
+    build.refuse_dtensor("dp_sweep", *ts)
     if not all(t.is_cuda for t in ts):
         if all(t.device.type == "cpu" for t in ts):
             return plain(spb, Kv, Ks, srcs, cand, valid, cc)

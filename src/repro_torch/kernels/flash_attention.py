@@ -64,6 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     slice of a fused qkv projection); bf16 operands are copied 16 bytes at a
     time, so their base must be 16-byte aligned and their strides multiples
     of 8 elements."""
+    build.refuse_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, scale=scale,
                      kv_offset=kv_offset)

@@ -86,6 +86,7 @@ def rmsnorm_plan(d: int, elem_bytes: int, aligned: bool,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale, in x's dtype."""
+    build.refuse_dtensor("rmsnorm", x, scale)
     if not (x.is_cuda and scale.is_cuda and scale.get_device() == x.get_device()):
         if x.device.type == "cpu":
             return plain(x, scale, eps)
@@ -212,6 +213,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     """The gradients of ``rmsnorm(x, scale, eps)`` for an output gradient
     ``g`` (x's shape and dtype): (dx in x's dtype, dscale in scale's)."""
     ts = (x, scale, g)
+    build.refuse_dtensor("rmsnorm_bwd", *ts)
     if not all(t.is_cuda and t.get_device() == x.get_device() for t in ts):
         if all(t.device.type == "cpu" for t in ts):
             return plain_bwd(x, scale, g, eps)

@@ -79,6 +79,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
     Each input may be f32 or bf16 and any strides are taken as long as its
     last dim is contiguous (c may be a slice of a fused projection)."""
+    build.refuse_dtensor("ssd_scan", x, a, b, c, h0)
     dev = x.device
     if not (x.is_cuda and all(t.is_cuda and t.get_device() == x.get_device()
                               for t in (a, b, c) + (() if h0 is None else (h0,)))):

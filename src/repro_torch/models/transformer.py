@@ -29,8 +29,12 @@ SSM's carried states), ``conv``, ``C``, ``n``, ``m`` (mLSTM) or ``h``,
 ``forward(..., remat=True)`` recomputes each pattern group in the backward
 pass (``torch.utils.checkpoint``), as the reference wraps its group body in
 ``jax.checkpoint``.  The reference also constrains the activations' and
-logits' sharding (``parallel.sharding``); on one card that is a no-op, and
-the port's Parallel slice brings it.
+logits' layout (``parallel.sharding``); here every activation is a plain
+tensor holding its whole value on every rank, under a mesh too, and the
+modules that use a mesh (the MoE's expert path) take their rank's part of
+it and give back whole values.  ``param_shapes`` is the parameter tree as
+meta tensors at any width, and ``block_fn`` one layer in the form the
+pipeline executor (``parallel.pipeline``) takes.
 
 ``plain=True`` routes every norm, attention and scan through the plain
 PyTorch versions; only the parity checks pass it.
@@ -116,6 +120,24 @@ def init_params(seed: int, cfg: ModelConfig, device: str | torch.device = "cuda"
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """``init_params``'s tree for ``cfg`` as meta tensors: every leaf's shape
+    and dtype at any width (llama4-maverick's published config among them),
+    with nothing allocated and nothing drawn."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_params(0, cfg, device="cpu")
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [meta(v) for v in tree]
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+    return meta(fake)
+
+
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums a repeated token's rows in
     # a fixed order on both devices (indexing's scatter-add does not on the
@@ -172,6 +194,15 @@ def _block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
             y2 = mlp_apply(p["mlp"], h2)
         x = x + y2
     return x, aux
+
+
+def block_fn(cfg: ModelConfig, *, plain: bool = False):
+    """``fn(layer_params, x) -> x``: one layer of the training path on
+    x (B, S, d) at positions 0..S-1, its aux loss dropped; the form
+    ``parallel.pipeline`` runs a block stack in."""
+    def fn(p: dict, x: torch.Tensor) -> torch.Tensor:
+        return _block_apply(p, cfg, x, torch.arange(x.shape[1], device=x.device), plain)[0]
+    return fn
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, remat: bool = False,

@@ -1,0 +1,340 @@
+"""Sharding rules on a ``DeviceMesh`` (port of ``repro.parallel.sharding``).
+
+Strategy, as the reference's: 2-D "fsdp x tensor".  Parameters shard their
+feature dims on the ``model`` axis (tensor and expert parallelism) and, for
+FSDP, a second dim on ``data`` (+ ``pod`` on the multi-pod mesh).  Every rule
+is checked against the actual dim sizes: a mesh axis that does not divide its
+dim is dropped, so one rule table serves every architecture.
+
+The torch counterparts of the reference's types: a
+``torch.distributed.device_mesh.DeviceMesh`` for ``jax.sharding.Mesh``,
+:class:`Spec` for ``PartitionSpec`` (one entry a tensor dim: ``None``, a mesh
+axis name, or a tuple of names), ``DTensor`` placements (``Shard(d)`` /
+``Replicate()``, :func:`placements`) for ``NamedSharding``.  The rules read
+only axis sizes (:func:`mesh_sizes`), so they also run on a plain
+``{name: size}`` mapping, with no process group.
+
+The port keeps a model's blocks as a list of per-layer trees where the
+reference stacks them over pattern groups; :func:`param_pspecs` gives a
+layer's leaf the reference's spec of the stacked leaf without its leading
+(layer-stack) entry.
+
+Layouts are DTensors: parameters placed by :func:`shard_params` and
+checkpoints restored with ``shardings=``.  The models run eagerly on plain
+tensors that hold the whole value on every rank, under a mesh too (the
+reference's global arrays); the modules that use a mesh (the MoE's expert
+path, the engine, the pipeline) take their rank's part of such a tensor and
+give back whole values, so the model code has no layout to constrain.
+:func:`constrain` and :func:`with_dp_constraint` lay out a DTensor, and
+refuse a plain tensor under a mesh of more than one device, which cannot
+carry the layout they name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from collections.abc import Mapping
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """Logical axis-name bundles for the active mesh."""
+    data: tuple[str, ...] = ("data",)   # ("pod","data") on the multi-pod mesh
+    model: str = "model"
+
+    @property
+    def dp(self) -> tuple[str, ...]:
+        return self.data
+
+
+class Spec(tuple):
+    """``PartitionSpec``'s counterpart: one entry a tensor dim, ``None``
+    (replicated), a mesh axis name, or a tuple of names (sharded over their
+    product, the first outermost)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "Spec" + tuple.__repr__(self)
+
+
+# Pattern table, the reference's: (regex on the parameter path, spec names
+# per trailing dim).  d = d_model-like dim -> FSDP ('data'), f = feature/out
+# dim -> TP ('model'), E = expert dim -> EP ('model').
+_RULES: list[tuple[str, list[str | None]]] = [
+    (r"embed/table$",          ["model", "data"]),   # (V, d)
+    (r"lm_head$",              ["data", "model"]),   # (d, V)
+    (r"(attn|mla)/(wq|wk|wv|wqkv|wkv|wq_a|wq_b|wkv_a|wkv_b)$",
+                               ["data", "model"]),
+    (r"(attn|mla)/wo$",        ["model", "data"]),
+    (r"mlp/(w_in|w_gate)$",    ["data", "model"]),   # (d, f)
+    (r"mlp/w_out$",            ["model", "data"]),   # (f, d)
+    (r"moe/router$",           ["data", None]),      # (d, E)
+    (r"moe/(w_in|w_gate)$",    ["model", "data", None]),  # (E, d, f) — EP
+    (r"moe/w_out$",            ["model", None, "data"]),  # (E, f, d)
+    (r"(ssm|mlstm)/(w_x|w_z|w_bc|w_dt|w_qkv|w_up|w_gates)$",
+                               ["data", "model"]),
+    (r"(ssm|mlstm|slstm)/w_out$", ["model", "data"]),
+    (r"slstm/w$",              ["data", "model"]),
+    (r"slstm/r$",              [None, None, None]),
+    (r"conv$",                 [None, None]),
+    (r"norm\w*/scale$",        [None]),
+    (r"bias$",                 [None]),
+    (r"(A_log|dt_bias|D)$",    [None]),
+]
+
+
+def mesh_sizes(mesh: Any) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or of a plain mapping."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def _axis_size(sizes: dict[str, int], name: str | None, axes: MeshAxes) -> int:
+    if name is None:
+        return 1
+    if name == "data":
+        s = 1
+        for a in axes.dp:
+            s *= sizes[a]
+        return s
+    return sizes[axes.model]
+
+
+def _to_spec(names: list[str | None], shape: tuple[int, ...], mesh: Any,
+             axes: MeshAxes, fsdp: bool) -> Spec:
+    """Map logical names to mesh axes, dropping non-dividing ones."""
+    sizes = mesh_sizes(mesh)
+    out: list[Any] = []
+    offset = len(shape) - len(names)
+    if offset < 0:
+        raise ValueError(f"spec names {names} for a tensor of shape {tuple(shape)}")
+    out.extend([None] * offset)  # leading stacked-layer dims: replicated
+    for k, nm in enumerate(names):
+        dim = shape[offset + k]
+        if nm == "data_model":  # shard over every axis (data ∪ model)
+            full = tuple(axes.dp) + (axes.model,)
+            size = 1
+            for a in full:
+                size *= sizes[a]
+            out.append(full if dim % size == 0 else None)
+        elif nm == "model":
+            out.append(axes.model if dim % sizes[axes.model] == 0 else None)
+        elif nm == "data":
+            if not fsdp:
+                out.append(None)
+                continue
+            size = _axis_size(sizes, "data", axes)
+            if dim % size == 0:
+                out.append(axes.dp if len(axes.dp) > 1 else axes.dp[0])
+            elif dim % sizes[axes.dp[-1]] == 0:
+                out.append(axes.dp[-1])  # shard on intra-pod data only
+            else:
+                out.append(None)
+        else:
+            out.append(None)
+    # A mesh axis may shard one dim only (GSPMD's rule, and a DTensor's
+    # placements hold one entry a mesh dim): drop a later use.
+    seen: set[str] = set()
+    clean: list[Any] = []
+    for s in out:
+        flat = s if isinstance(s, tuple) else ((s,) if s else ())
+        if any(a in seen for a in flat):
+            clean.append(None)
+        else:
+            seen.update(flat)
+            clean.append(s)
+    return Spec(*clean)
+
+
+def _leaf_spec(path: str, shape: tuple[int, ...], mesh: Any, axes: MeshAxes,
+               fsdp: bool) -> Spec:
+    for pat, names in _RULES:
+        if re.search(pat, path):
+            return _to_spec(list(names), shape, mesh, axes, fsdp)
+    # default: try the model axis on the largest dim if it divides
+    if len(shape) >= 2:
+        big = max(range(len(shape)), key=lambda i: shape[i])
+        specs: list[str | None] = [None] * len(shape)
+        specs[big] = "model" if shape[big] % mesh_sizes(mesh)[axes.model] == 0 else None
+        return _to_spec(specs, shape, mesh, axes, fsdp)
+    return Spec()
+
+
+def _flat_shapes(tree: Any, path: str = "") -> list[tuple[str, tuple, Any]]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flat_shapes(tree[k], f"{path}/{k}")]
+    return [(path, tuple(tree.shape), tree.dtype)]
+
+
+def _stack_len(blocks: list) -> int:
+    """The reference's leading group axis G of a stacked leaf: the number of
+    repeats of the shortest period of per-layer trees (``block_pattern``'s
+    length where its kinds differ, as xLSTM's 7 mLSTM + 1 sLSTM)."""
+    sig = [_flat_shapes(b) for b in blocks]
+    n = len(blocks)
+    period = next(p for p in range(1, n + 1)
+                  if n % p == 0 and all(sig[i] == sig[i % p] for i in range(n)))
+    return n // period
+
+
+def param_pspecs(params: Any, mesh: Any, axes: MeshAxes | None = None, *,
+                 fsdp: bool = True) -> Any:
+    """:class:`Spec` tree mirroring ``params`` (dicts and lists whose leaves
+    have a ``shape``: tensors, meta tensors from ``param_shapes``).  A leaf of
+    ``params["blocks"][l]`` gets its spec from the stacked shape (G, *shape),
+    as the reference computes it, without the stack's entry."""
+    axes = axes or MeshAxes()
+
+    def visit(path: str, node: Any, stack: int) -> Any:
+        if isinstance(node, dict):
+            return {k: visit(f"{path}/{k}" if path else k, v, stack) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            if path == "blocks" and stack == 0 and node:
+                stack = _stack_len(list(node))
+            out = [visit(path, v, stack) for v in node]
+            return type(node)(out) if isinstance(node, tuple) else out
+        shape = tuple(node.shape)
+        if not stack:
+            return _leaf_spec(path, shape, mesh, axes, fsdp)
+        return Spec(*_leaf_spec(path, (stack,) + shape, mesh, axes, fsdp)[1:])
+
+    return visit("", params, 0)
+
+
+def batch_spec(axes: MeshAxes | None = None, *, batch_divisible: bool = True,
+               ndim: int = 2) -> Spec:
+    """Inputs (B, S, ...): batch over (pod, data) when divisible."""
+    axes = axes or MeshAxes()
+    b = (axes.dp if len(axes.dp) > 1 else axes.dp[0]) if batch_divisible else None
+    return Spec(b, *([None] * (ndim - 1)))
+
+
+def cache_pspec(n_kv: int, batch: int, mesh: Any, axes: MeshAxes | None = None) -> Spec:
+    """KV cache (L, B, S, n_kv, hd): batch -> data when divisible, kv heads ->
+    model when divisible, else sequence -> model (decode context
+    parallelism)."""
+    axes = axes or MeshAxes()
+    sizes = mesh_sizes(mesh)
+    dsize = _axis_size(sizes, "data", axes)
+    b = (axes.dp if len(axes.dp) > 1 else axes.dp[0]) if batch % dsize == 0 else None
+    if n_kv % sizes[axes.model] == 0:
+        return Spec(None, b, None, axes.model, None)
+    return Spec(None, b, axes.model, None, None)
+
+
+# --- spec -> layout ---------------------------------------------------------
+
+def placements(spec: Spec, mesh: Any) -> list:
+    """One DTensor placement a mesh dim: ``Shard(d)`` on every mesh dim that
+    tensor dim d's entry names (in mesh order, so ("pod", "data") shards
+    pod-major, as the reference's tiling does), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axis_names = entry if isinstance(entry, tuple) else (() if entry is None else (entry,))
+        idx = [names.index(a) for a in axis_names]
+        if idx != sorted(idx) or any(isinstance(out[i], Shard) for i in idx):
+            raise ValueError(f"spec {spec} does not map onto mesh dims {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``'s counterpart)."""
+    mesh: Any
+    spec: Spec
+
+    def place(self, t: torch.Tensor):
+        """``t`` (the whole value, the same on every rank) as a DTensor on
+        the mesh; each rank keeps its own slice, with no communication."""
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t.to(self.mesh.device_type), self.mesh,
+                                 placements(self.spec, self.mesh), src_data_rank=None)
+
+
+def named_shardings(mesh: Any, specs: Any) -> Any:
+    """The tree of ``NamedSharding(mesh, spec)`` for a :class:`Spec` tree
+    (``param_pspecs``): what ``CheckpointManager.restore(shardings=)``
+    takes."""
+    if isinstance(specs, dict):
+        return {k: named_shardings(mesh, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [named_shardings(mesh, v) for v in specs]
+    return NamedSharding(mesh, specs)
+
+
+def _map2(tree: Any, other: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map2(v, other[k], fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map2(v, o, fn) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
+def shard_params(params: Any, mesh: Any, specs: Any) -> Any:
+    """``params`` as DTensors placed by ``specs`` (``param_pspecs``) on
+    ``mesh``: the counterpart of ``device_put(params, NamedSharding)``."""
+    return _map2(params, named_shardings(mesh, specs), lambda t, s: s.place(t))
+
+
+# --- active mesh context (set by the caller; absent on one device) ---------
+_ACTIVE: dict[str, Any] = {"mesh": None, "axes": MeshAxes()}
+
+
+def set_active_mesh(mesh: Any | None, axes: MeshAxes | None = None) -> None:
+    _ACTIVE["mesh"] = mesh
+    _ACTIVE["axes"] = axes or MeshAxes()
+
+
+def active_mesh() -> tuple[Any | None, MeshAxes]:
+    return _ACTIVE["mesh"], _ACTIVE["axes"]
+
+
+def _is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _layout(x: torch.Tensor, spec: Spec, mesh: Any) -> torch.Tensor:
+    """``x`` redistributed to ``spec`` where it is a DTensor; a plain tensor
+    passes only under a mesh of one device, where it is its own shard."""
+    if _is_dtensor(x):
+        return x.redistribute(mesh, placements(spec, mesh))
+    n = 1
+    for s in mesh_sizes(mesh).values():
+        n *= s
+    if n > 1:
+        raise TypeError(f"a plain tensor {tuple(x.shape)} under a mesh of {n} devices: its "
+                        "layout is unknown; pass a DTensor")
+    return x
+
+
+def constrain(x: torch.Tensor, names: tuple[str | None, ...]) -> torch.Tensor:
+    """Lay ``x`` out by logical names ('data'/'model'/None a dim) with the
+    divisibility guards.  Returns ``x`` itself when no mesh is active."""
+    mesh, axes = active_mesh()
+    if mesh is None:
+        return x
+    return _layout(x, _to_spec(list(names), tuple(x.shape), mesh, axes, fsdp=True), mesh)
+
+
+def with_dp_constraint(x: torch.Tensor, batch_divisible: bool = True) -> torch.Tensor:
+    """Lay an activation (B, S, d) out batch-sharded over the data axes.
+    Returns ``x`` itself when no mesh is active."""
+    mesh, axes = active_mesh()
+    if mesh is None:
+        return x
+    return _layout(x, batch_spec(axes, batch_divisible=batch_divisible, ndim=x.dim()), mesh)

@@ -6,7 +6,9 @@
   step), and checkpoints hold every bit of params and optimizer state).
 * **node-failure handling**: ``fail_at`` (tests) raises mid-run; the
   ``run_with_restarts`` wrapper plays the cluster scheduler and restarts.
-  Re-sharding onto a changed device set waits for the port's Parallel slice.
+  A restart onto a changed device set re-shards through
+  ``CheckpointManager.restore(shardings=)``; the loop itself passes none, as
+  the reference's does.
 * **straggler mitigation**: each step's wall (ended by
   ``torch.cuda.synchronize()`` on the card) feeds an EWMA detector, which
   calls the ``on_straggler`` hook on a slow step (``elastic.py`` re-plans).

@@ -961,3 +961,128 @@ def test_placed_lenet_over_loopback_on_the_card_equals_inproc(cuda):
     assert report.transport == "loopback" and len(report.transfers) == len(graph.transfers)
     for r in graph.requests:
         assert np.array_equal(report.outputs[r], ref.outputs[r]), r
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer on the card: a world of one over NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl1():
+    """A world-one NCCL group on the card, (data, model) = (1, 1) and
+    (stage,) = (1,) meshes on it; destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as launch_mesh
+    launch_mesh.init_process_group("cuda")
+    try:
+        yield (launch_mesh.make_mesh((1, 1), ("data", "model")),
+               launch_mesh.make_mesh((1,), ("stage",)))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_stage_pipeline_matches_the_block_stack_on_the_card(nccl1, dtype):
+    """Reduced internlm2 through ``pipeline_forward_stages`` on a one-stage
+    mesh at n_micro 2: the kernels run (two norms and one flash attention a
+    layer a microbatch) and the output matches the unpipelined stack (f32
+    1e-4; bf16 2e-2 of its magnitude, microbatches changing the products'
+    batch)."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel import pipeline_forward_stages
+    cfg = C.get_config("internlm2_1p8b").reduced(n_layers=4, d_model=256, n_heads=4)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(0, cfg, device="cuda")
+    x = normal(3, 4, 64, cfg.d_model, dtype=DTYPES[dtype])
+    fn = transformer.block_fn(cfg)
+    with torch.inference_mode():
+        want = x
+        for p in params["blocks"]:
+            want = fn(p, want)
+        rmsnorm.n_launches = flash_attention.n_launches = 0
+        got = pipeline_forward_stages(fn, params["blocks"], x, mesh=nccl1[1], stage_sizes=[4],
+                                      n_micro=2)
+    assert (rmsnorm.n_launches, flash_attention.n_launches) == (2 * 4 * 2, 4 * 2)
+    if dtype == "float32":
+        np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+    else:
+        assert (got.float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()
+
+
+def test_moe_expert_path_matches_scatter_on_a_1x1_mesh(nccl1, monkeypatch):
+    """granite's published MoE (top-8 of 40) at reduced width on the (1, 1)
+    mesh with the token threshold lowered: the expert path (NCCL all-gather
+    and all-reduce over groups of one) runs and gives scatter's y and aux,
+    and, through the collectives' backward on NCCL, scatter's gradients."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding
+    cfg = dataclasses.replace(C.get_config("granite_moe_3b").reduced(d_model=256),
+                              moe=C.get_config("granite_moe_3b").moe)
+    p = moe.moe_init(torch.Generator("cuda").manual_seed(0), cfg, torch.float32)
+    x = normal(4, 2, 64, cfg.d_model)
+    calls = []
+    real = moe._moe_expert_parallel
+    monkeypatch.setattr(moe, "_moe_expert_parallel", lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(moe, "SHARD_MAP_MIN_TOKENS", 0)
+    def run(c):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in {**p, "x": x}.items()}
+        y, aux = moe.moe_apply({k: v for k, v in leaves.items() if k != "x"}, c, leaves["x"])
+        (y.sum() + aux).backward()
+        return (y, aux), {k: v.grad for k, v in leaves.items()}
+
+    want, want_g = run(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="scatter")))
+    sharding.set_active_mesh(nccl1[0])
+    try:
+        got, got_g = run(cfg)
+    finally:
+        sharding.set_active_mesh(None)
+    assert calls == [1]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(f32(a.detach()), f32(b.detach()), rtol=1e-5, atol=1e-5)
+    for k in want_g:
+        np.testing.assert_allclose(f32(got_g[k]), f32(want_g[k]), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+
+
+def test_shard_params_round_trip_on_the_card(nccl1):
+    from repro_torch.parallel import param_pspecs, shard_params
+    cfg = C.get_config("granite_moe_3b").reduced(d_model=256)
+    params = init_params(0, cfg, device="cuda")
+    placed = shard_params(params, nccl1[0], param_pspecs(params, nccl1[0]))
+    flat = [(params["embed"]["table"], placed["embed"]["table"])] + [
+        (a, b) for pa, pb in zip(params["blocks"], placed["blocks"])
+        for a, b in zip(_leaves(pa), _leaves(pb))]
+    for a, b in flat:
+        assert b.device_mesh is nccl1[0] and b.to_local().is_cuda
+        assert torch.equal(b.full_tensor(), a) and torch.equal(b.to_local(), a)
+
+
+def _leaves(tree):
+    return [leaf for v in tree.values() for leaf in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def test_kernel_wrappers_refuse_a_dtensor_on_the_card(nccl1):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    def dt(t):
+        return distribute_tensor(t, nccl1[0], [Replicate(), Replicate()])
+
+    q, kc = normal(0, 1, 16, 2, 32), normal(1, 1, 8, 2, 32)
+    x, a, b, c, _ = ssd_inputs(1, 8, 2, 16, 4)
+    cand = torch.zeros((1, 3, 4), dtype=torch.int64, device="cuda")
+    calls = {
+        "rmsnorm": lambda: rmsnorm(dt(normal(2, 4, 64)), normal(3, 64)),
+        "rmsnorm_bwd": lambda: rmsnorm_bwd(dt(normal(2, 4, 64)), normal(3, 64), normal(4, 4, 64)),
+        "flash_attention": lambda: flash_attention(dt(q), q, q),
+        "decode_attention": lambda: decode_attention(dt(q[:, 0]), kc, kc, 4),
+        "ssd_scan": lambda: ssd_scan(dt(x), a, b, c),
+        "dp_sweep": lambda: dp_sweep(dt(torch.rand(8, 8, dtype=torch.float64, device="cuda")),
+                                     torch.ones(2, dtype=torch.float64, device="cuda"), 1.0,
+                                     torch.zeros(1, dtype=torch.int64, device="cuda"), cand,
+                                     torch.ones_like(cand, dtype=bool)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(TypeError, match=f"{name}: got a DTensor"):
+            call()

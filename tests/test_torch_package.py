@@ -59,7 +59,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.optim, repro_torch.optim.compression, repro_torch.data, "
             "repro_torch.checkpointing, repro_torch.runtime.steps, "
             "repro_torch.runtime.train_loop, repro_torch.runtime.elastic, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.parallel, repro_torch.parallel.collectives, "
+            "repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

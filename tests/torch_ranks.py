@@ -1,0 +1,350 @@
+"""Rank programs of the port's multi-rank CPU tests
+(``tests/test_torch_parallel.py``, ``tests/test_torch_pipeline.py``).
+
+Each process is one rank of a gloo world opened through a ``file://`` store
+(no TCP port, so test workers running side by side never collide):
+
+    python tests/torch_ranks.py CASE RANK WORLD STORE INPUTS.npz OUT_DIR
+
+A case reads its inputs (seeded numpy arrays) from INPUTS.npz and writes
+``OUT_DIR/rank<R>.npz``; the test compares those with the reference's
+values.  A rank that fails exits non-zero with its traceback on stderr.
+Imports no jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor  # noqa: E402
+
+from repro_torch import configs as C  # noqa: E402
+from repro_torch.checkpointing import CheckpointManager  # noqa: E402
+from repro_torch.exec import ExecutionEngine  # noqa: E402
+from repro_torch.exec.stage_graph import StageGraph, StageTask  # noqa: E402
+from repro_torch.models import cnn, from_jax_params, init_params, moe, transformer  # noqa: E402
+from repro_torch.parallel import pipeline, sharding  # noqa: E402
+
+# The reduced configs whose placements are checked against the reference's
+# (a width and depth both mesh axes divide), and the pipeline cases.
+PLACED_ARCHS = {"internlm2_1p8b": dict(n_layers=2, d_model=64),
+                "granite_moe_3b": dict(n_layers=2, d_model=64, experts=4)}
+PIPE4 = {"uniform-m4": (None, 4), "uniform-m8": (None, 8), "1322-m2": ([1, 3, 2, 2], 2),
+         "4211-m4": ([4, 2, 1, 1], 4), "1115-m8": ([1, 1, 1, 5], 8), "1511-m1": ([1, 5, 1, 1], 1)}
+PIPE2 = {"35-m2": ([3, 5], 2), "62-m4": ([6, 2], 4), "uniform-m2": (None, 2)}
+BAD_CUTS = {"three-cuts": [2, 2, 2], "empty-stage": [3, 3, 1, 0], "sum-16": [4, 4, 4, 4]}
+STACK_CUTS = [1, 3, 2, 2]
+
+
+def prefill_cfg(configs):
+    """The reduced granite of the prefill case, from either package's
+    ``configs``: f32, its MoE on the ``shard_map`` impl."""
+    cfg = configs.get_config("granite_moe_3b").reduced(**PLACED_ARCHS["granite_moe_3b"])
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="shard_map"),
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def unflatten(arrays: dict, prefix: str) -> dict:
+    """Rebuild a tree saved as ``prefix/a/b`` keys (list indices as digits)."""
+    tree: dict = {}
+    for key, v in arrays.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def flat(tree, path=""):
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in flat(v, f"{path}/{k}" if path else k)]
+    if isinstance(tree, list):
+        return [leaf for i, v in enumerate(tree) for leaf in flat(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def sharded_slice(full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's slice of ``full`` under ``spec``, cut by hand (each named
+    mesh dim splits its tensor dim evenly, outer names first)."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = sharding.mesh_sizes(mesh)
+    out = full
+    for dim, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (() if entry is None else (entry,))
+        idx, n = 0, 1
+        for a in names:
+            idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+        out = out.chunk(n, dim)[idx] if n > 1 else out
+    return out
+
+
+# --- tests/test_torch_parallel.py -------------------------------------------
+
+def case_parallel(rank: int, world: int, inp: dict) -> dict:
+    """2 x 2 (data, model): placements, the MoE's expert path (outputs,
+    gradients, a reduced granite's prefill), constrain."""
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out: dict = {}
+
+    # placements of reduced models' parameters
+    for arch, kw in PLACED_ARCHS.items():
+        cfg = C.get_config(arch).reduced(**kw)
+        params = init_params(0, cfg, device="cpu")
+        specs = sharding.param_pspecs(params, mesh)
+        placed = sharding.shard_params(params, mesh, specs)
+        for (path, t), (_, d) in zip(flat(params), flat(placed)):
+            assert isinstance(d, DTensor), path
+            assert torch.equal(d.full_tensor(), t), path
+            out[f"{arch}|{path}"] = d.to_local().numpy()
+
+    # the MoE's expert-parallel path, the reference test's case
+    cfg0 = C.get_config("granite_moe_3b").reduced(d_model=32, experts=4)
+
+    def moe_cfg(impl: str, cf: float):
+        return dataclasses.replace(cfg0, moe=dataclasses.replace(
+            cfg0.moe, num_experts=3, top_k=2, capacity_factor=cf, impl=impl))
+
+    p = {k: torch.from_numpy(inp[f"moe/{k}"]).requires_grad_(True)
+         for k in ("router", "w_in", "w_gate", "w_out")}
+    x = torch.from_numpy(inp["moe/x"])
+    calls = {"expert": 0, "scatter": 0}
+    real_ep, real_sc = moe._moe_expert_parallel, moe._moe_scatter
+
+    def spy_ep(*a):
+        calls["expert"] += 1
+        return real_ep(*a)
+
+    def spy_sc(*a):
+        calls["scatter"] += 1
+        return real_sc(*a)
+
+    moe._moe_expert_parallel, moe._moe_scatter = spy_ep, spy_sc
+    sharding.set_active_mesh(mesh, sharding.MeshAxes())
+    try:
+        out["moe/y_einsum"], out["moe/aux_einsum"] = (
+            t.detach().numpy() for t in moe.moe_apply(p, moe_cfg("einsum", 8.0), x))
+        floor, moe.SHARD_MAP_MIN_TOKENS = moe.SHARD_MAP_MIN_TOKENS, 0
+        for cf in (8.0, 1.0):
+            for t in p.values():
+                t.grad = None
+            xg = x.clone().requires_grad_(True)
+            y, aux = moe.moe_apply(p, moe_cfg("shard_map", cf), xg)
+            out[f"moe/y_ep_cf{cf:g}"] = y.detach().numpy()
+            out[f"moe/aux_ep_cf{cf:g}"] = aux.detach().numpy()
+            (y.sum() + aux).backward()
+            for k in p:
+                out[f"moe/grad_ep_cf{cf:g}/{k}"] = p[k].grad.numpy()
+            out[f"moe/grad_ep_cf{cf:g}/x"] = xg.grad.numpy()
+        out["moe/calls_at_0"] = np.array([calls["expert"], calls["scatter"]])
+
+        # a reduced granite's prefill on plain whole-value activations
+        pcfg = prefill_cfg(C)
+        params = from_jax_params(unflatten(inp, "prefill_params"), pcfg, device="cpu")
+        before = calls["expert"]
+        with torch.no_grad():
+            logits, _ = transformer.prefill(params, pcfg,
+                                            {"tokens": torch.from_numpy(inp["prefill/tokens"])})
+        out["prefill/logits"] = logits.numpy()
+        out["prefill/expert_calls"] = np.array(calls["expert"] - before)
+        out["moe/calls_before_below"] = np.array([calls["expert"], calls["scatter"]])
+        moe.SHARD_MAP_MIN_TOKENS = floor
+        y_below, _ = moe.moe_apply(p, moe_cfg("shard_map", 1.0), x)
+        out["moe/y_below"] = y_below.detach().numpy()
+        out["moe/calls_below"] = np.array([calls["expert"], calls["scatter"]])
+
+        # constrain / with_dp_constraint on a DTensor under the active mesh
+        whole = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+        xd = distribute_tensor(whole, mesh, [Replicate(), Replicate()])
+        yd = sharding.with_dp_constraint(xd)
+        zd = sharding.constrain(xd, (None, None, "model"))
+        out["constrain/dp_placements_ok"] = np.array(
+            tuple(yd.placements) == (Shard(0), Replicate())
+            and tuple(zd.placements) == (Replicate(), Shard(2)))
+        out["constrain/values_ok"] = np.array(
+            torch.equal(yd.full_tensor(), whole) and torch.equal(zd.full_tensor(), whole))
+        try:
+            sharding.constrain(whole, (None, None, "model"))
+            out["constrain/plain_raises"] = np.array(False)
+        except TypeError:
+            out["constrain/plain_raises"] = np.array(True)
+    finally:
+        sharding.set_active_mesh(None)
+        moe._moe_expert_parallel, moe._moe_scatter = real_ep, real_sc
+    return out
+
+
+def case_engine_ckpt(rank: int, world: int, inp: dict) -> dict:
+    """(2, 1) (data, model): the engine's batch sharding and a checkpoint
+    saved at world one restored onto the mesh."""
+    mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+    out: dict = {}
+
+    # engine: a stage of four requests (split 2 + 2) and one of three (not)
+    params = cnn.lenet_init(torch.Generator().manual_seed(0), device="cpu")
+    fns = cnn.lenet_layers(params)
+    seen: list[int] = []
+    first = fns[0]
+
+    def spy(x):
+        seen.append(x.shape[0])
+        return first(x)
+
+    graph = StageGraph(tasks=(StageTask(0, 0, 3, (0, 1, 2, 3)), StageTask(1, 3, 7, (0, 1, 2, 3)),
+                              StageTask(2, 0, 7, (4, 5, 6))),
+                       transfers=(), n_layers=7, n_requests=7, requests=tuple(range(7)))
+    frames = inp["engine/frames"]
+    plain = ExecutionEngine(fns, device="cpu").run(graph, frames).outputs
+    placed = ExecutionEngine([spy] + fns[1:], mesh=mesh, device="cpu").run(graph, frames).outputs
+    out["engine/batches_seen"] = np.array(seen)
+    for r in range(7):
+        out[f"engine/plain/{r}"], out[f"engine/mesh/{r}"] = plain[r], placed[r]
+
+    # checkpoint re-shard
+    cfg = C.get_config("internlm2_1p8b").reduced(**PLACED_ARCHS["internlm2_1p8b"])
+    template = transformer.param_shapes(cfg)
+    specs = sharding.param_pspecs(template, mesh)
+    shardings = sharding.named_shardings(mesh, specs)
+    restored, extra = CheckpointManager(str(inp["ckpt/dir"])).restore(0, template,
+                                                                      shardings=shardings)
+    saved = init_params(0, cfg, device="cpu")
+    n_split = 0
+    for (path, want), (_, got), (_, spec) in zip(flat(saved), flat(restored), flat(specs)):
+        assert isinstance(got, DTensor), path
+        assert torch.equal(got.full_tensor(), want), path
+        local = sharded_slice(want, spec, mesh)
+        assert torch.equal(got.to_local(), local), path
+        n_split += local.numel() < want.numel()
+    out["ckpt/n_split"] = np.array(n_split)
+    out["ckpt/extra_cursor"] = np.array(extra["cursor"])
+    return out
+
+
+# --- tests/test_torch_pipeline.py -------------------------------------------
+
+def _tanh_block(w_l: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x @ w_l)
+
+
+def _pipe_cases(mesh, cases: dict, inp: dict, out: dict) -> None:
+    w = torch.from_numpy(inp["w"])
+    x = torch.from_numpy(inp["x"])
+    layers = list(w)
+    for name, (cuts, n_micro) in cases.items():
+        if cuts is None:
+            y = pipeline.pipeline_forward(_tanh_block, layers, x, mesh=mesh, n_micro=n_micro)
+        else:
+            # other stages' layers are never read: hand this rank only its own
+            sid = mesh.get_local_rank("stage")
+            start = sum(cuts[:sid])
+            mine = [w_l if start <= i < start + cuts[sid] else None
+                    for i, w_l in enumerate(layers)]
+            y = pipeline.pipeline_forward_stages(_tanh_block, mine, x, mesh=mesh,
+                                                 stage_sizes=cuts, n_micro=n_micro)
+        out[f"pipe/{name}"] = y.numpy()
+
+
+def case_pipeline4(rank: int, world: int, inp: dict) -> dict:
+    mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("stage",))
+    out: dict = {}
+    _pipe_cases(mesh, PIPE4, inp, out)
+    w = list(torch.from_numpy(inp["w"]))
+    for name, cuts in BAD_CUTS.items():
+        try:
+            pipeline.pipeline_forward_stages(_tanh_block, w, torch.from_numpy(inp["x"]),
+                                             mesh=mesh, stage_sizes=cuts)
+            out[f"bad/{name}"] = np.array(False)
+        except ValueError:
+            out[f"bad/{name}"] = np.array(True)
+    cfg = C.get_config("internlm2_1p8b").reduced(n_layers=8, d_model=64)
+    params = from_jax_params(unflatten(inp, "lm"), cfg, device="cpu")
+    out["stack/pipelined"] = pipeline.pipeline_forward_stages(
+        transformer.block_fn(cfg), params["blocks"], torch.from_numpy(inp["stack/x"]),
+        mesh=mesh, stage_sizes=STACK_CUTS, n_micro=2).numpy()
+    return out
+
+
+def case_pipeline2(rank: int, world: int, inp: dict) -> dict:
+    mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("stage",))
+    out: dict = {}
+    _pipe_cases(mesh, PIPE2, inp, out)
+    return out
+
+
+def spawn(case: str, world: int, inputs: pathlib.Path, tmp: pathlib.Path) -> list:
+    """Start ``world`` rank processes of ``case``; returns their Popen
+    handles (see :func:`collect`)."""
+    import os
+    import subprocess
+    out = tmp / f"{case}-out"
+    out.mkdir()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    return [subprocess.Popen([sys.executable, __file__, case, str(r), str(world),
+                              str(tmp / f"{case}-store"), str(inputs), str(out)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+            for r in range(world)]
+
+
+def collect(procs: list, tmp: pathlib.Path, case: str, timeout: float = 240) -> list[dict]:
+    """Wait for the ranks; every rank's outputs, or an AssertionError with
+    the failing ranks' stderr."""
+    import subprocess
+    errs = []
+    for r, proc in enumerate(procs):
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"{case}: rank {r} timed out after {timeout} s")
+        if proc.returncode:
+            errs.append(f"rank {r} exit {proc.returncode}:\n{err[-3000:]}")
+    assert not errs, "\n".join(errs)
+    outs = []
+    for r in range(len(procs)):
+        with np.load(tmp / f"{case}-out" / f"rank{r}.npz") as f:
+            outs.append(dict(f))
+    return outs
+
+
+CASES = {"parallel": case_parallel, "engine_ckpt": case_engine_ckpt,
+         "pipeline4": case_pipeline4, "pipeline2": case_pipeline2}
+
+
+def main() -> int:
+    case, rank, world, store, inputs, out_dir = sys.argv[1:]
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        with np.load(inputs) as f:
+            inp = dict(f)
+        res = CASES[case](rank, world, inp)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **res)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
