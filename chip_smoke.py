@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, parallel, training, placement and
-swarm paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch/CUDA port's serving, parallel, training, dry-run,
+placement and swarm paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -99,7 +99,31 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                failure bit for bit as an uninterrupted run; and a reduced
                internlm2 train step refused by the flash-attention wrapper
                (no backward kernel: the reference's Pallas kernel has none).
-  7. place   — the paper's placement path.  With every launch count set to 0:
+  7. dryrun  — the port's dry-run (``repro_torch.launch.dryrun``) and the
+               card.  For h2o-danube3-4B, hymba-1.5B and xlstm-1.3B at
+               long_500k (decode at position 524,287, the whole cell: batch
+               1) and internlm2-1.8B at decode_32k and prefill_32k (at the
+               trace's largest batch that fits one card): the cell's record
+               (traced on meta tensors, printed), then its step on the card
+               with the arguments resident, launch counts set to 0 just
+               before and read just after.  Gates: launches equal the
+               trace's kernel calls, peak device memory the trace's within
+               2 % + 64 MiB, outputs the trace's shapes, and the first and
+               last sequences' bf16 logits within BF16_FLOOR_RATIO of the
+               plain path's distance from plain f32 (both at batch 1; at
+               32,768 tokens the plain attention runs by blocks of queries).
+               For internlm2's two cells, also: the batch after the largest
+               runs out of memory or peaks over the dry-run's cap, near its
+               trace; and the step's attention kernel at the cell's shape
+               (decode over 32,768 slots, flash over 32,768 tokens) meets
+               its plain version in every sequence (its times join the
+               kernels line).  The phase runs on expandable segments, which
+               the dry-run's peaks assume, and prints the card's memory
+               beside the dry-run's cap.  Printed: the step's wall, its
+               FLOPs over the wall as a share of the bf16 peak (mfu) and its
+               computed bytes over the wall as a share of the byte rate,
+               beside the card's name and power limit.
+  8. place   — the paper's placement path.  With every launch count set to 0:
                the batched ``ould-dp-sparse`` planner on the card
                (``batch_solve=True``) on the S7 swarm (LeNet, N = 1024,
                1024 requests; benchmarks/bench_swarm.py), on VGG-16 at
@@ -116,7 +140,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                launched, times, bound and critical-path floor, the host
                stages of one sweep call, per-stage walls and the calibrated
                re-solve's MAE are printed.
-  8. swarm   — the swarm serving runtime (``runtime/swarm.py``).  With every
+  9. swarm   — the swarm serving runtime (``runtime/swarm.py``).  With every
                launch count set to 0: benchmarks/bench_swarm.py's CHURN
                under every policy, its OVERLOAD and an N = 1024 swarm under
                ``incremental-sparse``, each with its epoch re-solves batched
@@ -130,7 +154,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                warms its engine on a churn rejoin; the policies' miss,
                rejection and p99, the walls, the sweeps' device µs and the
                bound of each batched call's sweep are printed.
-  9. transport — the byte-moving transports.  With every launch count set
+  10. transport — the byte-moving transports.  With every launch count set
                to 0: executed mode (``SWARM_EXEC``, seed 3) under
                ``incremental-sparse`` with its re-solves batched on the card,
                over ``loopback`` (plain worker processes) and ``multiproc``
@@ -150,7 +174,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                build directory the CUDA context, ``measure_warm_start`` over
                LeNet's [(0, 3), (3, 7)] and the first ``dp_sweep`` launch (a
                load, no nvcc) beside the build phase's nvcc wall.
-  10. report — a ``kernels`` JSON line, the card line, and as the last line
+  11. report — a ``kernels`` JSON line, the card line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each phase prints the seconds it took.
@@ -160,6 +184,7 @@ Imports nothing of the JAX package and no jax.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -174,15 +199,16 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# Published H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 on the
+# CUDA cores, HBM3 bandwidth; the bound columns share them with the dry-run.
+# Outside a checkout of the repo this import fails before anything is printed.
+from repro_torch.kernels.cost import PEAK_BF16, PEAK_BYTES, PEAK_F32  # noqa: E402
 
 # Reference tolerances (tests/test_kernels.py: f32 3e-5, bf16 2e-2, SSD 5e-5).
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 SSD_TOL = 5e-5
 # A bf16 tensor-core kernel against its arithmetic in f32 (scheme_close).
 SCHEME_RTOL, SCHEME_ATOL = 2.0 ** -8, 2.0 ** -12
-# Published H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 on
-# the CUDA cores, HBM3 bandwidth.
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 SEED = 0
 STEPS = 64
@@ -647,11 +673,10 @@ def rmsnorm_bwd_sweep(torch, randn) -> None:
 def rmsnorm_bwd_record(torch, randn, rows: int, d: int, what: str) -> dict:
     """The backward kernel at a train shape (bf16 x and scale): parity,
     the plan as launched, kernel / plain / library times, device us against
-    ``F.rms_norm``'s autograd backward, and the bound.  Bytes: x and g read,
-    dx written, scale read and dscale written once (the kernel's f32
-    partials are its own and not counted); about 10 f32 operations an
-    element."""
-    from repro_torch.kernels import ref
+    ``F.rms_norm``'s autograd backward, and the bound (``cost.rmsnorm_bwd``:
+    x and g read, dx written, scale read and dscale written once; about 10
+    f32 operations an element)."""
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
     F = torch.nn.functional
     bf = torch.bfloat16
@@ -659,6 +684,7 @@ def rmsnorm_bwd_record(torch, randn, rows: int, d: int, what: str) -> dict:
     sets = [(randn(rows, d, dtype=bf), randn(rows, d, dtype=bf)) for _ in range(n_sets)]
     sc = (randn(d) * 0.1 + 1).to(bf)
     err = bwd_check(torch, sets[0][0], sc, sets[0][1], f"rmsnorm_bwd {what}")
+    work = cost.rmsnorm_bwd(rows, d, 2, 2)
     rmsnorm_bwd.last_plan = None
     ms = time_ms([lambda s=s: rmsnorm_bwd(s[0], sc, s[1]) for s in sets])
     plan = rmsnorm_bwd.last_plan  # as the wrapper launched it in the timed calls
@@ -679,17 +705,16 @@ def rmsnorm_bwd_record(torch, randn, rows: int, d: int, what: str) -> dict:
             dev.setdefault(name, []).append(us)
         dev.setdefault("F.rms_norm backward", []).append(
             sum(device_us([lambda s=s: lib(s) for s in lib_sets]).values()))
-    n = rows * d
     rec = finish(dict(
         name="rmsnorm_bwd", shape=f"x, g ({rows}, {d}) bf16, scale ({d},) bf16 [{what}]",
         max_abs_err=err, plan=plan._asdict(), device_us=dev, ms=ms,
         plain_ms=time_ms([lambda s=s: ref.rmsnorm_bwd(s[0], sc, s[1]) for s in sets]),
         library_ms=time_ms([lambda s=s: lib(s) for s in lib_sets]),
-        bytes_ms=(3 * n * 2 + 2 * d * 2) / PEAK_BYTES * 1e3, ops_ms=10 * n / PEAK_F32 * 1e3))
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3, ops_ms=work.flops / PEAK_F32 * 1e3))
     print(f"[kernels] rmsnorm_bwd plan at {what} ({rows}, {d}): {plan}; device us a call, two "
           f"rounds: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in dev.items())
           + f"; the partials add {2 * plan.blocks * d * 4 / 1e6:.2f} MB of traffic beside the "
-          f"bound's {(3 * n * 2 + 2 * d * 2) / 1e6:.2f} MB", flush=True)
+          f"bound's {work.bytes / 1e6:.2f} MB", flush=True)
     return rec
 
 
@@ -701,7 +726,7 @@ def ssd_state_close(got, want, what: str) -> float:
 
 
 def rmsnorm_record(torch, randn, rows: int, d: int, what: str) -> dict:
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.rmsnorm import rmsnorm
     F = torch.nn.functional
     # Inputs cycled so a call does not find its input in L2 (> 50 MB in all).
@@ -711,7 +736,6 @@ def rmsnorm_record(torch, randn, rows: int, d: int, what: str) -> dict:
     err = close(rmsnorm(xs[0], sc), ref.rmsnorm(xs[0], sc), "bfloat16", f"rmsnorm {what}")
     xd = randn(4, d, dtype=torch.bfloat16)
     err = max(err, close(rmsnorm(xd, sc), ref.rmsnorm(xd, sc), "bfloat16", f"rmsnorm {what} decode"))
-    n = rows * d
     rmsnorm.last_plan = None
     ms = time_ms([lambda x=x: rmsnorm(x, sc) for x in xs])
     plan = rmsnorm.last_plan  # as the wrapper launched it in the timed calls
@@ -727,21 +751,23 @@ def rmsnorm_record(torch, randn, rows: int, d: int, what: str) -> dict:
                 sum(device_us([lambda x=x: rmsnorm(x, sc) for x in xx]).values()))
             dev.setdefault("F.rms_norm" + rs, []).append(
                 sum(device_us([lambda x=x: F.rms_norm(x, (d,), sc, 1e-5) for x in xx]).values()))
-    # A decode step's rows: x read and written once and the scale read once
-    # (bytes), or 4 operations an element at the f32 peak, the larger.
-    decode_bytes_us = (2 * 4 * d + d) * 2 / PEAK_BYTES * 1e6
-    decode_ops_us = 4 * 4 * d / PEAK_F32 * 1e6
+    # A decode step's rows (cost.rmsnorm: x read and written once and the
+    # scale read once, or 4 operations an element at the f32 peak), the larger.
+    decode = cost.rmsnorm(4, d, 2, 2)
+    decode_bytes_us = decode.bytes / PEAK_BYTES * 1e6
+    decode_ops_us = decode.flops / PEAK_F32 * 1e6
     print(f"[kernels] rmsnorm device us a call at {what} ({rows}, {d}) and (4, {d}), two "
           f"rounds: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in dev.items())
           + f"; decode rows' bound {max(decode_bytes_us, decode_ops_us):.4f} us ("
           + ("bytes" if decode_bytes_us >= decode_ops_us else "operations") + ")",
           flush=True)
+    work = cost.rmsnorm(rows, d, 2, 2)
     return finish(dict(
         name="rmsnorm", shape=f"x ({rows}, {d}) bf16 [{what}]", max_abs_err=err,
         plan=plan._asdict(), device_us=dev, ms=ms,
         plain_ms=time_ms([lambda x=x: ref.rmsnorm(x, sc) for x in xs]),
         library_ms=time_ms([lambda x=x: F.rms_norm(x, (d,), sc, 1e-5) for x in xs]),
-        bytes_ms=(2 * n + d) * 2 / PEAK_BYTES * 1e3, ops_ms=4 * n / PEAK_F32 * 1e3))
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3, ops_ms=work.flops / PEAK_F32 * 1e3))
 
 
 def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | None = None,
@@ -749,7 +775,7 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | N
     """Flash attention at a served shape: q and k of head dim ``hd``, v of
     ``dv`` (MLA's 64 beside 96: then v is a strided slice of a (.., hd + dv)
     product, as the model passes it), in ``dtype_name``."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.flash_attention import flash_attention
     F = torch.nn.functional
     dt = getattr(torch, dtype_name)
@@ -763,10 +789,12 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | N
     if dt == torch.bfloat16:
         scheme_close(got, ref.attention_bf16_scheme(q, k, v, **kw), f"flash_attention {what}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    # the causal (and windowed) mask; its unmasked (query, key) pairs count
+    # the causal (and windowed) mask, for SDPA
     i = torch.arange(S, device="cuda")
     band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - (window or S))
-    pairs = int(band.sum())
+    # q, k, v read and o written once; Q.K^T over hd and P.V over dv for each
+    # unmasked pair, two operations a multiply-add
+    work = cost.flash_attention(B, S, S, hq, hkv, hd, dv, q.element_size(), True, window)
 
     def lib():  # SDPA takes a v head dim other than q's
         if window is None:
@@ -784,12 +812,8 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | N
         ms=time_ms([lambda: flash_attention(q, k, v, **kw)], reps=5, inner=3),
         plain_ms=time_ms([lambda: ref.attention(q, k, v, **kw)], reps=5, inner=3),
         library_ms=time_ms([lib], reps=5, inner=3),
-        # q, k, v read and o written once; Q.K^T over hd and P.V over dv for
-        # each unmasked pair, two operations a multiply-add
-        bytes_ms=B * S * (hq * hd + hkv * hd + hkv * dv + hq * dv) * q.element_size()
-        / PEAK_BYTES * 1e3,
-        ops_ms=2 * B * hq * (hd + dv) * pairs
-        / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3)
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3,
+        ops_ms=work.flops / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3)
     # the device time alone: the eager ms carries the wrapper's host work
     rec["device_us"] = device_us([lambda: flash_attention(q, k, v, **kw)], 10)
     return finish(rec)
@@ -817,7 +841,7 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str, dv: int | No
     ``hd``, the V cache of ``dv`` (MLA's 64 beside 96: then a strided slice
     of a (.., hd + dv) product, as the model's re-expanded latent), in
     ``dtype_name``."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.decode_attention import decode_attention
     F = torch.nn.functional
     dt = getattr(torch, dtype_name)
@@ -850,6 +874,7 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str, dv: int | No
     print(f"[kernels] decode_attention grid at {what}: B*Hkv*splits = {bh}*{splits} = "
           f"{grid} blocks on {n_sm} SMs (as launched)", flush=True)
     need(grid > n_sm, f"decode_attention {what}: grid {grid} does not exceed {n_sm} SMs")
+    work = cost.decode_attention(B, hq, hkv, hd, dv, L, es)
     rec = dict(
         name="decode_attention", max_abs_err=err, grid=grid,
         shape=(f"q ({B},{hq},{hd}), caches ({B},{smax},{hkv},{hd})" if dv == hd
@@ -862,10 +887,8 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str, dv: int | No
             *s, attn_mask=valid, enable_gqa=True, scale=scale) for s in lib_sets]),
         # the valid K and V slots, q read and o written once, the lengths;
         # q.k over hd and p.v over dv a valid slot and query head
-        bytes_ms=(B * L * hkv * (hd + dv) * es + B * hq * (hd + dv) * es + B * 4)
-        / PEAK_BYTES * 1e3,
-        ops_ms=2 * B * hq * (hd + dv) * L / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
-        * 1e3)
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3,
+        ops_ms=work.flops / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3)
     # the device time alone (split + combine): the eager ms carries the wrapper's host work
     rec["device_us"] = device_us([lambda s=s: decode_attention(*s, L, **kw) for s in sets])
     return finish(rec)
@@ -874,7 +897,7 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str, dv: int | No
 def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> dict:
     """The SSD scan at a serving shape, in the bf16 model's dtype mix.  No
     single PyTorch call computes it, so ``library_ms`` is None."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.chunked import ssd_scan_chunked
     from repro_torch.kernels.ssm_scan import ssd_scan
 
@@ -896,14 +919,10 @@ def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> 
     if S > 1:  # the tensor-core output pass against its arithmetic in f32
         scheme_close(y, ref.ssd_scan_bf16_scheme(x, a, b, c, h0, chunk=chunk)[0],
                      f"ssd_scan {what}")
-    # Operations of the causal form this run's chunks need: per (batch,
-    # head) and chunk of L steps, L(L+1)/2 gate entries of 2N flops and
-    # their product with X (2P flops each), and 2LPN flops each for the
-    # inter-chunk term and the state update.  Counted at the bf16
-    # tensor-core peak: the least time any type of this work could take.
-    Q = min(chunk, S)
-    lens = [min(Q, S - s0) for s0 in range(0, S, Q)]
-    flops = B * H * sum(L * (L + 1) * (N + P) + 4 * L * P * N for L in lens)
+    # The causal form this run's chunks need (cost.ssd_scan), counted at the
+    # bf16 tensor-core peak: the least time any type of this work could take.
+    work = cost.ssd_scan(B, S, H, P, N, chunk, *(t.element_size() for t in (x, a, b, c)),
+                         0 if h0 is None else h0.element_size())
     reps, inner = (5, 3) if S > 1 else (7, 10)
     ssd_scan.last_grid = None
     ms = time_ms([lambda s=s: ssd_scan(*s, chunk=chunk) for s in sets], reps, inner)
@@ -927,8 +946,8 @@ def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> 
         plain_ms=time_ms([lambda s=s: ssd_scan_chunked(*s, chunk=chunk) for s in sets],
                          reps, inner),
         library_ms=None,
-        bytes_ms=(nbytes(x, a, b, c, h0) + nbytes(y, hf)) / PEAK_BYTES * 1e3,
-        ops_ms=flops / PEAK_BF16 * 1e3))
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3,
+        ops_ms=work.flops / PEAK_BF16 * 1e3))
 
 
 def tensor_core_count() -> dict:
@@ -1553,6 +1572,320 @@ def train_phase(torch) -> dict:
          and flash_attention.n_launches == n0,
          "a flash-attention model's train step on the card was not refused by the flash wrapper")
     return launches
+
+
+# The dry-run's cells held on the card (arch, shape): the three long_500k
+# cells whole (their global batch is 1), internlm2's at the trace's largest
+# batch that fits one card.
+DRYRUN_CELLS = (("h2o_danube3_4b", "long_500k"), ("hymba_1p5b", "long_500k"),
+                ("xlstm_1p3b", "long_500k"), ("internlm2_1p8b", "decode_32k"),
+                ("internlm2_1p8b", "prefill_32k"))
+# The card's peak against the trace's: within 2 % and 64 MiB (what the trace
+# does not see: kernels' own temporaries, as cub's in a sort, and blocks the
+# allocator does not split).
+PEAK_REL, PEAK_ABS = 0.02, 64 * 2**20
+QUERY_BLOCK = 2048  # the plain attention's queries a block at 32,768 tokens
+
+
+def attention_by_query_blocks(torch, whole, q, k, v, *, causal=True, window=None, scale=None,
+                              kv_offset=0):
+    """``whole`` (``ref.attention``) one block of QUERY_BLOCK queries at a
+    time, each against the keys its causal mask leaves it: the same rows,
+    softmax by softmax, but not the whole (B, H, Sq, Skv) f32 logits, which
+    at 32,768 tokens are 68.7 GB a layer and sequence."""
+    Sq = q.shape[1]
+    if Sq <= QUERY_BLOCK:
+        return whole(q, k, v, causal=causal, window=window, scale=scale, kv_offset=kv_offset)
+    outs = []
+    for i in range(0, Sq, QUERY_BLOCK):
+        end = min(i + QUERY_BLOCK, Sq)
+        kv = min(k.shape[1], end + kv_offset) if causal else k.shape[1]
+        outs.append(whole(q[:, i:end], k[:, :kv], v[:, :kv], causal=causal, window=window,
+                          scale=scale, kv_offset=kv_offset + i))
+    return torch.cat(outs, dim=1)
+
+
+@contextlib.contextmanager
+def plain_attention_by_query_blocks(torch):
+    """``ref.attention`` (what ``plain=True`` runs) replaced, while active,
+    by ``attention_by_query_blocks`` of it."""
+    from repro_torch.kernels import ref
+    whole = ref.attention
+    ref.attention = lambda q, k, v, **kw: attention_by_query_blocks(torch, whole, q, k, v, **kw)
+    try:
+        yield
+    finally:
+        ref.attention = whole
+
+
+def flash_hold(torch, randn, B, S, hq, hkv, hd, what: str) -> dict:
+    """Flash attention at a dry-run cell's own shape (bf16, causal), too
+    large for ``flash_record``'s whole plain version: the kernel's output
+    held to ``ref.attention`` sequence by sequence, by query blocks, for
+    every sequence.  A call takes tenths of a second, so the kernel and SDPA
+    are timed a call a window and the plain version once, in its check."""
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    F = torch.nn.functional
+    q, k, v = (randn(B, S, h, hd, dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+    got = flash_attention(q, k, v, causal=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = [attention_by_query_blocks(torch, ref.attention, q[b:b + 1], k[b:b + 1], v[b:b + 1])
+            for b in range(B)]
+    end.record()
+    torch.cuda.synchronize()
+    err = max(close(got[b:b + 1], w, "bfloat16", f"flash_attention {what} sequence {b}")
+              for b, w in enumerate(want))
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = time_ms([lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)], reps=3, inner=1)
+    del qt, kt, vt
+    work = cost.flash_attention(B, S, S, hq, hkv, hd, hd, q.element_size(), True)
+    rec = dict(
+        name="flash_attention", max_abs_err=err,
+        shape=f"q ({B},{S},{hq},{hd}), k/v ({B},{S},{hkv},{hd}) bfloat16 causal [{what}]",
+        ms=time_ms([lambda: flash_attention(q, k, v, causal=True)], reps=3, inner=1),
+        plain_ms=start.elapsed_time(end), library_ms=library_ms,
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3, ops_ms=work.flops / PEAK_BF16 * 1e3)
+    return finish(rec)
+
+
+def dryrun_inputs(torch, cfg, kind: str, B: int, S: int, dtype=None, first: int = 0) -> dict:
+    """The step's inputs on the card for sequences ``first`` .. ``first + B
+    - 1``, sequence by sequence from seeds, so that a sequence alone is the
+    same at any batch: prompts (prefill), or the last token and a cache of
+    S slots (decode; attention caches and SSM states drawn N(0, 1) in
+    ``cfg``'s dtypes, xLSTM's cells at ``init_cache``'s values), its
+    floating leaves cast to ``dtype`` if given (the f32 path's inputs: the
+    same values)."""
+    from repro_torch.models import init_cache
+    seqs = range(first, first + B)
+    if kind == "prefill":
+        rows = [np.random.default_rng([SEED, b]).integers(0, cfg.vocab, S, dtype=np.int32)
+                for b in seqs]
+        return {"batch": {"tokens": torch.from_numpy(np.stack(rows)).cuda()}}
+    tok = [np.random.default_rng([SEED, b]).integers(0, cfg.vocab, 1, dtype=np.int32)
+           for b in seqs]
+    cache = init_cache(cfg, B, S, device="cuda")
+    for layer, c in enumerate(cache):
+        for j, (name, t) in enumerate(sorted(c.items())):
+            if name in ("k", "v", "latent", "conv", "ssm"):
+                for i, b in enumerate(seqs):
+                    seed = ((SEED * 4096 + layer) * 16 + j) * 2**20 + b
+                    t[i].normal_(generator=torch.Generator(device="cuda").manual_seed(seed))
+            if dtype is not None and t.is_floating_point():
+                c[name] = t.to(dtype)
+    return {"tokens": torch.from_numpy(np.stack(tok)).cuda(), "cache": cache, "pos": S - 1}
+
+
+def dryrun_phase(torch) -> tuple[dict, list]:
+    """Each of DRYRUN_CELLS (``dryrun_cell``), on expandable segments, which
+    the dry-run's peaks assume (``dryrun.ALLOCATOR``): on fixed segments a
+    large segment's unsplit rest and the holes between blocks bind first
+    (danube's arguments came out 66.6 MB over their blocks' sum, and
+    prefill_32k at its traced batch 13 ran out of memory with 13.01 GiB
+    reserved but unallocated).  The card's memory is printed beside the
+    dry-run's cap, which must be free.  Returns the launches of the cells'
+    steps, and the records of the kernels held at the cells' shapes."""
+    from repro_torch.device import expandable_segments
+    from repro_torch.launch import dryrun
+    card = card_line()
+    launches = {name: 0 for name in all_kernels()}
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    cap = dryrun.CARD_BYTES - dryrun.RESERVE_BYTES
+    print(f"[dryrun] card memory: total {total} B, free {free} B with "
+          f"{torch.cuda.memory_reserved()} B reserved by this process; "
+          f"the dry-run's cap {cap} B = CARD_BYTES {dryrun.CARD_BYTES} less RESERVE_BYTES "
+          f"{dryrun.RESERVE_BYTES} [{card}]", flush=True)
+    need(cap <= free + torch.cuda.memory_reserved(),
+         f"dryrun: the cap {cap} B is more than the card has free ({free} B)")
+    held = []
+    expandable_segments()
+    try:
+        for arch, shape_name in DRYRUN_CELLS:
+            held += dryrun_cell(torch, arch, shape_name, card, launches)
+    finally:
+        torch.cuda.empty_cache()
+        expandable_segments(False)
+    return launches, held
+
+
+def dryrun_step(torch, cfg, kind: str, params, inputs):
+    """The cell's step on ``inputs`` (``dryrun_inputs``), through the
+    kernels, as a function of nothing."""
+    from repro_torch.runtime import make_decode_step, make_prefill_step
+    if kind == "prefill":
+        step = make_prefill_step(cfg)
+        return lambda: step(params, inputs["batch"])
+    step = make_decode_step(cfg)
+    return lambda: step(params, inputs["tokens"], inputs["cache"], inputs["pos"])
+
+
+def dryrun_cell(torch, arch: str, shape_name: str, card: str, launches: dict) -> list:
+    """One of DRYRUN_CELLS: the dry-run's record (``run_cell``, traced on
+    meta tensors), then the cell's step on the card at the record's batch B
+    (its global batch if that fits, else its largest that fits) with the
+    arguments resident.  Its launches equal the trace's kernel calls, its
+    peak device memory the trace's within PEAK_REL and PEAK_ABS, its
+    outputs the trace's shapes, and sequences 0 and B - 1's bf16 logits
+    meet the serve phase's floor gate against the plain path in bf16 and
+    f32 (each at batch 1); its wall, and the step's FLOPs and computed bytes
+    over it as shares of the bf16 peak and the byte rate, are printed, and
+    its launches added to ``launches``.  Where B is the largest batch under
+    the cap, batch B + 1 is run too and must go over the cap or out of
+    memory, and each kernel of the step is held to its plain version at the
+    cell's shape for every sequence (their records are returned)."""
+    from repro_torch import configs as C
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.runtime import make_decode_step, make_prefill_step
+    t_cell = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape_name, False, save=False, verbose=False)
+    print(dryrun.summary(rec), flush=True)
+    print(f"[dryrun] record {json.dumps(rec)}", flush=True)
+    need(rec["status"] == "ok", f"dryrun {arch} {shape_name}: {rec.get('error')}")
+    shape, oc = SHAPES[shape_name], rec["one_card"]
+    if shape.global_batch == 1:
+        need(oc["fits"], f"dryrun {arch} {shape_name}: the whole cell does not fit one card")
+        B, want = 1, {**rec["work"], "peak_bytes": oc["peak_bytes"]}
+    else:
+        need(oc["max_batch"] >= 1, f"dryrun {arch} {shape_name}: no batch fits one card")
+        B, want = oc["max_batch"], oc["check"]
+    S, kind = shape.seq_len, shape.kind
+    cfg = C.production_cfg(C.get_config(arch))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_params(SEED, cfg, device="cuda")
+    inputs = dryrun_inputs(torch, cfg, kind, B, S)
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    run = dryrun_step(torch, cfg, kind, params, inputs)
+    rows = sorted({0, B - 1})
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        (logits, cache), counts, wall = counted(torch, run)
+        got_out = dict(collections.Counter(str(tuple(t.shape))
+                                           for t in [logits] + _leaves(cache)))
+        kernel = {r: logits[r].float().clone() for r in rows}
+        finite = bool(torch.isfinite(logits).all())
+        del logits, cache
+        if kind == "decode":  # the same step again (the same slot, the same values), warm
+            _, _, wall = counted(torch, run)
+    peak = torch.cuda.max_memory_allocated() - base
+    del inputs, run
+    print(f"[dryrun] {arch} {shape_name} on the card at batch {B}: arguments {args} B "
+          f"(trace {want['arg_bytes']}), peak {peak} B against the trace's "
+          f"{want['peak_bytes']} ({(peak - want['peak_bytes']) / 2**20:+.1f} MiB, "
+          f"{peak / want['peak_bytes'] - 1:+.4%}; the step's rise over its arguments "
+          f"{peak - args} B, traced {want['peak_bytes'] - want['arg_bytes']}); "
+          f"reserved at most {torch.cuda.max_memory_reserved()} B; launches {counts} (trace "
+          f"{want['kernel_calls']}); step wall {wall * 1e3:.3f} ms"
+          + (" (warm, the second of two)" if kind == "decode" else " (the first call)")
+          + f"; mfu {want['flops'] / (wall * PEAK_BF16):.4f}, computed bytes over the "
+          f"byte rate {want['hbm_bytes'] / (wall * PEAK_BYTES):.4f} [{card}]", flush=True)
+    need({k: counts[k] for k in want["kernel_calls"]} == want["kernel_calls"]
+         and counts["dp_sweep"] == 0,
+         f"dryrun {arch} {shape_name}: launches {counts} != the trace's "
+         f"{want['kernel_calls']}")
+    need(abs(peak - want["peak_bytes"]) <= PEAK_REL * want["peak_bytes"] + PEAK_ABS,
+         f"dryrun {arch} {shape_name}: peak {peak} B vs the trace's {want['peak_bytes']} B")
+    need(got_out == want["outputs"],
+         f"dryrun {arch} {shape_name}: outputs {got_out} != the trace's {want['outputs']}")
+    need(finite, f"dryrun {arch} {shape_name}: logits not finite")
+    for name in launches:
+        launches[name] += counts[name]
+
+    # Each of sequences 0 and B - 1 alone through the plain path in bf16 and
+    # in f32 (f32 weights, the same inputs upcast): the kernel path's
+    # distance from f32 at most BF16_FLOOR_RATIO times the plain path's.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    for r in rows:
+        logits = {"kernel": kernel.pop(r)}
+        for name, c, prm in (("plain", cfg, params),
+                             ("f32", cfg32, _tree_map(params, lambda t: t.float()))):
+            one = dryrun_inputs(torch, cfg, kind, 1, S, None if c is cfg else torch.float32, r)
+            with torch.inference_mode(), plain_attention_by_query_blocks(torch):
+                if kind == "prefill":  # the logits alone: the cache goes at once
+                    out = make_prefill_step(c, plain=True)(prm, one["batch"])[0]
+                else:
+                    out = make_decode_step(c, plain=True)(prm, one["tokens"], one["cache"],
+                                                          one["pos"])[0]
+            logits[name] = out[0].float()
+            del one, out, prm
+            torch.cuda.empty_cache()
+        rel = {pair: rel_max(logits[pair.split("-")[0]], logits[pair.split("-")[1]])
+               for pair in ("kernel-f32", "plain-f32", "kernel-plain")}
+        print(f"[dryrun] {arch} {shape_name} sequence {r} of {B}'s logits (plain paths at "
+              f"batch 1): " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + f"; kernel-f32 = {rel['kernel-f32'] / rel['plain-f32']:.3f} x the floor (gate "
+              f"{BF16_FLOOR_RATIO})", flush=True)
+        need(rel["kernel-f32"] <= BF16_FLOOR_RATIO * rel["plain-f32"],
+             f"dryrun {arch} {shape_name} sequence {r}: logits kernel-f32 "
+             f"{rel['kernel-f32']:.3e} > {BF16_FLOOR_RATIO} x the floor {rel['plain-f32']:.3e}")
+        del logits
+    if shape.global_batch > 1:
+        dryrun_next_batch(torch, cfg, kind, S, params, base, oc, f"{arch} {shape_name}", card)
+    del params
+    torch.cuda.empty_cache()
+    held = (dryrun_kernel_holds(torch, cfg, kind, B, S, f"{arch} {shape_name} at batch {B}")
+            if shape.global_batch > 1 else [])
+    print(f"[dryrun] {arch} {shape_name}: cell {time.perf_counter() - t_cell:.1f} s", flush=True)
+    return held
+
+
+def dryrun_next_batch(torch, cfg, kind: str, S: int, params, base: int, oc: dict, what: str,
+                      card: str) -> None:
+    """The batch after the dry-run's largest (``oc["next"]``) on the card,
+    with ``params`` resident and ``base`` the bytes allocated before them:
+    the step must run out of memory, or peak over the cap within PEAK_REL
+    and PEAK_ABS of its trace."""
+    nxt, cap = oc["next"], oc["capacity_bytes"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        inputs = dryrun_inputs(torch, cfg, kind, nxt["batch"], S)
+        run = dryrun_step(torch, cfg, kind, params, inputs)
+        with torch.inference_mode():
+            out = run()
+            torch.cuda.synchronize()
+        del out
+        peak = torch.cuda.max_memory_allocated() - base
+    except torch.OutOfMemoryError as e:
+        peak, why = None, " ".join(str(e).split(" If reserved")[0].split())
+    inputs = run = None
+    torch.cuda.empty_cache()
+    print(f"[dryrun] {what} at batch {nxt['batch']} (the dry-run's largest + 1): "
+          + (f"out of memory ({why})" if peak is None else f"peak {peak} B")
+          + f" against the trace's {nxt['peak_bytes']} B and the cap {cap} B [{card}]",
+          flush=True)
+    need(peak is None or (peak > cap and abs(peak - nxt["peak_bytes"])
+                          <= PEAK_REL * nxt["peak_bytes"] + PEAK_ABS),
+         f"{what}: batch {nxt['batch']} peaks at {peak} B, under the cap {cap} B or off its "
+         f"trace's {nxt['peak_bytes']} B")
+
+
+def dryrun_kernel_holds(torch, cfg, kind: str, B: int, S: int, what: str) -> list:
+    """The step's attention kernel at the cell's shape, on random inputs,
+    against its plain version for every sequence: decode attention over a
+    full cache of S slots (``decode_record``), flash attention over S tokens
+    (``flash_hold``)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    need(cfg.window is None and cfg.mla is None, f"{what}: the holds take plain causal GQA")
+    if kind == "decode":
+        rec = decode_record(torch, randn, B, S, S, cfg.n_heads, cfg.n_kv, cfg.hd, what)
+    else:
+        rec = flash_hold(torch, randn, B, S, cfg.n_heads, cfg.n_kv, cfg.hd, what)
+    torch.cuda.empty_cache()
+    return [rec]
 
 
 class RouteLog:
@@ -2804,7 +3137,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs the card",
               file=sys.stderr)
         return 1
-    # Outside a checkout of the repo this import fails before anything is printed.
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
     card = card_line()
@@ -2840,6 +3172,11 @@ def main() -> int:
     by_path["train"] = train_phase(torch)
     torch.cuda.empty_cache()
     phase_done("train")
+    by_path["dryrun"], held = dryrun_phase(torch)
+    for rec in held:  # the kernels at the dry-run cells' shapes
+        recs[rec["name"]].append(rec)
+    torch.cuda.empty_cache()
+    phase_done("dryrun")
     by_path["placement"], recs["dp_sweep"] = placement_phase(torch)
     torch.cuda.empty_cache()
     phase_done("place")

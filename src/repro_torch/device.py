@@ -28,3 +28,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def expandable_segments(on: bool = True) -> None:
+    """Turn the CUDA caching allocator's expandable segments on (or off).
+
+    With them the allocator maps pages to its blocks, splits every block
+    and can unmap a free block's pages to map them where a request needs
+    them, so a step runs while its allocated bytes fit the card: what
+    ``launch/dryrun.py`` predicts.  On fixed segments a large segment's
+    unsplit rest and the holes between blocks bind first near a full card.
+    The serve and train launchers turn them on.  Segments already cached
+    keep their kind: empty the cache first to switch them all."""
+    setter = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+              or torch.cuda.memory._set_allocator_settings)  # the older name
+    setter(f"expandable_segments:{on}")

@@ -16,7 +16,10 @@ about 22 MB a layer a step at B 4, 1089 slots, about as much again as the
 kernel reads.
 
 A CPU tensor goes to the plain version (``ref.decode_attention``); a CUDA
-tensor launches the kernels or raises.
+tensor launches the kernels or raises.  A meta tensor takes the CUDA
+branch's checks, plan (on ``cost.H100_SMS`` SMs), output and workspace
+without a launch, and gives its work to the trace that is recording
+(``cost.record``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, cost
 from .ref import decode_attention as plain
 
 # (K head dim, V head dim) pairs (csrc: dispatch_d): the GQA models' (120:
@@ -140,7 +143,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, cache_len, window=window, scale=scale)
     dev = q.device
-    if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
+    if dev.type not in ("cuda", "meta") or k_cache.device != dev or v_cache.device != dev:
         raise ValueError(f"decode_attention: q {dev}, caches {k_cache.device}, "
                          f"{v_cache.device}")
     build.refuse_grad("decode_attention", "it serves decode steps only, and no slice of the "
@@ -164,10 +167,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         lens_ptr, len_all = lens.data_ptr(), 0
     else:  # one length for the batch, passed by value: no tensor, no fill
         lens_ptr, len_all = None, max(min(int(cache_len), Smax), 0)
-    splits, chunk = split_plan(B, Hkv, Smax, cache_len, _sm_count(dev.index or 0))
+    n_sm = cost.H100_SMS if dev.type == "meta" else _sm_count(dev.index or 0)
+    splits, chunk = split_plan(B, Hkv, Smax, cache_len, n_sm)
     scale = scale if scale is not None else DK ** -0.5
     o = torch.empty((B, Hq, DV), dtype=q.dtype, device=dev)
     part = torch.empty(B * Hq * splits * (DV + 2), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        valid = Smax if isinstance(cache_len, torch.Tensor) else len_all
+        cost.record("decode_attention", cost.decode_attention(
+            B, Hq, Hkv, DK, DV, valid, q.element_size()))
+        return o
     kernel = build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     rc = kernel(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens_ptr, len_all,
                 o.data_ptr(), part.data_ptr(), B, Hq, Hkv, Smax, DK, DV, splits, chunk,

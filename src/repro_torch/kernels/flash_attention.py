@@ -15,7 +15,9 @@ head dim need not be a multiple of the tensor cores' k-step of 16: at 120
 the bf16 kernel zero-pads its shared tiles to 128 and stores 120 columns.
 
 A CPU tensor goes to the plain version (``ref.attention``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  A meta tensor takes the CUDA branch's checks
+and output without a launch, and gives its work to the trace that is
+recording (``cost.record``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, cost
 from .ref import attention as plain
 
 # (K head dim, V head dim) pairs the kernel is instantiated for (csrc:
@@ -68,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window, scale=scale,
                      kv_offset=kv_offset)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if q.device.type not in ("cuda", "meta") or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q {q.device}, k {k.device}, v {v.device}")
     build.refuse_grad("flash_attention", build.NO_BACKWARD, q, k, v)
     DK, DV = head_dims(q, k, v)
@@ -88,6 +90,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale == 0 and q.dtype == torch.bfloat16:  # the bf16 kernel keeps its row max unscaled
         raise ValueError("flash_attention: a bf16 scale must be non-zero")
     o = torch.empty((B, Sq, Hq, DV), dtype=q.dtype, device=q.device)
+    if q.is_meta:
+        cost.record("flash_attention", cost.flash_attention(
+            B, Sq, Skv, Hq, Hkv, DK, DV, q.element_size(), causal, window, kv_offset))
+        return o
     kernel = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv, Hq, Hkv,
                 DK, DV, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),

@@ -11,11 +11,13 @@ plan takes the kernel's scalar path.  See the source note in the ``.cu``
 file.
 
 A CPU tensor goes to the plain version (``ref.rmsnorm``); a CUDA tensor
-launches the kernel or raises.  Where autograd records the call (grad mode
-on and x or scale requiring grad), the forward kernel runs inside a
-``torch.autograd.Function`` whose backward launches the backward kernel
-(``rmsnorm_bwd``: dx and dscale in f32, dscale summed over rows in a fixed
-order, so it repeats bit for bit).  The backward has no TPU counterpart: the
+launches the kernel or raises.  A meta tensor takes the CUDA branch's checks,
+plan and outputs without a launch, and gives its work to the trace that is
+recording (``cost.record``; ``launch/dryrun.py``).  Where autograd records
+the call (grad mode on and x or scale requiring grad), the forward kernel
+runs inside a ``torch.autograd.Function`` whose backward launches the
+backward kernel (``rmsnorm_bwd``: dx and dscale in f32, dscale summed over
+rows in a fixed order, so it repeats bit for bit).  The backward has no TPU counterpart: the
 Pallas kernel has no VJP, and the reference trains through XLA's autodiff of
 ``ref.rmsnorm``, which ``ref.rmsnorm_bwd`` (the plain version) repeats.
 """
@@ -28,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, cost
 from .ref import rmsnorm as plain
 from .ref import rmsnorm_bwd as plain_bwd
 
@@ -87,7 +89,8 @@ def rmsnorm_plan(d: int, elem_bytes: int, aligned: bool,
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale, in x's dtype."""
     build.refuse_dtensor("rmsnorm", x, scale)
-    if not (x.is_cuda and scale.is_cuda and scale.get_device() == x.get_device()):
+    if not (x.is_cuda and scale.is_cuda and scale.get_device() == x.get_device()
+            or x.is_meta and scale.is_meta):
         if x.device.type == "cpu":
             return plain(x, scale, eps)
         raise ValueError(f"rmsnorm: x on {x.device}, scale on {scale.device}")
@@ -102,13 +105,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
 
 
 def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """One launch of the forward kernel on checked CUDA tensors."""
+    """One launch of the forward kernel on checked CUDA tensors (on meta
+    tensors, its output and work with no launch)."""
     d = x.shape[-1]
     y = torch.empty_like(x)
     xp, sp, yp = x.data_ptr(), scale.data_ptr(), y.data_ptr()
     n = x.numel() // max(d, 1)
     plan = rmsnorm_plan(d, x.element_size(), not (xp | sp | yp) % 16,
                         n if n <= FEW_ROWS else None)
+    if x.is_meta:
+        cost.record("rmsnorm", cost.rmsnorm(n, d, x.element_size(), scale.element_size()))
+        return y
     kernel = build.function("rmsnorm", "rmsnorm_fwd", _ARGTYPES)
     rc = kernel(xp, sp, yp, n, d, float(eps), build.dtype_code(x), build.dtype_code(scale),
                 *plan, build.stream_of(x))
@@ -214,7 +221,8 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     ``g`` (x's shape and dtype): (dx in x's dtype, dscale in scale's)."""
     ts = (x, scale, g)
     build.refuse_dtensor("rmsnorm_bwd", *ts)
-    if not all(t.is_cuda and t.get_device() == x.get_device() for t in ts):
+    if not (all(t.is_cuda and t.get_device() == x.get_device() for t in ts)
+            or all(t.is_meta for t in ts)):
         if all(t.device.type == "cpu" for t in ts):
             return plain_bwd(x, scale, g, eps)
         raise ValueError(f"rmsnorm_bwd: x on {x.device}, scale on {scale.device}, "
@@ -229,7 +237,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     dx = torch.empty_like(x)
     ptrs = (x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr())
     plan = rmsnorm_bwd_plan(d, x.element_size(), not any(p % 16 for p in ptrs), max(n, 1),
-                            _sm_count(x.get_device()))
+                            cost.H100_SMS if x.is_meta else _sm_count(x.get_device()))
     if plan is None:
         raise ValueError(f"rmsnorm_bwd: d {d} exceeds the kernel's "
                          f"{max_bwd_d(16 // x.element_size())} (16-byte vectors) or "
@@ -239,6 +247,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
     part = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        cost.record("rmsnorm_bwd", cost.rmsnorm_bwd(n, d, x.element_size(),
+                                                    scale.element_size()))
+        return dx, dscale
     kernel = build.function("rmsnorm", "rmsnorm_bwd", _BWD_ARGTYPES)
     rc = kernel(*ptrs[:3], dx.data_ptr(), dscale.data_ptr(), part.data_ptr(), n, d,
                 float(eps), build.dtype_code(x), build.dtype_code(scale), *plan,

@@ -14,7 +14,9 @@ their strides, and a ragged last chunk ends at S instead of being padded.
 See the source note in the ``.cu`` file.
 
 A CPU tensor goes to the plain version (``chunked.ssd_scan_chunked``); a CUDA
-tensor launches the kernels or raises.
+tensor launches the kernels or raises.  Meta tensors take the CUDA branch's
+checks, plan, outputs and workspace without a launch, and give their work to
+the trace that is recording (``cost.record``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, cost
 from .chunked import ssd_scan_chunked as plain
 
 MAX_P, MAX_N = 128, 64  # csrc: kMaxP, kMaxN
@@ -81,8 +83,9 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     last dim is contiguous (c may be a slice of a fused projection)."""
     build.refuse_dtensor("ssd_scan", x, a, b, c, h0)
     dev = x.device
-    if not (x.is_cuda and all(t.is_cuda and t.get_device() == x.get_device()
-                              for t in (a, b, c) + (() if h0 is None else (h0,)))):
+    rest = (a, b, c) + (() if h0 is None else (h0,))
+    if not (x.is_cuda and all(t.is_cuda and t.get_device() == x.get_device() for t in rest)
+            or x.is_meta and all(t.is_meta for t in rest)):
         if dev.type == "cpu":
             return plain(x, a, b, c, h0, chunk=chunk)
         raise ValueError(f"ssd_scan: x on {dev}, a {a.device}, b {b.device}, c {c.device}"
@@ -114,6 +117,11 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         n_cum = B * H * plan.chunks * plan.chunk
         ws = torch.empty(n_cum + B * H * plan.chunks * P * N, dtype=torch.float32, device=dev)
         cum_ws, hs_ws = ws[:n_cum], ws[n_cum:]
+    if x.is_meta:
+        cost.record("ssd_scan", cost.ssd_scan(
+            B, S, H, P, N, chunk, x.element_size(), a.element_size(), b.element_size(),
+            c.element_size(), 0 if h0 is None else h0.element_size()))
+        return y, h_out
     kernel = build.function("ssm_scan", "ssd_scan_fwd", _ARGTYPES)
     rc = kernel(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                 0 if h0 is None else h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import configs as C
-from ..device import resolve_device
+from ..device import expandable_segments, resolve_device
 from ..core.radio import TpuLinkModel
 from ..models import init_params
 from ..runtime.serve import AdmissionController, ServeConfig, Server, schedule_requests
@@ -103,6 +103,8 @@ def main(argv: list[str] | None = None) -> np.ndarray:
         metrics = MetricsRegistry()
 
     dev = resolve_device(args.device)
+    if dev.type == "cuda":  # the dry-run's peaks assume them
+        expandable_segments()
     cfg = C.get_config(args.arch)
     cfg = (cfg.reduced(n_layers=2, d_model=128, vocab=1024) if args.reduced
            else C.production_cfg(cfg))

@@ -35,11 +35,13 @@ def main(argv: list[str] | None = None) -> dict:
 
     from .. import configs as C
     from ..data import DataConfig
-    from ..device import resolve_device
+    from ..device import expandable_segments, resolve_device
     from ..optim import AdamWConfig
     from ..runtime import TrainConfig, train_loop
 
     dev = resolve_device(args.device)
+    if dev.type == "cuda":  # the dry-run's peaks assume them
+        expandable_segments()
     cfg = C.get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=2, d_model=128, vocab=1024)

@@ -70,7 +70,10 @@ def _slots(topi: torch.Tensor, E: int):
     flat_e = topi.reshape(T * K)                           # expert of each slot
     order = torch.argsort(flat_e, stable=True)             # slots grouped by expert
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # an exact integer count of each expert's slots, shape-static: unlike
+    # bincount it runs on meta tensors too (the dry-run's trace)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * K, device=topi.device) - starts[sorted_e]  # place in its queue
     return order, sorted_e, order // K, pos

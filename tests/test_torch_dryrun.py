@@ -1,0 +1,442 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) and the kernel
+wrappers' meta branches, against the reference on the CPU.
+
+The layout of every supported (arch, shape) cell on both production meshes
+is held leaf by leaf and byte for byte to the reference's, computed fresh by
+a JAX subprocess on 512 forced host devices (``input_specs``,
+``shardings_for``, ``shard_shape``; nothing compiled, the committed
+artifacts not read).  Each meta branch gives the plain version's output
+shapes and dtypes with no launch and no plain call, and its work from
+``kernels/cost.py``; a reduced model's traced FLOPs equal the analytic count;
+every reduced arch traces; xLSTM's length solve and the batch solve equal
+traces they did not run.
+"""
+
+import dataclasses
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.kernels.decode_attention as DA
+import repro_torch.kernels.flash_attention as FA
+import repro_torch.kernels.rmsnorm as RN
+import repro_torch.kernels.ssm_scan as SS
+from repro_torch import configs as TC
+from repro_torch.configs.base import MLAConfig, ShapeConfig, production_cfg
+from repro_torch.kernels import cost, ref
+from repro_torch.kernels.chunked import ssd_scan_chunked
+from repro_torch.launch import dryrun as D
+from repro_torch.models import transformer
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+REF_SCRIPT = r'''
+import json, sys
+from repro.launch import dryrun as D   # forces 512 host devices before jax starts
+from repro import configs as C
+from repro.configs.base import SHAPES
+from repro.launch.mesh import make_production_mesh
+
+meshes = {"single": make_production_mesh(multi_pod=False),
+          "multi": make_production_mesh(multi_pod=True)}
+
+def walk(spec, shard, path, acc):
+    if isinstance(spec, dict):
+        for k in spec:
+            walk(spec[k], shard[k], f"{path}/{k}" if path else k, acc)
+    elif isinstance(spec, (list, tuple)):
+        for i, (a, b) in enumerate(zip(spec, shard)):
+            walk(a, b, f"{path}/{i}", acc)
+    else:
+        acc[path] = [list(shard.shard_shape(tuple(spec.shape))), spec.dtype.itemsize]
+
+out = {}
+for arch in C.ARCH_IDS:
+    cfg = D.production_cfg(C.get_config(arch))
+    for name, shape in SHAPES.items():
+        if not D.cell_supported(cfg, shape)[0]:
+            continue
+        specs = D.input_specs(cfg, shape)
+        for mesh_name, mesh in meshes.items():
+            acc = {}
+            walk(specs, D.shardings_for(cfg, shape, mesh, specs), "", acc)
+            out[f"{arch}__{name}__{mesh_name}"] = acc
+json.dump(out, open(sys.argv[1], "w"))
+'''
+
+
+@pytest.fixture(scope="module")
+def reference_layout(tmp_path_factory):
+    """{arch__shape__mesh: {path: (per-device shape, itemsize)}} from the
+    reference, computed now."""
+    out = tmp_path_factory.mktemp("ref") / "layout.json"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    r = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(out)], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    import json
+    return json.loads(out.read_text())
+
+
+def _ref_path(path: str, period: int) -> tuple[str, bool]:
+    """The reference's leaf for a port leaf, and whether it is stacked: a
+    layer l of ``blocks`` or of the cache is the stacked leaf of pattern
+    position l % period, and an MLA layer's ``{"latent": array}`` is the
+    reference's bare array."""
+    parts = path.split("/")
+    for i, p in enumerate(parts[:-1]):
+        if p in ("blocks", "cache") and parts[i + 1].isdigit():
+            parts[i + 1] = str(int(parts[i + 1]) % period)
+            if p == "cache" and parts[-1] == "latent":
+                parts.pop()
+            return "/".join(parts), True
+    return path, False
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+@pytest.mark.parametrize("arch", TC.ARCH_IDS)
+def test_layout_equals_the_references_leaf_by_leaf(arch, mesh_name, reference_layout):
+    """Every supported cell: each leaf's per-device shape (a layer's leaf the
+    stacked leaf's less its group axis) and the total bytes, exactly."""
+    cfg = production_cfg(TC.get_config(arch))
+    period = len(cfg.block_pattern)
+    params = transformer.param_shapes(cfg)
+    n_cells = 0
+    for name, shape in TC.SHAPES.items():
+        key = f"{arch}__{name}__{mesh_name}"
+        if not D.cell_supported(cfg, shape)[0]:
+            assert key not in reference_layout
+            continue
+        n_cells += 1
+        want = reference_layout[key]
+        specs = D.input_specs(cfg, shape, params=params)
+        seen = set()
+        for path, local, es in D.local_leaves(cfg, shape, mesh_name, specs):
+            rp, stacked = _ref_path(path, period)
+            shp, ref_es = want[rp]
+            assert list(local) == (shp[1:] if stacked else shp), (key, path, local, shp)
+            assert es == ref_es, (key, path)
+            seen.add(rp)
+        assert seen == set(want), (key, set(want) ^ seen)
+        total = sum(math.prod(s) * e for s, e in want.values())
+        got = D.layout(cfg, shape, mesh_name, specs)
+        assert got["argument_size_in_bytes"] == total, (key, got, total)
+    assert n_cells == (4 if cfg.subquadratic else 3)
+
+
+# ---------------------------------------------------------------------------
+# (b) the meta branches
+# ---------------------------------------------------------------------------
+
+def meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def cpu(*shape, dtype=torch.float32):
+    return torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(dtype)
+
+
+@pytest.fixture
+def no_plain(monkeypatch):
+    """Every wrapper's plain version replaced by one that fails, and the
+    launch counts as they were before."""
+    def refuse(*a, **k):
+        raise AssertionError("a meta branch ran the plain version")
+    for mod, names in ((FA, ("plain",)), (DA, ("plain",)), (SS, ("plain",)),
+                       (RN, ("plain", "plain_bwd"))):
+        for n in names:
+            monkeypatch.setattr(mod, n, refuse)
+    counts = {f: f.n_launches for f in (FA.flash_attention, DA.decode_attention,
+                                        SS.ssd_scan, RN.rmsnorm, RN.rmsnorm_bwd)}
+    yield
+    assert {f: f.n_launches for f in counts} == counts
+
+
+def recorded(fn):
+    """fn() under the dry-run's trace: (its result, the trace)."""
+    mode = D.Trace(())
+    with mode:
+        out = fn()
+    return out, mode
+
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dk,dv", FA.HEAD_DIMS)
+def test_flash_meta_branch(dk, dv, dtype, no_plain):
+    for B, sq, skv, hq, hkv, window, off in ((2, 16, 16, 4, 2, None, 0), (1, 5, 12, 6, 3, 4, 7),
+                                             (3, 33, 33, 8, 8, 8, 0)):
+        shp = ((B, sq, hq, dk), (B, skv, hkv, dk), (B, skv, hkv, dv))
+        kw = dict(causal=True, window=window, kv_offset=off)
+        o, mode = recorded(lambda: FA.flash_attention(*(meta(*s, dtype=dtype) for s in shp),
+                                                      **kw))
+        want = ref.attention(*(cpu(*s, dtype=dtype) for s in shp), **kw)
+        assert o.device.type == "meta" and o.shape == want.shape and o.dtype == want.dtype
+        work = cost.flash_attention(B, sq, skv, hq, hkv, dk, dv, o.element_size(), True,
+                                    window, off)
+        assert mode.kernel_calls == {"flash_attention": 1}
+        assert mode.flops_by["flash_attention"] == work.flops and mode.hbm_bytes == work.bytes
+    q = meta(1, 8, 2, dk, dtype=dtype).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        FA.flash_attention(q, meta(1, 8, 2, dk, dtype=dtype), meta(1, 8, 2, dv, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dk,dv", DA.HEAD_DIMS)
+def test_decode_meta_branch(dk, dv, dtype, no_plain):
+    for B, hq, hkv, smax, length in ((2, 4, 2, 64, 40), (3, 8, 1, 4096, 4096),
+                                     (1, 5, 1, 100, torch.tensor([7]))):
+        shp = ((B, hq, dk), (B, smax, hkv, dk), (B, smax, hkv, dv))
+        o, mode = recorded(lambda: DA.decode_attention(
+            *(meta(*s, dtype=dtype) for s in shp),
+            length if isinstance(length, int) else length.to("meta")))
+        want = ref.decode_attention(*(cpu(*s, dtype=dtype) for s in shp), length)
+        assert o.device.type == "meta" and o.shape == want.shape and o.dtype == want.dtype
+        # a tensor of lengths is not read on the host: every slot counts
+        valid = smax if isinstance(length, torch.Tensor) else length
+        work = cost.decode_attention(B, hq, hkv, dk, dv, valid, o.element_size())
+        assert mode.kernel_calls == {"decode_attention": 1}
+        assert mode.flops_by["decode_attention"] == work.flops
+        if isinstance(length, int):  # (a tensor's cast to int32 is an aten op, counted too)
+            assert mode.hbm_bytes == work.bytes
+    q = meta(1, 2, dk, dtype=dtype).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        DA.decode_attention(q, meta(1, 8, 2, dk, dtype=dtype), meta(1, 8, 2, dv, dtype=dtype), 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(4, 64), (4096, 2048), (6, 3200), (3, 120)])
+def test_rmsnorm_meta_branch_and_its_backward(rows, d, dtype, no_plain):
+    y, mode = recorded(lambda: RN.rmsnorm(meta(rows, d, dtype=dtype), meta(d, dtype=dtype)))
+    want = ref.rmsnorm(cpu(rows, d, dtype=dtype), cpu(d, dtype=dtype))
+    assert y.device.type == "meta" and y.shape == want.shape and y.dtype == want.dtype
+    es = torch.finfo(dtype).bits // 8
+    assert mode.kernel_calls == {"rmsnorm": 1}
+    assert mode.flops_by["rmsnorm"] == cost.rmsnorm(rows, d, es, es).flops
+    # a grad-requiring input: the forward under its autograd Function, whose
+    # backward reaches the backward kernel's meta branch
+    x, s = meta(rows, d, dtype=dtype).requires_grad_(True), meta(d, dtype=dtype)
+    s.requires_grad_(True)
+
+    def step():
+        out = RN.rmsnorm(x, s)
+        return torch.autograd.grad(out, (x, s), meta(rows, d, dtype=dtype))
+
+    (dx, ds), mode = recorded(step)
+    assert dx.shape == x.shape and ds.shape == s.shape and dx.dtype == dtype
+    assert mode.kernel_calls == {"rmsnorm": 1, "rmsnorm_bwd": 1}
+    assert mode.flops_by["rmsnorm_bwd"] == cost.rmsnorm_bwd(rows, d, es, es).flops
+    dxp, dsp = ref.rmsnorm_bwd(cpu(rows, d, dtype=dtype), cpu(d, dtype=dtype),
+                               cpu(rows, d, dtype=dtype))
+    assert (dx.shape, dx.dtype, ds.dtype) == (dxp.shape, dxp.dtype, dsp.dtype)
+
+
+@pytest.mark.parametrize("S,with_h0", [(1, True), (1, False), (40, False), (64, True)])
+def test_ssd_meta_branch(S, with_h0, no_plain):
+    B, H, P, N, chunk = 2, 3, 64, 16, 16
+    shapes = ((B, S, H, P), (B, S, H), (B, S, H, N), (B, S, H, N), (B, H, P, N))
+    dts = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16, torch.float32)
+    args = [meta(*s, dtype=dt) for s, dt in zip(shapes, dts)]
+    if not with_h0:
+        args[-1] = None
+    (y, h), mode = recorded(lambda: SS.ssd_scan(*args, chunk=chunk))
+    cargs = [cpu(*s, dtype=dt) for s, dt in zip(shapes, dts)]
+    cargs[1] = torch.rand(shapes[1], generator=torch.Generator().manual_seed(1))
+    if not with_h0:
+        cargs[-1] = None
+    wy, wh = ssd_scan_chunked(*cargs, chunk=chunk)
+    assert (y.shape, y.dtype, h.shape, h.dtype) == (wy.shape, wy.dtype, wh.shape, wh.dtype)
+    assert y.device.type == "meta"
+    work = cost.ssd_scan(B, S, H, P, N, chunk, 2, 4, 4, 2, 4 if with_h0 else 0)
+    assert mode.kernel_calls == {"ssd_scan": 1}
+    assert mode.flops_by["ssd_scan"] == work.flops and mode.hbm_bytes == work.bytes
+    grad_in = [meta(*s, dtype=dt) for s, dt in zip(shapes, dts)]
+    grad_in[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        SS.ssd_scan(*grad_in, chunk=chunk)
+
+
+def test_cost_formulas_are_the_chip_records():
+    """``chip_smoke.py``'s bound columns at the served shapes read these
+    formulas; the pair count is the causal and windowed mask's own."""
+    for sq, skv, causal, window, off in ((1024, 1024, True, None, 0), (4608, 4608, True, 4096, 0),
+                                         (5, 12, True, 4, 7), (9, 9, False, None, 0)):
+        i = torch.arange(sq)[:, None] + off
+        k = torch.arange(skv)[None, :]
+        mask = torch.ones(sq, skv, dtype=torch.bool)
+        if causal:
+            mask &= k <= i
+        if window is not None:
+            mask &= k > i - window
+        assert cost.attention_pairs(sq, skv, causal, window, off) == int(mask.sum())
+    # internlm2's prefill record: 17.39 us of operations (PERF.md row 2)
+    w = cost.flash_attention(4, 1024, 1024, 16, 8, 128, 128, 2)
+    assert round(w.flops / cost.PEAK_BF16 * 1e6, 2) == 17.39
+    # rmsnorm at (4096, 2048) bf16: 10.02 us of bytes (row 1)
+    assert round(cost.rmsnorm(4096, 2048, 2, 2).bytes / cost.PEAK_BYTES * 1e6, 2) == 10.02
+
+
+# ---------------------------------------------------------------------------
+# (c)-(f) traces of reduced models
+# ---------------------------------------------------------------------------
+
+def reduced(arch: str, **kw):
+    """A ModelConfig -> ModelConfig hook: ``arch`` reduced to 2 layers (one
+    pattern period for xLSTM) at widths every kernel instantiates (heads of
+    32; MLA's (96, 64)), in bf16."""
+    def hook(c):
+        base = TC.get_config(arch)
+        r = base.reduced(n_layers=8 if len(base.block_pattern) == 8 else 2, d_model=128,
+                         n_heads=4, **kw)
+        if r.mla is not None:
+            r = dataclasses.replace(r, mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                                     qk_nope_head_dim=64, qk_rope_head_dim=32,
+                                                     v_head_dim=64))
+        return production_cfg(r)
+    return hook
+
+
+SMALL = {"train": ShapeConfig("train_small", 32, 2, "train"),
+         "prefill": ShapeConfig("prefill_small", 48, 2, "prefill"),
+         "decode": ShapeConfig("decode_small", 64, 2, "decode")}
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1p8b", "granite_moe_3b"])
+def test_traced_forward_flops_equal_the_analytic_count(arch):
+    """Prefill's FLOPs: 2 x each matmul's parameters x its tokens (the head
+    at the last position only), the einsum MoE's combine (2 T E d), and
+    2 H (DK + DV) a causal pair and query head in flash attention."""
+    cfg = reduced(arch)(None)
+    B, S = 3, 40
+    res = D.trace(cfg, ShapeConfig("p", S, B, "prefill"), B)
+    d, hq, hkv, hd, f, T = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff, B * S
+    attn = d * (hq + 2 * hkv) * hd + hq * hd * d
+    if cfg.moe is None:
+        layer = 2 * (attn + 3 * d * f) * T
+    else:
+        E = cfg.moe.num_experts
+        layer = 2 * (attn + d * E + 3 * E * d * f) * T + 2 * T * E * d
+    head = 2 * d * cfg.vocab_padded * B
+    pairs = S * (S + 1) // 2
+    want = cfg.n_layers * (layer + 2 * hq * (hd + hd) * pairs * B) + head
+    assert res["flops_by"]["matmul"] + res["flops_by"]["flash_attention"] == want
+    assert res["kernel_calls"]["flash_attention"] == cfg.n_layers
+
+
+def _scatter_moe(hook):
+    def h(c):
+        cfg = hook(c)
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="scatter"))
+    return h
+
+
+CELLS = [(a, reduced(a)) for a in TC.ARCH_IDS] + [("granite_moe_3b",
+                                                  _scatter_moe(reduced("granite_moe_3b")))]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch,hook", CELLS, ids=[a for a in TC.ARCH_IDS] + ["granite_scatter"])
+def test_every_reduced_arch_traces(arch, hook, kind):
+    """prefill and decode trace with status ok; train does for xLSTM, and an
+    attention model's train cell records the flash wrapper's refusal."""
+    rec = D.run_cell(arch, SMALL[kind], False, save=False, verbose=False, cfg_transform=hook)
+    assert rec["layout"]["argument_size_in_bytes"] > 0
+    if kind == "train" and arch != "xlstm_1p3b":
+        assert rec["status"] == "error"
+        assert rec["error"].startswith("NotImplementedError: flash_attention: an input "
+                                       "requires grad"), rec["error"]
+        return
+    assert rec["status"] == "ok", rec.get("traceback")
+    calls = rec["work"]["kernel_calls"]
+    cfg = hook(None)
+    assert calls["rmsnorm"] > 0 and rec["work"]["flops"] > 0 and rec["collectives"] is None
+    attn = "attn" in cfg.block_pattern or "hybrid" in cfg.block_pattern
+    assert calls["flash_attention"] == (cfg.n_layers if attn and kind == "prefill" else 0)
+    assert calls["decode_attention"] == (cfg.n_layers if attn and kind == "decode" else 0)
+    if kind == "train":  # xLSTM, remat: every group's 16 norms again in the backward pass
+        norms = 2 * cfg.n_layers
+        assert (calls["rmsnorm"], calls["rmsnorm_bwd"]) == (2 * norms + 1, norms + 1)
+    else:
+        assert calls["rmsnorm_bwd"] == 0
+    oc = rec["one_card"]
+    assert oc["fits"] and oc["max_batch"] >= SMALL[kind].global_batch
+
+
+def test_xlstm_length_solve_equals_a_full_trace():
+    """At a reduced size whose tensors all fill whole 512-byte blocks (chunk
+    128), the counts and peak solved from lengths 256, 384 and 512 (and the
+    batch-1 S² term) equal a trace at 1024 that the solve never ran, in
+    prefill and in train, at batch 2."""
+    base = TC.get_config("xlstm_1p3b").reduced(n_layers=8, d_model=128, n_heads=4)
+    cfg = production_cfg(dataclasses.replace(base, ssm=dataclasses.replace(base.ssm, chunk=128)))
+    params = transformer.param_shapes(cfg)
+    for kind in ("prefill", "train"):
+        shape = ShapeConfig("long", 1024, 2, kind)
+        cell = D.CellCounts(cfg, shape, params)
+        assert cell.lengths == (256, 384, 512)
+        solved = cell.at(2)
+        full = D.trace(cfg, shape, 2, 1024, params)
+        for k in ("flops", "flops_by", "hbm_bytes", "kernel_calls", "arg_bytes", "peak_bytes",
+                  "outputs"):
+            assert solved[k] == full[k], (kind, k, solved[k], full[k])
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_max_batch_is_checked_against_a_third_trace(kind, monkeypatch):
+    """With a card of 40 MB the solve's largest batch fits, by a trace at
+    it, and the next batch, traced too, does not; the record carries both
+    traces (``check``, ``next``) and the allocator its peaks assume."""
+    monkeypatch.setattr(D, "CARD_BYTES", 40 * 10**6)
+    monkeypatch.setattr(D, "RESERVE_BYTES", 0)
+    cfg = reduced("internlm2_1p8b")(None)
+    shape = ShapeConfig("s", 512, 16, kind)
+    cell = D.CellCounts(cfg, shape, transformer.param_shapes(cfg))
+    oc = D.one_card(cell)
+    mb = oc["max_batch"]
+    assert 1 < mb < 200 and oc["check"]["batch"] == mb and oc["fits"] == (16 <= mb)
+    assert oc["check"]["peak_bytes"] == D.trace(cfg, shape, mb)["peak_bytes"] <= 40 * 10**6
+    nxt = D.trace(cfg, shape, mb + 1)
+    assert oc["next"]["batch"] == mb + 1 and oc["next"]["peak_bytes"] == nxt["peak_bytes"]
+    assert nxt["peak_bytes"] > oc["capacity_bytes"] == 40 * 10**6
+    assert oc["next"]["kernel_calls"] == nxt["kernel_calls"]
+    assert oc["check"]["predicted_peak_bytes"] == pytest.approx(oc["check"]["peak_bytes"],
+                                                                rel=1e-3)
+    assert oc["allocator"] == D.ALLOCATOR and "expandable segments" in D.ALLOCATOR
+
+
+def test_expandable_segments_sets_the_allocator(monkeypatch):
+    """``device.expandable_segments``, which the serve and train launchers
+    call on the card, hands the caching allocator the setting the dry-run's
+    peaks assume, and turns it off again."""
+    from repro_torch.device import expandable_segments
+    seen = []
+    monkeypatch.setattr(torch._C, "_accelerator_setAllocatorSettings", seen.append,
+                        raising=False)
+    expandable_segments()
+    expandable_segments(False)
+    assert seen == ["expandable_segments:True", "expandable_segments:False"]
+
+
+def test_cli_writes_records_and_skips_existing(tmp_path, capsys):
+    """``--arch``/``--shape``/``--mesh both`` writes one record a mesh under
+    ``--out`` (a skipped cell too); ``--skip-existing`` leaves them."""
+    out = tmp_path / "dry"
+    argv = ["--arch", "internlm2_1p8b", "--shape", "long_500k", "--mesh", "both", "--out",
+            str(out)]
+    assert D.main(argv) == 0
+    files = sorted(p.name for p in out.iterdir())
+    assert files == ["internlm2_1p8b__long_500k__multi.json",
+                     "internlm2_1p8b__long_500k__single.json"]
+    assert D.main(argv + ["--skip-existing"]) == 0
+    assert "0 ok, 0 skipped, 0 errors" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        D.main(["--arch", "yi_6b"])
+    assert not any(p.name.startswith("yi") for p in out.iterdir())

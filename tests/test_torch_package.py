@@ -60,7 +60,7 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.checkpointing, repro_torch.runtime.steps, "
             "repro_torch.runtime.train_loop, repro_torch.runtime.elastic, "
             "repro_torch.launch.train, repro_torch.parallel, repro_torch.parallel.collectives, "
-            "repro_torch.launch.mesh\n"
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.kernels.cost\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -178,32 +178,55 @@ def test_cpu_tensors_take_the_plain_path():
             decode_attention.n_launches) == counts
 
 
-def test_non_cpu_tensors_never_fall_back():
-    """A tensor off the CPU launches the kernel or raises; here (the meta
-    device) it must raise rather than quietly run the plain version."""
-    x = torch.empty(4, 64, device="meta")
-    with pytest.raises(ValueError):
-        rmsnorm(x, torch.empty(64, device="meta"))
-    with pytest.raises(ValueError):
-        flash_attention(*(torch.empty(1, 8, 2, 32, device="meta") for _ in range(3)))
-    with pytest.raises(ValueError):
-        decode_attention(torch.empty(1, 2, 32, device="meta"),
+@pytest.fixture
+def no_plain_version(monkeypatch):
+    """Each wrapper's plain version replaced by one that fails; the launch
+    counts checked unchanged after the test."""
+    from repro_torch.kernels import decode_attention as da, flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn, ssm_scan as ss
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran")
+    for mod in (fa, da, rn, ss):
+        monkeypatch.setattr(mod, "plain", refuse)
+    counts = [f.n_launches for f in (rmsnorm, flash_attention, decode_attention, ssd_scan)]
+    yield
+    assert [f.n_launches for f in (rmsnorm, flash_attention, decode_attention,
+                                   ssd_scan)] == counts
+
+
+def test_non_cpu_tensors_never_fall_back(no_plain_version):
+    """A tensor off the CPU never runs the plain version: on the card it
+    launches the kernel or raises; on the meta device (the dry-run's trace)
+    it gets the kernel's abstract output, with no launch and no plain call;
+    devices that do not match raise."""
+    y = rmsnorm(torch.empty(4, 64, device="meta"), torch.empty(64, device="meta"))
+    assert y.device.type == "meta" and y.shape == (4, 64) and y.dtype == torch.float32
+    o = flash_attention(*(torch.empty(1, 8, 2, 32, device="meta") for _ in range(3)))
+    assert o.device.type == "meta" and o.shape == (1, 8, 2, 32)
+    d = decode_attention(torch.empty(1, 2, 32, device="meta"),
                          *(torch.empty(1, 8, 2, 32, device="meta") for _ in range(2)), 4)
+    assert d.device.type == "meta" and d.shape == (1, 2, 32)
+    with pytest.raises(ValueError):
+        rmsnorm(torch.empty(4, 64, device="meta"), torch.empty(64))
+    with pytest.raises(ValueError):
+        flash_attention(torch.empty(1, 8, 2, 32, device="meta"),
+                        *(torch.empty(1, 8, 2, 32) for _ in range(2)))
 
 
-def test_unported_scans_name_their_slice():
+def test_unported_scans_name_their_slice(no_plain_version):
     """Both scans are ported: mLSTM runs its chunked plain form on every
     device (no kernel, as in the reference), so it returns here; the SSD
-    scan off the CPU (here the meta device) raises rather than run the plain
-    version."""
+    scan on the meta device gets its kernel's abstract outputs (y in x's
+    dtype, the f32 state) with no launch and no plain call."""
     q = torch.randn(1, 8, 2, 16)
     y, (C, n, m) = ops.mlstm_scan(q, q, q, torch.zeros(1, 8, 2), torch.ones(1, 8, 2), chunk=4)
     assert y.shape == q.shape and C.shape == (1, 2, 16, 16) and m.shape == (1, 2)
-    x, b = torch.empty(1, 8, 2, 16, device="meta"), torch.empty(1, 8, 2, 4, device="meta")
-    n0 = ssd_scan.n_launches
-    with pytest.raises(ValueError):
-        ops.ssd_scan(x, torch.empty(1, 8, 2, device="meta"), b, b)
-    assert ssd_scan.n_launches == n0
+    x = torch.empty(1, 8, 2, 16, device="meta", dtype=torch.bfloat16)
+    b = torch.empty(1, 8, 2, 4, device="meta")
+    y, h = ops.ssd_scan(x, torch.empty(1, 8, 2, device="meta"), b, b)
+    assert (y.device.type, y.shape, y.dtype) == ("meta", (1, 8, 2, 16), torch.bfloat16)
+    assert (h.shape, h.dtype) == ((1, 2, 16, 4), torch.float32)
 
 
 def test_unported_block_kinds_raise():
