@@ -83,6 +83,24 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                through ``ExecutionEngine(mesh=(1,) data mesh)`` bit for bit
                equal to the run without a mesh.  The group is destroyed at
                the phase's end.
+  5b. mesh  — the sharded steps (DTensor params from ``shard_params``,
+               inputs placed by ``place_batch``/``place_cache``, every
+               kernel through ``sharding.local_call``).  (a) On a world-one
+               NCCL (1, 1) (data, model) mesh, full-width internlm2-1.8B and
+               hymba-1.5B (batch 4, prompts as in the serve phase): prefill
+               and 16 decode steps teacher-forced on the unsharded path's
+               tokens, every logit and the cache bit-identical to the
+               unsharded path and the launches equal; and one train step of
+               the reduced loop's xlstm: loss, gradients and the params after
+               AdamW bit-identical, params and moments keeping their
+               placements, launches equal.  (b) On a ``fake`` process group of 256 ranks
+               on the card (``launch/mesh.py::fake_mesh``), rank 0's program
+               of internlm2-1.8B prefill_32k (batch 32) and decode_32k (batch
+               128) on the (16, 16) mesh at its local shapes: launches equal
+               the dry-run's rank-0 trace, peak device memory its
+               ``peak_memory_in_bytes`` within 2 % + 64 MiB; the
+               compute-only wall is printed (the fake group moves no bytes,
+               so no value is held).
   6. train   — xlstm-1.3B at full width: one pattern period's (8 layers)
                loss and gradient against plain f32, each path at 1.25 x a
                floor path's distance (``PERIOD_GATES``: the kernel path in
@@ -761,10 +779,18 @@ def rmsnorm_record(torch, randn, rows: int, d: int, what: str) -> dict:
           + f"; decode rows' bound {max(decode_bytes_us, decode_ops_us):.4f} us ("
           + ("bytes" if decode_bytes_us >= decode_ops_us else "operations") + ")",
           flush=True)
+    # ... and the eager calls at a decode step's rows: kernel, plain version
+    # and F.rms_norm, each launch host-bound
+    rows_ms = {"ms": time_ms([lambda x=x: rmsnorm(x, sc) for x in xds]),
+               "plain_ms": time_ms([lambda x=x: ref.rmsnorm(x, sc) for x in xds]),
+               "library_ms": time_ms([lambda x=x: F.rms_norm(x, (d,), sc, 1e-5) for x in xds])}
+    print(f"[kernels] rmsnorm eager ms a call at (4, {d}), {what}'s decode rows: kernel "
+          f"{rows_ms['ms']:.4f}, plain {rows_ms['plain_ms']:.4f}, F.rms_norm "
+          f"{rows_ms['library_ms']:.4f}", flush=True)
     work = cost.rmsnorm(rows, d, 2, 2)
     return finish(dict(
         name="rmsnorm", shape=f"x ({rows}, {d}) bf16 [{what}]", max_abs_err=err,
-        plan=plan._asdict(), device_us=dev, ms=ms,
+        plan=plan._asdict(), device_us=dev, ms=ms, decode_rows=rows_ms,
         plain_ms=time_ms([lambda x=x: ref.rmsnorm(x, sc) for x in xs]),
         library_ms=time_ms([lambda x=x: F.rms_norm(x, (d,), sc, 1e-5) for x in xs]),
         bytes_ms=work.bytes / PEAK_BYTES * 1e3, ops_ms=work.flops / PEAK_F32 * 1e3))
@@ -3115,6 +3141,233 @@ def parallel_phase(torch) -> dict:
     return launches
 
 
+# The [mesh] phase: (a)'s full-width serving paths and decode steps on a
+# world-one mesh, and (b)'s production cells on a fake (16, 16) group.
+MESH = dict(archs=("internlm2_1p8b", "hymba_1p5b"), steps=16,
+            cells=(("internlm2_1p8b", "prefill_32k"), ("internlm2_1p8b", "decode_32k")))
+
+
+def mesh_phase(torch) -> dict:
+    """(a) the sharded steps on a world-one NCCL (1, 1) mesh against the
+    unsharded ones; (b) rank 0's program of the production cells on a fake
+    (16, 16) group on the card against the dry-run's trace of it.  Returns
+    the mesh path's launches: (a)'s sharded runs and (b)'s, each counted
+    from 0."""
+    import torch.distributed as dist
+    from repro_torch import configs as C
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import _batch_at
+    from repro_torch.device import expandable_segments
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import init_params, transformer
+    from repro_torch.optim import tree_leaves
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step
+
+    card = card_line()
+    launches = {name: 0 for name in all_kernels()}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # decode attention's row max and sum (``return_ml``, the context-parallel
+    # merge's inputs) against the plain version's, at internlm2's decode
+    # shape over a cache cut in two: each half's (o, m, l), and the halves
+    # merged by them against the whole cache's output
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((4, 16, 128), generator=g, device="cuda").to(torch.bfloat16)
+    kc, vc = (torch.randn((4, 2048, 8, 128), generator=g, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    parts, worst = [], 0.0
+    for a, b in ((0, 1024), (1024, 2048)):
+        o, m, l = decode_attention(q, kc[:, a:b], vc[:, a:b], 1000 if a else 1024,
+                                   return_ml=True)
+        po, pm, pl = ref.decode_attention(q, kc[:, a:b], vc[:, a:b], 1000 if a else 1024,
+                                          return_ml=True)
+        close(o, po, "bfloat16", "decode_attention return_ml o")
+        worst = max(worst, rel_max(m, pm), rel_max(l, pl))
+        parts.append((o, m, l))
+    mg = torch.maximum(parts[0][1], parts[1][1])
+    w = [l * torch.exp(m - mg) for _, m, l in parts]
+    merged = sum(o.float() * wi[..., None] for (o, _, _), wi in zip(parts, w)) / sum(w)[..., None]
+    whole = ref.decode_attention(q, kc, vc, 2024)
+    err = close(merged.to(torch.bfloat16), whole, "bfloat16", "decode halves merged")
+    print(f"[mesh] decode_attention return_ml at (4, 16, 128) over 2 x 1024 slots: (m, l) "
+          f"within {worst:.3e} of the plain version's (gate 1e-4), the halves merged by them "
+          f"{err:.3e} from the whole cache's plain output (bf16 2e-2) [{card}]", flush=True)
+    need(worst <= 1e-4, f"decode_attention return_ml: (m, l) {worst:.3e} from the plain version")
+
+    # (a)
+    launch_mesh.init_process_group("cuda")
+    mesh11 = launch_mesh.make_mesh((1, 1), ("data", "model"))
+    try:
+        for arch in MESH["archs"]:
+            cfg = C.production_cfg(C.get_config(arch))
+            B, S, n = PATHS[arch]["B"], PATHS[arch]["S"], MESH["steps"]
+            params = init_params(SEED, cfg, device="cuda")
+            prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+                0, cfg.vocab, (B, S), dtype=np.int32), device="cuda")
+
+            def serve(p, place):
+                """Prefill and n decode steps teacher-forced on ``toks``."""
+                with torch.no_grad():
+                    lg, cache = transformer.prefill(p, cfg, place({"tokens": prompts}),
+                                                    max_len=S + n + 1)
+                    outs = [lg]
+                    for i in range(n):
+                        lg, cache = transformer.decode_step(p, cfg, place({"tokens": toks[i]})[
+                            "tokens"], cache, S + i)
+                        outs.append(lg)
+                return outs, cache
+
+            with torch.no_grad():  # the unsharded path's greedy tokens
+                lg, cache = transformer.prefill(params, cfg, {"tokens": prompts},
+                                                max_len=S + n + 1)
+                toks = []
+                for i in range(n):
+                    toks.append(lg.argmax(-1, keepdim=True).to(torch.int32))
+                    lg, cache = transformer.decode_step(params, cfg, toks[-1], cache, S + i)
+            del lg, cache
+            (want, want_cache), plain_counts, plain_s = counted(
+                torch, lambda: serve(params, lambda b: b))
+            placed = sh.shard_params(params, mesh11, sh.param_pspecs(params, mesh11))
+            sh.set_active_mesh(mesh11)
+            try:
+                (got, got_cache), counts, mesh_s = counted(
+                    torch, lambda: serve(placed, lambda b: sh.place_batch(b, mesh11)))
+            finally:
+                sh.set_active_mesh(None)
+            add(counts)
+            same = [torch.equal(g.full_tensor(), w) for g, w in zip(got, want)]
+            same_cache = all(torch.equal(g[k].full_tensor(), w[k])
+                             for g, w in zip(got_cache, want_cache) for k in w)
+            print(f"[mesh] {arch} on a world-one (1, 1) mesh, batch {B}, prompt {S}: prefill and "
+                  f"{n} decode steps through DTensor params and local_map'd kernels, logits "
+                  f"bit-identical at {sum(same)} of {len(same)} steps, cache bit-identical "
+                  f"{same_cache}; launches {counts} (unsharded {plain_counts}); walls "
+                  f"{mesh_s:.3f} s sharded, {plain_s:.3f} s unsharded [{card}]", flush=True)
+            need(all(same) and same_cache, f"mesh {arch}: the sharded steps differ from the "
+                 "unsharded ones on a world-one mesh")
+            need(counts == plain_counts, f"mesh {arch}: launches {counts} != {plain_counts}")
+            del params, placed, got, want, got_cache, want_cache
+            torch.cuda.empty_cache()
+
+        # the reduced loop's xlstm (the launcher's shrink), one train step
+        rcfg = C.get_config("xlstm_1p3b").reduced(n_layers=2, d_model=128, vocab=1024)
+        tcfg = TrainConfig()
+        tokens = torch.from_numpy(_batch_at(DataConfig(vocab=rcfg.vocab, seq_len=64,
+                                                       global_batch=4), 0, 0, 1)["tokens"])
+        batch = {"tokens": tokens.to("cuda")}
+
+        def grads(p, b):
+            leaves = tree_leaves(p)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, _ = transformer.loss_fn(p, rcfg, b, remat=True)
+            out = torch.autograd.grad(loss, leaves)
+            for t in leaves:
+                t.requires_grad_(False)
+            return loss, [sh.like(g, t) for g, t in zip(out, leaves)]
+
+        p0 = init_params(SEED, rcfg, device="cuda")
+        (loss0, g0), plain_counts, _ = counted(torch, lambda: grads(p0, batch))
+        p1 = sh.shard_params(p0, mesh11, sh.param_pspecs(p0, mesh11))
+        pa = init_params(SEED, rcfg, device="cuda")
+        new0, _, met0 = make_train_step(rcfg, tcfg)(pa, init_opt_state(pa, tcfg), batch)
+        sh.set_active_mesh(mesh11)
+        try:
+            (loss1, g1), counts, _ = counted(torch, lambda: grads(p1, sh.place_batch(batch,
+                                                                                     mesh11)))
+            opt = init_opt_state(p1, tcfg)
+            (new, opt, met), step_counts, step_s = counted(
+                torch, lambda: make_train_step(rcfg, tcfg)(p1, opt,
+                                                           sh.place_batch(batch, mesh11)))
+        finally:
+            sh.set_active_mesh(None)
+        add(counts)
+        add(step_counts)
+        same_g = sum(torch.equal(a.full_tensor(), b) for a, b in zip(g1, g0))
+        same_p = sum(torch.equal(a.full_tensor(), b)
+                     for a, b in zip(tree_leaves(new), tree_leaves(new0)))
+        kept = all(tuple(a.placements) == tuple(b.placements) == tuple(c.placements)
+                   for a, b, c in zip(tree_leaves(new), tree_leaves(opt["m"]), tree_leaves(opt["v"])))
+        print(f"[mesh] reduced xlstm train step on the (1, 1) mesh: loss "
+              f"{loss1.full_tensor().item()!r} (unsharded {loss0.item()!r}, bit-identical "
+              f"{torch.equal(loss1.full_tensor(), loss0)}); gradient leaves bit-identical "
+              f"{same_g} of {len(g0)}; after one AdamW step the step's loss bit-identical "
+              f"{torch.equal(met['loss'].full_tensor(), met0['loss'])}, params bit-identical "
+              f"{same_p} of {len(g0)}, params and moments keep their placements {kept}; "
+              f"launches {counts} (unsharded {plain_counts}); the step {step_s * 1e3:.1f} ms, "
+              f"launches {step_counts} [{card}]", flush=True)
+        need(torch.equal(loss1.full_tensor(), loss0) and same_g == len(g0)
+             and same_p == len(g0) and torch.equal(met["loss"].full_tensor(), met0["loss"]),
+             "mesh: the sharded train step differs from the unsharded one")
+        need(kept and counts == plain_counts and step_counts == plain_counts,
+             f"mesh train: placements {kept}, launches {counts} / {step_counts} vs "
+             f"{plain_counts}")
+        del p0, p1, pa, g0, g1, new, new0, opt
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b)
+    sizes, axes = dryrun.MESHES["single"]
+    expandable_segments()
+    try:
+        for arch, shape_name in MESH["cells"]:
+            cfg = C.production_cfg(C.get_config(arch))
+            shape = SHAPES[shape_name]
+            t0 = time.perf_counter()
+            pshapes = transformer.param_shapes(cfg)
+            part = dryrun.CellCounts(cfg, shape, pshapes, "single").at(shape.global_batch)
+            rec = dryrun.per_device(part, shape)
+            trace_s = time.perf_counter() - t0
+            with launch_mesh.fake_mesh(tuple(sizes.values()), tuple(sizes), "cuda") as mesh:
+                sh.set_active_mesh(mesh, axes)
+                try:
+                    torch.cuda.empty_cache()
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    with torch.inference_mode():
+                        inputs = dryrun.sharded_inputs(
+                            cfg, shape, mesh, axes,
+                            dryrun.input_specs(cfg, shape, params=pshapes), device="cuda")
+                    args = torch.cuda.memory_allocated() - base
+                    out, counts, first_s = counted(torch, lambda: dryrun._step(cfg, shape, inputs))
+                    peak = torch.cuda.max_memory_allocated() - base
+                    del out
+                    _, _, wall = counted(torch, lambda: dryrun._step(cfg, shape, inputs))
+                    del inputs
+                finally:
+                    sh.set_active_mesh(None)
+            add(counts)
+            want = rec["partition"]["kernel_calls"]
+            wpeak = rec["memory"]["peak_memory_in_bytes"]
+            print(f"[mesh] {arch} {shape_name} rank 0 of (16, 16) on a fake group: local "
+                  f"arguments {args} B (record {rec['memory']['argument_size_in_bytes']}), "
+                  f"peak {peak} B against the record's {wpeak} ({(peak - wpeak) / 2**20:+.1f} "
+                  f"MiB, {peak / wpeak - 1:+.4%}); launches {counts} (trace {want}); "
+                  f"compute-only wall {wall * 1e3:.3f} ms (first call {first_s * 1e3:.3f} ms; "
+                  f"no link moves a byte); the trace {trace_s:.1f} s: "
+                  f"{rec['flops_per_partition']:.4e} FLOPs, {rec['collectives']['count']} "
+                  f"collectives {rec['collectives']['weighted_link_traffic']:.4e} B weighted "
+                  f"[{card}]", flush=True)
+            need({k: counts[k] for k in want} == want and counts["dp_sweep"] == 0,
+                 f"mesh {arch} {shape_name}: launches {counts} != the trace's {want}")
+            need(abs(peak - wpeak) <= PEAK_REL * wpeak + PEAK_ABS,
+                 f"mesh {arch} {shape_name}: peak {peak} B vs the record's {wpeak} B")
+            torch.cuda.empty_cache()
+    finally:
+        expandable_segments(False)
+    return launches
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3128,7 +3381,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/ref.py:40"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-EXTRAS = ("grid", "plan", "device_us", "depth_us", "norepeat_us")
+EXTRAS = ("grid", "plan", "device_us", "depth_us", "norepeat_us", "decode_rows")
 
 
 def main() -> int:
@@ -3169,6 +3422,9 @@ def main() -> int:
     by_path["parallel"] = parallel_phase(torch)
     torch.cuda.empty_cache()
     phase_done("parallel")
+    by_path["mesh"] = mesh_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("mesh")
     by_path["train"] = train_phase(torch)
     torch.cuda.empty_cache()
     phase_done("train")

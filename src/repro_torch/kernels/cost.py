@@ -13,7 +13,8 @@ not read, so every slot counts), the SSD scan the causal form of this call's
 chunks.
 
 Also here: the H100 SXM's published peaks (NVIDIA's data sheet, dense) and
-SM count, which the meta branches plan with in place of a card's.
+SM count, which the meta branches plan with in place of a card's; and the
+dry-run's collective accounting (the reference's names and link weights).
 """
 
 from __future__ import annotations
@@ -92,6 +93,84 @@ def ssd_scan(B: int, S: int, H: int, P: int, N: int, chunk: int, x_bytes: int, a
     flops = B * H * sum(L * (L + 1) * (N + P) + 4 * L * P * N for L in lens)
     reads = B * S * H * (P * x_bytes + a_bytes + N * (b_bytes + c_bytes)) + B * H * P * N * h0_bytes
     return Work(flops, reads + B * S * H * P * x_bytes + B * H * P * N * 4)
+
+
+# The collectives by the reference's names (its dry-run parses them from the
+# partitioned HLO), and its per-chip link traffic a result byte (ring
+# algorithms, n >> 1), copied from ``repro.launch.dryrun._TRAFFIC_W``.
+TRAFFIC_W = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+             "all-to-all": 1.0, "collective-permute": 1.0}
+# aten's collective ops (functional, as DTensor issues them, and c10d's in-place
+# ones, as ``parallel.collectives`` calls them) by those names
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "allreduce_": "all-reduce", "all_gather_into_tensor": "all-gather",
+                "allgather_": "all-gather", "_allgather_base_": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_": "reduce-scatter",
+                "_reduce_scatter_base_": "reduce-scatter", "all_to_all_single": "all-to-all",
+                "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+                "broadcast_": "collective-permute", "send": "collective-permute",
+                "recv_": "collective-permute"}
+
+
+def collective(func) -> str | None:
+    """The reference's name of an aten collective op, or None."""
+    ns = func.namespace
+    if ns not in ("_c10d_functional", "c10d"):
+        return None
+    return _COLLECTIVES.get(func._opname)
+
+
+def result_bytes(out) -> int:
+    """The bytes of a collective's result tensors (a tensor, or the nested
+    lists c10d's ops return)."""
+    import torch
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (list, tuple)):
+        return sum(result_bytes(o) for o in out)
+    return 0
+
+
+def collective_counter():
+    """A dispatch mode that logs each collective a block issues as (the
+    reference's name, result bytes), in order (``.log``), and lets every op
+    run as it would: the count of a real multi-rank run, beside which the
+    dry-run's trace of the same step is held."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CollectiveCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.log: list[tuple[str, int]] = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented  # DTensor issues its collectives on local shards
+            out = func(*args, **(kwargs or {}))
+            name = collective(func)
+            if name is not None:
+                self.log.append((name, result_bytes(out)))
+            return out
+
+        def record(self) -> dict:
+            by: dict = {}
+            for name, b in self.log:
+                by[name] = by.get(name, 0) + b
+            return collectives_record(by, len(self.log))
+
+    del torch
+    return CollectiveCount()
+
+
+def collectives_record(by_op: dict, count: int) -> dict:
+    """The reference's ``collectives`` block: result bytes by op, their
+    weighted per-chip link traffic, and the number of collectives."""
+    out = {op: int(by_op.get(op, 0)) for op in TRAFFIC_W}
+    out["weighted_link_traffic"] = float(sum(TRAFFIC_W[op] * b for op, b in out.items()))
+    out["count"] = int(count)
+    return out
 
 
 def record(kernel: str, work: Work) -> None:

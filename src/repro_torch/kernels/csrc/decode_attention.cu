@@ -54,7 +54,9 @@
 //     tensor; a split wholly past the valid length writes m = -1e30, l = 0,
 //     acc = 0, which the combine weighs at exactly 0.
 //   - decode_combine_kernel, launched by the same entry point, computes for
-//     each (b, query head) o = sum_s 2^(m_s-M) acc_s / max(sum_s 2^(m_s-M) l_s, 1e-30).
+//     each (b, query head) o = sum_s 2^(m_s-M) acc_s / max(sum_s 2^(m_s-M) l_s, 1e-30),
+//     and, when asked, writes the row's (M ln 2, denominator): its logit max
+//     and sum, with which outputs over disjoint slices of a cache merge.
 // The arithmetic stays f32 FMAs on the CUDA cores: at g flops per byte the
 // kernel is far below the tensor-core ridge.
 #include <cuda_bf16.h>
@@ -68,6 +70,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxGroup = 8;  // g = Hq / Hkv; the wrapper's MAX_GROUP
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kAbsent = -__builtin_huge_valf();  // a slot outside the split: exp2 gives 0
 
 // 16-byte row chunk -> f32.
@@ -344,11 +347,12 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
 // (block_reduce's shuffles take full warps: 128 at DV 120): the weighted sum
 // of the splits.  The threads share out the splits' (m, l) to form M, the
 // weights 2^(m_s - M) and the denominator; then thread d < DV sums column d.
-// A split with l = 0 saw no slot and weighs exactly 0.
+// A split with l = 0 saw no slot and weighs exactly 0.  ml_out, if not
+// null: (B*Hq, 2) f32, M in natural units (M ln 2) and the denominator.
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml, T* __restrict__ o,
-                                      int splits, int D) {
+                                      float* __restrict__ ml_out, int splits, int D) {
   extern __shared__ float w_s[];  // splits
   __shared__ float red[kThreads / 32];
   const long long bh = blockIdx.x;
@@ -365,6 +369,10 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
     den = fmaf(w, ls, den);
   }
   den = block_reduce<false>(den, red);  // its barriers also publish w_s
+  if (ml_out != nullptr && d == 0) {
+    ml_out[2 * bh] = mx * kLn2;
+    ml_out[2 * bh + 1] = den;
+  }
   if (d >= D) return;
   const float* acc = part_acc + bh * splits * D + d;
   float num = 0.f;
@@ -375,8 +383,8 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
 
 template <typename T, int DK, int DV, int G>
 int launch(const void* q, const void* kc, const void* vc, const int* lens, int len_all, void* o,
-           float* part, int B, int Hq, int Hkv, int Smax, int splits, int chunk, float scale,
-           const Strides& st, cudaStream_t stream) {
+           float* part, float* ml_out, int B, int Hq, int Hkv, int Smax, int splits, int chunk,
+           float scale, const Strides& st, cudaStream_t stream) {
   float* part_acc = part;
   float* part_ml = part + static_cast<long long>(B) * Hq * splits * DV;
   decode_split_kernel<T, DK, DV, G><<<dim3(B * Hkv, splits), kThreads, 0, stream>>>(
@@ -385,18 +393,18 @@ int launch(const void* q, const void* kc, const void* vc, const int* lens, int l
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   decode_combine_kernel<T><<<B * Hq, (DV + 31) / 32 * 32, splits * sizeof(float), stream>>>(
-      part_acc, part_ml, static_cast<T*>(o), splits, DV);
+      part_acc, part_ml, static_cast<T*>(o), ml_out, splits, DV);
   return static_cast<int>(cudaGetLastError());
 }
 
 // G: the group size rounded up to 1, 2, 4 (granite's 3 too), 5 (hymba's) or 8.
 template <typename T, int DK, int DV>
 int dispatch_g(int g, const void* q, const void* kc, const void* vc, const int* lens,
-               int len_all, void* o, float* part, int B, int Hq, int Hkv, int Smax, int splits,
-               int chunk, float scale, const Strides& st, cudaStream_t s) {
-#define DECODE_LAUNCH(G_)                                                                   \
-  launch<T, DK, DV, G_>(q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits, chunk, \
-                        scale, st, s)
+               int len_all, void* o, float* part, float* ml_out, int B, int Hq, int Hkv,
+               int Smax, int splits, int chunk, float scale, const Strides& st, cudaStream_t s) {
+#define DECODE_LAUNCH(G_)                                                                 \
+  launch<T, DK, DV, G_>(q, kc, vc, lens, len_all, o, part, ml_out, B, Hq, Hkv, Smax, splits, \
+                        chunk, scale, st, s)
   if (g <= 1) return DECODE_LAUNCH(1);
   if (g <= 2) return DECODE_LAUNCH(2);
   if (g <= 4) return DECODE_LAUNCH(4);
@@ -408,11 +416,12 @@ int dispatch_g(int g, const void* q, const void* kc, const void* vc, const int* 
 // (DK, DV): (32,32), (64,64), (128,128), (120,120), (96,96) or MLA's (96,64).
 template <typename T>
 int dispatch_d(int DK, int DV, int g, const void* q, const void* kc, const void* vc,
-               const int* lens, int len_all, void* o, float* part, int B, int Hq, int Hkv,
-               int Smax, int splits, int chunk, float scale, const Strides& st, cudaStream_t s) {
-#define DECODE_DISPATCH(DK_, DV_)                                                             \
-  dispatch_g<T, DK_, DV_>(g, q, kc, vc, lens, len_all, o, part, B, Hq, Hkv, Smax, splits, chunk, \
-                          scale, st, s)
+               const int* lens, int len_all, void* o, float* part, float* ml_out, int B,
+               int Hq, int Hkv, int Smax, int splits, int chunk, float scale, const Strides& st,
+               cudaStream_t s) {
+#define DECODE_DISPATCH(DK_, DV_)                                                       \
+  dispatch_g<T, DK_, DV_>(g, q, kc, vc, lens, len_all, o, part, ml_out, B, Hq, Hkv, Smax, \
+                          splits, chunk, scale, st, s)
   if (DK == 32 && DV == 32) return DECODE_DISPATCH(32, 32);
   if (DK == 64 && DV == 64) return DECODE_DISPATCH(64, 64);
   if (DK == 128 && DV == 128) return DECODE_DISPATCH(128, 128);
@@ -429,11 +438,14 @@ int dispatch_d(int DK, int DV, int g, const void* q, const void* kc, const void*
 // (batch, slot, head) element strides, the head dim contiguous.  Every base
 // is 16-byte aligned and every cache stride a multiple of 16 bytes.  lens:
 // int32 (B,) on the device, or null, and then every sequence has len_all
-// valid slots.  part: f32 scratch of B*Hq*splits*(DV+2) elements.  Split s
+// valid slots.  part: f32 scratch of B*Hq*splits*(DV+2) elements.  ml: null,
+// or f32 (B, Hq, 2) that takes each row's logit max (natural units) and sum
+// (the combine's M ln 2 and denominator).  Split s
 // covers slots [s*chunk, (s+1)*chunk).  dtype: 0 = float32, 1 = bfloat16.
 // Launches the split and combine kernels; returns a cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const void* v_cache,
-                                    const void* lens, int len_all, void* o, void* part, int B,
+                                    const void* lens, int len_all, void* o, void* part,
+                                    void* ml, int B,
                                     int Hq, int Hkv, int Smax, int DK, int DV, int splits,
                                     int chunk, long long k_sb, long long k_ss, long long k_sh,
                                     long long v_sb, long long v_ss, long long v_sh, float scale,
@@ -454,12 +466,13 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
   float* pt = static_cast<float*>(part);
+  float* mo = static_cast<float*>(ml);
   const int g = Hq / Hkv;
   if (dtype == 0)
-    return dispatch_d<float>(DK, DV, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq, Hkv,
-                             Smax, splits, chunk, scale, st, s);
+    return dispatch_d<float>(DK, DV, g, q, k_cache, v_cache, ln, len_all, o, pt, mo, B, Hq,
+                             Hkv, Smax, splits, chunk, scale, st, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(DK, DV, g, q, k_cache, v_cache, ln, len_all, o, pt, B, Hq,
-                                     Hkv, Smax, splits, chunk, scale, st, s);
+    return dispatch_d<__nv_bfloat16>(DK, DV, g, q, k_cache, v_cache, ln, len_all, o, pt, mo, B,
+                                     Hq, Hkv, Smax, splits, chunk, scale, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -41,9 +41,9 @@ GROUPS = (1, 2, 4, 5, 8)  # csrc: dispatch_g's instantiations; g is rounded up t
 MAX_HELD = 96      # floats of q and acc a lane may hold (csrc: kMaxHeld)
 MIN_SPLIT = 64     # slots: no split is shorter when the length allows
 BLOCKS_PER_SM = 4  # the grid's target: four blocks per SM
-# q, k_cache, v_cache, lens, len_all, o, part, B, Hq, Hkv, Smax, DK, DV,
+# q, k_cache, v_cache, lens, len_all, o, part, ml, B, Hq, Hkv, Smax, DK, DV,
 # splits, chunk, (b, s, h) strides of k_cache and v_cache, scale, dtype, stream
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 2
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 3
              + (ctypes.c_int,) * 8 + (ctypes.c_longlong,) * 6
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
@@ -132,16 +132,22 @@ def _sm_count(index: int) -> int:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: torch.Tensor | int, *, window: int | None = None,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None, return_ml: bool = False):
     """q: (B,Hq,DK); k_cache: (B,Smax,Hkv,DK); v_cache: (B,Smax,Hkv,DV);
     cache_len: valid slots, an int or a (B,) tensor -> (B,Hq,DV) in q's
     dtype, (DK, DV) one of ``HEAD_DIMS``.  ``window`` is accepted and
     unused, as in the reference: validity is by slot.  q must be contiguous;
     the caches may have any (batch, slot, head) strides that are multiples
-    of 16 bytes, the head dim contiguous."""
+    of 16 bytes, the head dim contiguous.
+
+    ``return_ml`` also returns each row's logit max m and sum l (B, Hq) f32,
+    as the plain version gives them: the combine kernel's own M (in natural
+    units) and denominator, which it then writes out, with which outputs over
+    disjoint slices of a cache merge."""
     build.refuse_dtensor("decode_attention", q, k_cache, v_cache, cache_len)
     if q.device.type == "cpu":
-        return plain(q, k_cache, v_cache, cache_len, window=window, scale=scale)
+        return plain(q, k_cache, v_cache, cache_len, window=window, scale=scale,
+                     return_ml=return_ml)
     dev = q.device
     if dev.type not in ("cuda", "meta") or k_cache.device != dev or v_cache.device != dev:
         raise ValueError(f"decode_attention: q {dev}, caches {k_cache.device}, "
@@ -172,20 +178,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     scale = scale if scale is not None else DK ** -0.5
     o = torch.empty((B, Hq, DV), dtype=q.dtype, device=dev)
     part = torch.empty(B * Hq * splits * (DV + 2), dtype=torch.float32, device=dev)
+    ml = torch.empty((B, Hq, 2), dtype=torch.float32, device=dev) if return_ml else None
     if dev.type == "meta":
         valid = Smax if isinstance(cache_len, torch.Tensor) else len_all
         cost.record("decode_attention", cost.decode_attention(
             B, Hq, Hkv, DK, DV, valid, q.element_size()))
-        return o
+        return (o, ml[..., 0], ml[..., 1]) if return_ml else o
     kernel = build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     rc = kernel(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens_ptr, len_all,
-                o.data_ptr(), part.data_ptr(), B, Hq, Hkv, Smax, DK, DV, splits, chunk,
+                o.data_ptr(), part.data_ptr(), None if ml is None else ml.data_ptr(),
+                B, Hq, Hkv, Smax, DK, DV, splits, chunk,
                 *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
                 build.dtype_code(q), build.stream_of(q))
     build.check(rc, "decode_attention")
     decode_attention.n_launches += 1
     decode_attention.last_grid = (B * Hkv, splits)  # the split kernel's grid, as launched
-    return o
+    return (o, ml[..., 0], ml[..., 1]) if return_ml else o
 
 
 decode_attention.n_launches = 0

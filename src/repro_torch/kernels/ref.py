@@ -22,6 +22,31 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 
 
+def _row_shard(qf: torch.Tensor, n_kv: int, group: int, seq_dim: int = 1) -> torch.Tensor:
+    """Sequence-parallel attention guard, the reference's: when no head dim
+    divides the model axis, q's row dim goes onto ``model`` (each rank's
+    flash call then takes ``kv_offset`` advanced by its rows' start), so the
+    logits are row-sharded and attention needs no collective of its own.
+    Row-sharding q replicates k and v across ``model``, so it is taken only
+    when the k/v head volume is modest (``n_kv * d <= 2048``: the reference
+    measured MLA's 40 x 96 twice as slow).  ``qf`` (B, S, n_kv, group, d),
+    a DTensor under the active mesh; returned as it is elsewhere and where
+    a gate refuses."""
+    from ..parallel.sharding import active_mesh, mesh_sizes, site
+    mesh, axes = active_mesh()
+    if mesh is None:
+        return qf
+    msize = mesh_sizes(mesh)[axes.model]
+    if n_kv % msize == 0 or group % msize == 0:
+        return qf  # head parallelism already available
+    d = qf.shape[-1]
+    if n_kv * d > 2048:
+        return qf
+    names: list[str | None] = [None] * qf.dim()
+    names[seq_dim] = "model"
+    return site(qf, tuple(names), "row_shard")
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -83,7 +108,9 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     own block and the one before it, which hold its whole (i-window, i]
     band.  Keys outside the band, and block -1's zeros, are masked to -1e30;
     each row has its own key, so they weigh exactly 0 and the result is the
-    masked form's up to summation order."""
+    masked form's up to summation order.  No :func:`_row_shard` here, as in
+    the reference: banded logits are O(S·w), and it measured the q/k/v
+    re-shard costing more than it saves."""
     B, S, Hq, D = q.shape
     _, _, Hkv, Dv = v.shape
     g = Hq // Hkv
@@ -165,13 +192,16 @@ def attention_bf16_scheme(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: torch.Tensor | int, *, window: int | None = None,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None, return_ml: bool = False):
     """Single-token attention over a (possibly ring-buffered) KV cache.
 
     q: (B, Hq, D); k_cache: (B, Smax, Hkv, D); v_cache: (B, Smax, Hkv, Dv);
     cache_len: number of valid slots (scalar or (B,)).  Returns (B, Hq, Dv).
     Validity is by slot, so ring order does not matter; ``window`` is
-    accepted and unused, as in the reference.
+    accepted and unused, as in the reference.  ``return_ml`` also returns
+    each row's logit max m and sum l = sum exp(logit - m), (B, Hq) f32, with
+    which the outputs over disjoint slices of one cache merge (decode context
+    parallelism).
     """
     B, Hq, D = q.shape
     _, Smax, Hkv, _ = k_cache.shape
@@ -185,7 +215,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     logits = logits.masked_fill(~valid[:, None, None, :], _NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return out.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)
+    out = out.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)
+    if not return_ml:
+        return out
+    m = logits.amax(-1)
+    return out, m.reshape(B, Hq), torch.exp(logits - m[..., None]).sum(-1).reshape(B, Hq)
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

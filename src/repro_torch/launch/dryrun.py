@@ -4,6 +4,7 @@
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --table dryrun_out
 
 The reference lowers and compiles each cell's step on 512 forced host
 devices.  Here a cell's step runs on meta tensors, which allocate nothing,
@@ -31,10 +32,23 @@ checks, plan, outputs and workspaces with no launch, and gives its work from
   peak is the allocator's allocated bytes, which bind on the card only with
   expandable segments (``ALLOCATOR``, stated in the record).
 
-``collectives`` is null: under a mesh the port's models run on tensors that
-hold the whole value on every rank (``parallel/sharding.py``), so no
-per-partition program exists whose traffic could be counted; that waits for
-an activation layout.  Prefill and decode are traced under
+and, per device, the reference's fields from a trace of rank 0's program of
+the sharded step on the production mesh (``launch/mesh.py::fake_mesh``: a
+``fake`` process group of 256 or 512 ranks in this process, DTensor inputs
+over meta shards placed as the reference's ``in_shardings``):
+``flops_per_partition``, ``bytes_per_partition`` (from sizes, as ``work``'s),
+``memory`` (argument, output, alias and temp bytes, and the peak) and
+``collectives`` (result bytes by op under the reference's names,
+``weighted_link_traffic`` by its link weights, and the count; each
+collective DTensor or the MoE's expert path issues, seen by the trace's
+dispatch mode).  The reference also records ``derived_*`` probe costs: XLA
+counts a loop body once, so it solves whole-model costs from one- and
+two-group compiles; this trace runs every layer, so its counts are whole
+and no probe is needed.  The trace's mesh is a CUDA one where torch is
+built with CUDA (the card's program), else a CPU one: DTensor picks some
+collectives by the mesh's device type, and its program differs between
+torch versions, so a record names the torch that traced it.
+Prefill and decode are traced under
 ``torch.inference_mode()``, as ``Server`` runs them, and train through
 ``steps.make_train_step``; a train cell whose forward reaches a kernel with
 no backward records the wrapper's refusal.  Any failure is recorded as data,
@@ -55,6 +69,7 @@ import collections
 import json
 import math
 import pathlib
+import sys
 import time
 import traceback
 import weakref
@@ -62,16 +77,21 @@ from fractions import Fraction
 from typing import Any
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from .. import configs as C
 from ..configs.base import SHAPES, ModelConfig, ShapeConfig, production_cfg
 from ..data.pipeline import DataConfig, batch_specs
+from ..kernels import cost
 from ..models import transformer, xlstm
 from ..models.common import dtype_of
+from ..parallel import sharding
 from ..parallel.sharding import MeshAxes, Spec, param_pspecs
 from ..runtime import steps
+from . import mesh as mesh_mod
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "dryrun_out"   # gitignored
 MESHES = {"single": ({"data": 16, "model": 16}, MeshAxes(data=("data",))),
@@ -91,9 +111,6 @@ ALLOCATOR = ("allocated bytes at 512-byte blocks, with the CUDA caching allocato
              "trace does not predict, bind first near the cap")
 BLOCK = 512                    # the CUDA caching allocator's block rounding
 KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "decode_attention", "ssd_scan")
-NO_COLLECTIVES = ("under a mesh the port's models run on tensors that hold the whole value on "
-                  "every rank, so there is no per-partition program whose traffic could be "
-                  "counted; this waits for an activation layout (ROADMAP Queue 1)")
 # ops that allocate their output and write nothing
 _ALLOC_ONLY = {torch.ops.aten.empty, torch.ops.aten.empty_strided, torch.ops.aten.empty_like,
                torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided}
@@ -253,7 +270,9 @@ def _tensors(tree: Any, acc: list | None = None) -> list[torch.Tensor]:
     """The tensors in nested tuples, lists and dicts (an op's arguments, a
     step's inputs or outputs), in order."""
     acc = [] if acc is None else acc
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, DTensor):
+        acc.append(tree._local_tensor)   # a rank's bytes are its shard's
+    elif isinstance(tree, torch.Tensor):
         acc.append(tree)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
@@ -277,6 +296,37 @@ def _key(x: Any) -> Any:
     return (type(x).__name__, x)
 
 
+def _leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+# DTensor's sharding propagation runs ops on global-shape meta tensors to
+# learn their outputs' metadata (through fake tensors, or its own
+# decomposition mode); those are not the rank's work.  Recognised by the
+# files it runs in: a torch that moves it elsewhere makes a rank's FLOPs
+# several times the step's, which tests/test_torch_dryrun.py bounds.
+_PROPAGATION = ("distributed/tensor/_sharding_prop.py", "distributed/tensor/_decompositions.py")
+
+
+# functional collectives' companions, which hand their input on (a card's
+# allocator sees no new block): counted as the input itself
+_IDENTITY = {torch.ops._c10d_functional.wait_tensor.default,
+             torch.ops._c10d_functional._wrap_tensor_autograd.default}
+
+
+def _in_propagation() -> bool:
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROPAGATION):
+            return True
+        f = f.f_back
+    return False
+
+
 class Trace(TorchDispatchMode):
     """Counts a step's work and live bytes on meta tensors.
 
@@ -297,14 +347,22 @@ class Trace(TorchDispatchMode):
         self.flops_by: collections.Counter = collections.Counter()
         self.hbm_bytes = 0
         self.kernel_calls: collections.Counter = collections.Counter()
+        self.coll_bytes: collections.Counter = collections.Counter()
+        self.coll_count = 0
+        self.coll_log: list[tuple[str, int]] = []
         self.live = self.peak = self._seg = 0
         self.segments: list[int] = []
         self._alive: set[int] = set()
         self._outs: dict = {}
         self._infos: dict = {}
+        self.arg_exact = 0
+        self.sharded = any(isinstance(t, DTensor) for t in _leaves(args))
         for t in _tensors(args):
+            if t.untyped_storage()._cdata not in self._alive:
+                self.arg_exact += t.untyped_storage().nbytes()
             self._track(t)
         self.arg_bytes = self.live
+        self._args = set(self._alive)
 
     def _track(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -358,6 +416,31 @@ class Trace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            # a DTensor op: DTensor runs it as local ops on each shard, which
+            # come back here and are counted; its sharding propagation's fake
+            # tensors are not
+            return NotImplemented
+        if (any(issubclass(t, FakeTensor) for t in types)
+                or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+                or (self.sharded and _in_propagation())):
+            return func(*args, **kwargs)
+        if func in _IDENTITY:  # a collective's wait or autograd wrapper: the same bytes
+            return args[0]
+        coll = cost.collective(func)
+        if coll is not None:  # counted, and always run
+            out = func(*args, **kwargs)
+            outs = _tensors(out)
+            self.coll_log.append((coll, cost.result_bytes(out)))
+            self.coll_bytes[coll] += self.coll_log[-1][1]
+            self.coll_count += 1
+            held = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
+            new = [t for t in outs if t.untyped_storage()._cdata not in held]
+            self.hbm_bytes += sum(t.numel() * t.element_size()
+                                  for t in _tensors((args, kwargs)) + new)
+            for t in new:
+                self._track(t)
+            return out
         composite, kind, flop, alloc_only, n_ret = self._info(func)
         if composite:
             # a composite op (matmul, einsum: inference mode hands them over
@@ -369,6 +452,9 @@ class Trace(TorchDispatchMode):
         if kind == "view":
             return func(*args, **kwargs)
         flat_in = _tensors((args, kwargs))
+        if self.sharded and (any(t.device.type != "meta" for t in flat_in) or (
+                not flat_in and torch.device(kwargs.get("device") or "cpu").type != "meta")):
+            return func(*args, **kwargs)  # a mesh's host bookkeeping, not the step's work
         key = None
         if kind == "fresh":
             try:
@@ -403,12 +489,62 @@ class Trace(TorchDispatchMode):
 
     def result(self, out: Any) -> dict:
         flops_by = {k: int(v) for k, v in sorted(self.flops_by.items())}
+        stores: dict = {}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            stores[st._cdata] = st.nbytes()
+        aliased = sum(n for k, n in stores.items() if k in self._args)
         return {"flops": sum(flops_by.values()), "flops_by": flops_by,
                 "hbm_bytes": int(self.hbm_bytes),
                 "kernel_calls": {k: int(self.kernel_calls[k]) for k in KERNELS},
                 "peak_bytes": int(self.peak), "arg_bytes": int(self.arg_bytes),
+                "arg_exact": int(self.arg_exact), "out_exact": int(sum(stores.values())),
+                "alias_exact": int(aliased),
+                "collectives": {**{op: int(self.coll_bytes[op]) for op in cost.TRAFFIC_W},
+                                "count": self.coll_count},
+                "coll_log": list(self.coll_log),
                 "segments": self.segments + [self._seg],
                 "outputs": dict(collections.Counter(str(tuple(t.shape)) for t in _tensors(out)))}
+
+
+def program_shardings(cfg: ModelConfig, shape: ShapeConfig, sizes: dict, axes: MeshAxes,
+                      specs: dict) -> dict:
+    """The layout the sharded step's inputs take: ``shardings_for``'s, the
+    cache by ``sharding.cache_leaf_spec`` (k and v by ``cache_pspec``: kv
+    heads on ``model`` where they divide, else the sequence), as
+    ``transformer.prefill`` emits it.  A device holds the same bytes as under
+    ``shardings_for``'s wherever the dims divide, as every supported cell's
+    do."""
+    out = shardings_for(cfg, shape, sizes, axes, specs)
+    if "cache" in specs:
+        out["cache"] = [{k: sharding.cache_leaf_spec(k, tuple(v.shape), cfg.n_kv, sizes, axes)
+                         for k, v in one.items()} for one in specs["cache"]]
+    return out
+
+
+def sharded_inputs(cfg: ModelConfig, shape: ShapeConfig, mesh: Any, axes: MeshAxes,
+                   specs: dict, device: str = "meta") -> dict:
+    """``specs`` (``input_specs``'s meta tensors, whole) as this rank's
+    inputs on ``mesh``: each leaf a DTensor over a shard of its per-device
+    shape (``local_shape``) on ``device`` (meta; zeros elsewhere, as a card
+    runs rank 0's program), placed by ``program_shardings``; ``pos`` and the
+    optimizer's step as they are (replicated)."""
+    sizes = sharding.mesh_sizes(mesh)
+    shards = program_shardings(cfg, shape, sizes, axes, specs)
+
+    def conv(node: Any, spec: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: conv(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v, sp) for v, sp in zip(node, spec)]
+        if not isinstance(node, torch.Tensor) or node.dim() == 0:
+            return node
+        local = torch.zeros(local_shape(tuple(node.shape), spec, sizes), dtype=node.dtype,
+                            device=device)
+        return DTensor.from_local(local, mesh, sharding.placements(spec, mesh),
+                                  run_check=False, shape=node.shape, stride=node.stride())
+
+    return {k: conv(v, shards[k]) for k, v in specs.items()}
 
 
 def _step(cfg: ModelConfig, shape: ShapeConfig, specs: dict) -> Any:
@@ -426,15 +562,44 @@ def _step(cfg: ModelConfig, shape: ShapeConfig, specs: dict) -> Any:
 
 
 def trace(cfg: ModelConfig, shape: ShapeConfig, batch: int, seq: int | None = None,
-          params: dict | None = None) -> dict:
+          params: dict | None = None, mesh_name: str | None = None,
+          mesh_device: str | None = None) -> dict:
     """One trace of the step at ``batch`` (and ``seq``): its counts, peak
-    and argument bytes, and output shapes."""
+    and argument bytes, collectives, and output shapes.  With ``mesh_name``,
+    rank 0's program of the sharded step on that production mesh
+    (``launch/mesh.py::fake_mesh``), its inputs placed as the reference's
+    ``in_shardings`` (``sharded_inputs``): every count is rank 0's.  The
+    mesh is of ``mesh_device``'s type (its shards are meta tensors either
+    way): DTensor picks some collectives by it, so ``cuda`` traces the
+    card's program and ``cpu`` a gloo world's; by default ``cuda`` where this
+    torch is built with CUDA, else ``cpu``."""
     specs = input_specs(cfg, shape, batch, seq, params)
-    mode = Trace(specs)
-    with mode:
-        out = _step(cfg, shape, specs)
-    res = mode.result(out)
-    del out, specs
+    if mesh_name is None:
+        mode = Trace(specs)
+        with mode:
+            out = _step(cfg, shape, specs)
+        res = mode.result(out)
+        del out, specs
+        return res
+    sizes, axes = MESHES[mesh_name]
+    if mesh_device is None:
+        mesh_device = "cuda" if torch.backends.cuda.is_built() else "cpu"
+    with mesh_mod.fake_mesh(tuple(sizes.values()), tuple(sizes), mesh_device) as mesh:
+        sharding.set_active_mesh(mesh, axes)
+        try:
+            # a serving step's inputs are made in inference mode, where it
+            # runs: a DTensor view (a conv weight's row, a cache's split) of
+            # a tensor made outside it cannot be taken there
+            with torch.inference_mode(shape.kind != "train"):
+                dspecs = sharded_inputs(cfg, shape, mesh, axes, specs)
+            del specs
+            mode = Trace(dspecs)
+            with mode:
+                out = _step(cfg, shape, dspecs)
+            res = mode.result(out)
+            del out, dspecs
+        finally:
+            sharding.set_active_mesh(None)
     return res
 
 
@@ -461,7 +626,11 @@ def _leafwise(fn, *trees):
     return fn(*trees)
 
 
-_COUNTS = ("flops", "flops_by", "hbm_bytes", "kernel_calls", "arg_bytes", "segments")
+# a trace's counts that the one-card record leaves out (the per-device
+# record reads them from rank 0's trace)
+_PER_DEVICE = ("segments", "arg_exact", "out_exact", "alias_exact", "collectives", "coll_log")
+_COUNTS = ("flops", "flops_by", "hbm_bytes", "kernel_calls", "arg_bytes", "arg_exact",
+           "out_exact", "alias_exact", "collectives", "segments")
 
 
 class CellCounts:
@@ -481,11 +650,19 @@ class CellCounts:
     the largest, so a peak that moves to another part of the step as the
     length grows is found where it ends up."""
 
-    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, params: dict):
-        self.cfg, self.shape, self.params = cfg, shape, params
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, params: dict,
+                 mesh_name: str | None = None):
+        self.cfg, self.shape, self.params, self.mesh_name = cfg, shape, params, mesh_name
         self.lengths = _length_solve(cfg, shape)
         self._done: dict[int, dict] = {}
         self._quad: dict | None = None
+        # the S² term is taken at one sequence a device: batch 1, or, where
+        # the cell's batch is sharded, one sequence on each data rank
+        self.unit = 1
+        if mesh_name is not None:
+            sizes, axes = MESHES[mesh_name]
+            if shape.global_batch % _dsize(sizes, axes) == 0:
+                self.unit = _dsize(sizes, axes)
 
     def at(self, batch: int) -> dict:
         if batch not in self._done:
@@ -493,13 +670,14 @@ class CellCounts:
         return self._done[batch]
 
     def _counts(self, batch: int) -> dict:
+        mesh = self.mesh_name
         if self.lengths is None:
-            return trace(self.cfg, self.shape, batch, params=self.params)
-        if self._quad is None and batch != 1:
-            self.at(1)
+            return trace(self.cfg, self.shape, batch, params=self.params, mesh_name=mesh)
+        if self._quad is None and batch != self.unit:
+            self.at(self.unit)
         L2, L3, L4 = self.lengths
         S = self.shape.seq_len
-        a, b = (trace(self.cfg, self.shape, batch, n, self.params) for n in (L2, L3))
+        a, b = (trace(self.cfg, self.shape, batch, n, self.params, mesh) for n in (L2, L3))
         if a["outputs"] != b["outputs"]:
             raise ValueError(f"outputs differ between lengths {L2} and {L3}")
 
@@ -508,10 +686,11 @@ class CellCounts:
                                  a[k], b[k]) for k in _COUNTS}
 
         if self._quad is None:
-            c = trace(self.cfg, self.shape, 1, L4, self.params)
+            c = trace(self.cfg, self.shape, self.unit, L4, self.params, mesh)
             self._quad = {k: _leafwise(lambda u, v: (u - v) / ((L4 - L2) * (L4 - L3)),
                                        c[k], line(L4)[k]) for k in _COUNTS}
-        out = {k: _leafwise(lambda u, q: u + batch * q * (S - L2) * (S - L3),
+        n = Fraction(batch, self.unit)
+        out = {k: _leafwise(lambda u, q: u + n * q * (S - L2) * (S - L3),
                             line(S)[k], self._quad[k]) for k in _COUNTS}
         if any(v.denominator != 1 for _, v in _walk(out)):
             raise ValueError(f"the counts at lengths {self.lengths} do not solve to whole "
@@ -563,7 +742,7 @@ def one_card(counts: CellCounts) -> dict:
     peak = at(G)["peak_bytes"]
 
     def traced(b: int) -> dict:
-        return {"batch": b, **{k: v for k, v in at(b).items() if k != "segments"}}
+        return {"batch": b, **{k: v for k, v in at(b).items() if k not in _PER_DEVICE}}
 
     return {"peak_bytes": peak, "capacity_bytes": cap, "fits": peak <= cap, "max_batch": mb,
             "allocator": ALLOCATOR,
@@ -607,6 +786,8 @@ def run_cell(arch: str, shape: str | ShapeConfig, multi_pod: bool, *, save: bool
                 if traced is not None:
                     traced[key] = result
             work = result["work"]
+            t1 = time.perf_counter()
+            part = CellCounts(cfg, shape, params, mesh).at(shape.global_batch)
             rec.update(
                 status="ok",
                 work={"flops": work["flops"], "flops_by": work["flops_by"],
@@ -615,7 +796,10 @@ def run_cell(arch: str, shape: str | ShapeConfig, multi_pod: bool, *, save: bool
                                         "written once, each kernel by kernels/cost.py",
                       "kernel_calls": work["kernel_calls"], "outputs": work["outputs"],
                       **({"lengths": work["lengths"]} if "lengths" in work else {})},
-                one_card=result["one_card"], collectives=None, collectives_reason=NO_COLLECTIVES)
+                one_card=result["one_card"], **per_device(part, shape),
+                partition_trace_s=round(time.perf_counter() - t1, 2),
+            partition_traced_by=f"torch {torch.__version__}, a "
+                                f"{'cuda' if torch.backends.cuda.is_built() else 'cpu'} mesh")
         except Exception as e:  # noqa: BLE001 — record failures as data
             rec.update(status="error", error=f"{type(e).__name__}: {e}",
                        traceback=traceback.format_exc()[-2000:])
@@ -627,6 +811,29 @@ def run_cell(arch: str, shape: str | ShapeConfig, multi_pod: bool, *, save: bool
     return rec
 
 
+def per_device(part: dict, shape: ShapeConfig) -> dict:
+    """The reference's per-device fields from rank 0's trace (``part``):
+    ``flops_per_partition`` and ``bytes_per_partition`` (bytes from sizes, as
+    ``work.hbm_bytes``), ``memory`` (argument, output, alias and temp bytes
+    and the peak) and ``collectives``; with the trace's kernel calls, FLOPs
+    by group and local output shapes (``partition``)."""
+    # pos, a Python int here, is the reference's int32 scalar argument
+    arg = part["arg_exact"] + (4 if shape.kind == "decode" else 0)
+    fresh = part["out_exact"] - part["alias_exact"]
+    return {"flops_per_partition": part["flops"], "bytes_per_partition": part["hbm_bytes"],
+            "memory": {"argument_size_in_bytes": arg,
+                       "output_size_in_bytes": part["out_exact"],
+                       "alias_size_in_bytes": part["alias_exact"],
+                       "temp_size_in_bytes": max(0, part["peak_bytes"] - part["arg_bytes"]
+                                                 - fresh),
+                       "peak_memory_in_bytes": part["peak_bytes"]},
+            "collectives": cost.collectives_record(part["collectives"],
+                                                   part["collectives"]["count"]),
+            "partition": {"kernel_calls": part["kernel_calls"], "flops_by": part["flops_by"],
+                          "outputs": part["outputs"],
+                          **({"lengths": part["lengths"]} if "lengths" in part else {})}}
+
+
 def summary(rec: dict) -> str:
     head = f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']}: {rec['status']}"
     if rec["status"] == "skipped":
@@ -634,10 +841,13 @@ def summary(rec: dict) -> str:
     lay = rec.get("layout", {}).get("argument_size_in_bytes")
     if rec["status"] == "error":
         return f"{head}: {rec['error']} (layout {lay} B a device)"
-    w, oc = rec["work"], rec["one_card"]
+    w, oc, c = rec["work"], rec["one_card"], rec["collectives"]
     return (f"{head}: {lay} B a device; step {w['flops']:.4e} FLOPs, {w['hbm_bytes']:.4e} B "
             f"(sizes), calls {w['kernel_calls']}; one card: peak {oc['peak_bytes'] / 1e9:.3f} GB"
-            f" fits {oc['fits']}, max batch {oc['max_batch']}; {rec['trace_s']} s")
+            f" fits {oc['fits']}, max batch {oc['max_batch']}; a device: "
+            f"{rec['flops_per_partition']:.4e} FLOPs, peak "
+            f"{rec['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB, {c['count']} collectives "
+            f"{c['weighted_link_traffic']:.4e} B weighted; {rec['trace_s']} s")
 
 
 def _save(rec: dict, out_dir: pathlib.Path) -> None:
@@ -646,8 +856,41 @@ def _save(rec: dict, out_dir: pathlib.Path) -> None:
     p.write_text(json.dumps(rec, indent=1, default=str))
 
 
+def table(out_dir: pathlib.Path) -> str:
+    """The per-device columns of the records in ``out_dir`` as a markdown
+    table, a row an arch: its supported cells in shape order, separated by
+    ";", each "(16, 16) / (2, 16, 16)"; a train cell that records the flash
+    wrapper's refusal reads "refused", a record not written "—"."""
+    recs: dict = collections.defaultdict(dict)
+    for p in sorted(out_dir.glob("*.json")):
+        r = json.loads(p.read_text())
+        if r["status"] != "skipped":
+            recs[r["arch"]].setdefault(r["shape"], {})[r["mesh"]] = r
+
+    def one(r: dict | None, fn) -> str:
+        return "—" if r is None else fn(r) if r["status"] == "ok" else "refused"
+
+    def col(cells: dict, fn) -> str:
+        return " ; ".join(" / ".join(one(c.get(m), fn) for m in ("single", "multi"))
+                          for c in cells.values())
+
+    rows = ["| Arch: cells | FLOPs a device | × chips / step's | Peak a device, GB | "
+            "Collectives | Weighted link B |", "|" + "---|" * 6]
+    for arch, by_shape in sorted(recs.items()):
+        cells = {sh: by_shape[sh] for sh in SHAPES if sh in by_shape}
+        rows.append("| " + f"{arch}: {' / '.join(cells)}" + " | " + " | ".join((
+            col(cells, lambda r: f"{r['flops_per_partition']:.3e}"),
+            col(cells, lambda r: f"{r['flops_per_partition'] * r['chips'] / r['work']['flops']:.3f}"),
+            col(cells, lambda r: f"{r['memory']['peak_memory_in_bytes'] / 1e9:.3f}"),
+            col(cells, lambda r: str(r["collectives"]["count"])),
+            col(cells, lambda r: f"{r['collectives']['weighted_link_traffic']:.3e}"))) + " |")
+    return "\n".join(rows)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--table", default=None, metavar="DIR",
+                    help="print the per-device columns of DIR's records and exit")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
@@ -656,6 +899,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=str(OUT_DIR))
     args = ap.parse_args(argv)
+    if args.table:
+        print(table(pathlib.Path(args.table)))
+        return 0
     if not (args.all or (args.arch and args.shape)):
         ap.error("pass --all or both --arch and --shape")
     archs = list(C.ARCH_IDS) if args.arch is None else [args.arch]

@@ -8,14 +8,27 @@ Caches per layer:
            normalised compressed KV beside the roped shared key part.  The
            reference's layer cache is this bare array; the port keeps it as
            ``{"latent": array}`` so every layer's cache is a dict.
+
+Under the active mesh, on DTensors (``parallel.sharding``): the projections
+run on each rank's batch rows with their weights gathered over the data
+axes, attention as ``ops.attention`` lays it out (head-parallel where
+``model`` divides the kv heads or the group, row-parallel where
+``ref._row_shard`` fires), and the output projection row-parallel with one
+all-reduce over ``model``.  Decode reads a cache laid out by
+``sharding.cache_leaf_spec``: a new token's k and v (MLA: its latent) are
+written by the rank that holds its slot only (:func:`write_slot`), and
+attention runs on each rank's kv heads or, over a cache sharded by
+sequence, on its slice of the slots (``ops.decode_attention``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..parallel import sharding
 from .common import dense_init, rmsnorm, rope
 
 
@@ -29,7 +42,8 @@ def _split_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """Fused projection split as [q | k | v] of widths hq*hd, hkv*hd, hkv*hd."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q, k, v = torch.split(x @ p["wqkv"], [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    q, k, v = torch.split(x @ sharding.gathered(p["wqkv"]), [hq * hd, hkv * hd, hkv * hd],
+                          dim=-1)
     return q.reshape(B, S, hq, hd), k.reshape(B, S, hkv, hd), v.reshape(B, S, hkv, hd)
 
 
@@ -45,7 +59,42 @@ def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     y = ops.attention(q, k, v, causal=True, window=_window(cfg), plain=plain)
-    return y.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], (k, v)
+    return _out(p, y.reshape(B, S, cfg.n_heads * cfg.hd), cfg.n_heads), (k, v)
+
+
+def _out(p: dict, y: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The output projection: row-parallel under a mesh (one all-reduce)
+    where ``model`` divides the heads, so each rank's rows of ``wo`` are its
+    heads' rows; else ``wo`` whole."""
+    w = p["wo"]
+    if sharding.is_dtensor(w):
+        mesh, axes = sharding.active_mesh()
+        w = (sharding.gathered(w) if n_heads % sharding.mesh_sizes(mesh)[axes.model] == 0
+             else sharding.whole(w))
+    return sharding.batch_layout(y @ w)
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``cache[:, slot] = new`` in place: cache (B, Smax, ...), new (B, ...).
+    On a DTensor cache only the rank holding the slot writes, into its local
+    shard (the slots sharded on a mesh axis: the rank whose slice holds it;
+    else every rank its own rows and heads)."""
+    if not sharding.is_dtensor(cache):
+        cache[:, slot] = new.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    want = [Replicate() if p == Shard(1) else
+            Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+            for p in cache.placements]
+    local, new = cache.to_local(), new.redistribute(mesh, want).to_local()
+    seq = [i for i, p in enumerate(cache.placements) if p == Shard(1)]
+    if seq:
+        sl = local.shape[1]
+        r = mesh.get_local_rank(seq[0])
+        if slot // sl == r:
+            local[:, slot - r * sl] = new.to(local.dtype)
+    else:
+        local[:, slot] = new.to(local.dtype)
 
 
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos: int, *,
@@ -61,11 +110,11 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: tuple, pos: in
     q = rope(q, positions, cfg.rope_theta)[:, 0]                   # (B, hq, hd)
     k = rope(k, positions, cfg.rope_theta)
     slot = pos % smax if cfg.attn == "swa" else pos                # ring buffer for SWA
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    write_slot(k_cache, k[:, 0], slot)
+    write_slot(v_cache, v[:, 0], slot)
     y = ops.decode_attention(q, k_cache, v_cache, min(pos + 1, smax), window=_window(cfg),
                              plain=plain)
-    return y.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    return _out(p, y.reshape(B, 1, cfg.n_heads * cfg.hd), cfg.n_heads)
 
 
 def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> tuple[int, ...]:
@@ -104,10 +153,19 @@ def _expand_kv(p: dict, cfg: ModelConfig, c_kv: torch.Tensor, k_rope: torch.Tens
     attention kernels take its strides."""
     m = cfg.mla
     B, S, _ = c_kv.shape
-    kvb = (c_kv @ p["wkv_b"]).reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    w = p["wkv_b"]
+    # over a cache sharded by sequence the latent's slots stay where they
+    # lie (each rank expands its own): the weight goes whole
+    w = sharding.whole(w) if _model_sharded(c_kv, 1) else sharding.gathered(w)
+    kvb = (c_kv @ w).reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = torch.split(kvb, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)], dim=-1)
     return k, v
+
+
+def _model_sharded(x: torch.Tensor, dim: int) -> bool:
+    """Whether DTensor x's dim ``dim`` lies on a mesh axis."""
+    return sharding.is_dtensor(x) and Shard(dim) in tuple(x.placements)
 
 
 def _mla_q_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -120,12 +178,13 @@ def _mla_q_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     contiguous for it."""
     m = cfg.mla
     B, S, _ = x.shape
-    q = rmsnorm(x @ p["wq_a"], p["norm_q"]["scale"], cfg.norm_eps, plain=plain) @ p["wq_b"]
+    wq_a, wq_b, wkv_a = (sharding.gathered(p[k]) for k in ("wq_a", "wq_b", "wkv_a"))
+    q = rmsnorm(x @ wq_a, p["norm_q"]["scale"], cfg.norm_eps, plain=plain) @ wq_b
     q = q.reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q = torch.cat([q_nope, rope(q_rope, positions, cfg.rope_theta)], dim=-1)
 
-    c_kv, k_rope = torch.split(x @ p["wkv_a"], [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv, k_rope = torch.split(x @ wkv_a, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     c_kv = rmsnorm(c_kv.contiguous(), p["norm_kv"]["scale"], cfg.norm_eps, plain=plain)
     k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return q, c_kv, k_rope, torch.cat([c_kv, k_rope], dim=-1)
@@ -138,7 +197,7 @@ def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
     q, c_kv, k_rope, latent = _mla_q_latent(p, cfg, x, positions, plain)
     k, v = _expand_kv(p, cfg, c_kv, k_rope)
     y = ops.attention(q, k, v, causal=True, scale=_mla_scale(cfg), plain=plain)
-    return y.reshape(B, S, cfg.n_heads * cfg.mla.v_head_dim) @ p["wo"], latent
+    return _out(p, y.reshape(B, S, cfg.n_heads * cfg.mla.v_head_dim), cfg.n_heads), latent
 
 
 def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: torch.Tensor, pos: int, *,
@@ -152,12 +211,12 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: torch.Tensor, 
     B = x.shape[0]
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, _, _, latent = _mla_q_latent(p, cfg, x, positions, plain)
-    cache[:, pos] = latent[:, 0].to(cache.dtype)
+    write_slot(cache, latent[:, 0], pos)
     c_kv, k_rope = torch.split(cache, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     k_all, v_all = _expand_kv(p, cfg, c_kv, k_rope)
     y = ops.decode_attention(q[:, 0], k_all, v_all, pos + 1, scale=_mla_scale(cfg),
                              plain=plain)
-    return y.reshape(B, 1, cfg.n_heads * m.v_head_dim) @ p["wo"]
+    return _out(p, y.reshape(B, 1, cfg.n_heads * m.v_head_dim), cfg.n_heads)
 
 
 def mla_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> tuple[int, ...]:

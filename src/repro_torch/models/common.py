@@ -1,6 +1,9 @@
 """Shared building blocks (port of ``repro.models.common``): init helper,
 RMSNorm, RoPE, SwiGLU MLP.  Weights keep the reference's (in, out) layout, so
-a projection is ``x @ w``."""
+a projection is ``x @ w``.  Each takes DTensors under the active mesh too
+(``parallel.sharding``): the norm through its kernel on each rank's rows,
+the MLP with its weights gathered over the data axes (column-parallel in,
+row-parallel out, one all-reduce over ``model``)."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import sharding
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -34,7 +38,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
     ang = positions.to(torch.float32)[:, None] * freqs            # (S, half)
-    cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]  # (S, 1, half)
+    cos, sin = (sharding.replicated_like(t(ang)[:, None, :], x)    # (S, 1, half)
+                for t in (torch.cos, torch.sin))
     xf = x.float()
     x1, x2 = xf[..., :half], xf[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
@@ -48,4 +53,5 @@ def mlp_init(gen: torch.Generator, d: int, f: int, dtype: torch.dtype) -> dict:
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x @ w_gate) * (x @ w_in)) @ w_out."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+    w = {k: sharding.gathered(v) for k, v in p.items()}
+    return sharding.batch_layout((F.silu(x @ w["w_gate"]) * (x @ w["w_in"])) @ w["w_out"])

@@ -21,6 +21,18 @@ in the reference, not Pallas kernels, so they stay ``torch.bmm``.
 
 Parameters: ``router`` (d, E) in f32 whatever the model's dtype (its logits
 are f32 too), ``w_in``/``w_gate`` (E, d, f), ``w_out`` (E, f, d).
+
+Under the active mesh, on DTensors (``parallel.sharding``), ``scatter``
+and ``einsum`` route every token on every rank (the tokens gathered, as the
+reference's global routing is; the router gathered whole), and ``scatter``
+lays its (E, cap, d) buffers out at the reference's two constraint sites,
+before and after the experts: ``("model", "data", None)`` where E divides
+``model`` (each rank its experts and its share of their slots), else
+``(None, "data_model", None)`` (each rank its share of every expert's
+slots), the expert weights gathered over the data axes only.  ``einsum``
+takes the whole weights.  The expert-parallel path takes each rank's token
+rows and its own experts' weights, gathered over the data axes as the
+reference's ``shard_map`` body gathers them, and gives back its rows of y.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..parallel import collectives
+from ..parallel import collectives, sharding
 from ..parallel.sharding import active_mesh, mesh_sizes
 from .common import dense_init
 
@@ -81,17 +93,17 @@ def _slots(topi: torch.Tensor, E: int):
 
 def _run_slots(p: dict, x2: torch.Tensor, gates: torch.Tensor, order: torch.Tensor,
                e: torch.Tensor, sorted_t: torch.Tensor, pos: torch.Tensor,
-               keep: torch.Tensor, n_exp: int, cap: int) -> torch.Tensor:
+               keep: torch.Tensor, n_exp: int, cap: int, ffn=None) -> torch.Tensor:
     """Pack the kept slots into (n_exp, cap, d) buffers at (e, pos) by a
-    scatter-add, run each expert's SwiGLU, and sum each token's K gated slot
-    outputs.  Returns (T, d)."""
+    scatter-add, run each expert's SwiGLU (``ffn`` of the buffer, where
+    given), and sum each token's K gated slot outputs.  Returns (T, d)."""
     T, d = x2.shape
     K = gates.shape[1]
     pos_c = torch.clamp(pos, max=cap - 1)
     src = x2[sorted_t] * keep[:, None].to(x2.dtype)        # dropped slots add zeros
     xe = torch.zeros((n_exp, cap, d), dtype=x2.dtype, device=x2.device)
     xe.index_put_((e, pos_c), src, accumulate=True)
-    ye = _expert_ffn(p, xe)                                # (n_exp, cap, d)
+    ye = _expert_ffn(p, xe) if ffn is None else ffn(xe)   # (n_exp, cap, d)
     out_slot = ye[e, pos_c] * (gates.reshape(T * K)[order] * keep)[:, None].to(x2.dtype)
     # The reference's scatter-add of the slots onto their tokens, as a sum
     # of each token's K slots in a fixed order: on the card ``index_add_``
@@ -102,15 +114,41 @@ def _run_slots(p: dict, x2: torch.Tensor, gates: torch.Tensor, order: torch.Tens
     return by_slot.view(T, K, d).sum(1)
 
 
-def _moe_scatter(p: dict, cfg: ModelConfig, x2: torch.Tensor):
+def _moe_scatter(p: dict, cfg: ModelConfig, x2: torch.Tensor, ffn=None):
     m = cfg.moe
     T = x2.shape[0]
     E, K = m.num_experts, m.top_k
     gates, topi, aux = _route(p, cfg, x2)
     cap = max(1, int(T * K * m.capacity_factor / E))
     order, sorted_e, sorted_t, pos = _slots(topi, E)
-    y = _run_slots(p, x2, gates, order, sorted_e, sorted_t, pos, pos < cap, E, cap)
+    y = _run_slots(p, x2, gates, order, sorted_e, sorted_t, pos, pos < cap, E, cap, ffn)
     return y, aux
+
+
+def _moe_dtensor(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """x (B, S, d) a DTensor under the active mesh -> (y (B, S, d) laid out
+    as an activation, aux replicated)."""
+    mesh, axes = active_mesh()
+    B, S, d = x.shape
+    m = cfg.moe
+    if (m.impl == "shard_map" and (B * S) % sharding.dsize(mesh, axes) == 0
+            and B * S >= SHARD_MAP_MIN_TOKENS):
+        return _moe_expert_parallel_dtensor(p, cfg, x, mesh, axes)
+    x2 = sharding.whole(x).to_local().reshape(B * S, d)    # every token on every rank
+    if m.impl in ("scatter", "shard_map"):
+        ep_ok = m.num_experts % mesh_sizes(mesh)[axes.model] == 0
+        buf = ("model", "data", None) if ep_ok else (None, "data_model", None)
+        pe = {k: sharding.gathered(p[k]) for k in ("w_in", "w_gate", "w_out")}
+
+        def ffn(xe: torch.Tensor) -> torch.Tensor:
+            xe = sharding.site(sharding.replicated_like(xe, x), buf, "moe_buffer")
+            ye = sharding.site(_expert_ffn(pe, xe), buf, "moe_buffer")
+            return sharding.whole(ye).to_local()
+        y, aux = _moe_scatter({"router": sharding.whole(p["router"]).to_local()}, cfg, x2, ffn)
+    else:
+        y, aux = _moe_einsum({k: sharding.whole(v).to_local() for k, v in p.items()}, cfg, x2)
+    y = sharding.batch_layout(sharding.replicated_like(y.reshape(B, S, d), x))
+    return y, sharding.replicated_like(aux, x)
 
 
 def _moe_einsum(p: dict, cfg: ModelConfig, x2: torch.Tensor):
@@ -136,6 +174,15 @@ def _moe_einsum(p: dict, cfg: ModelConfig, x2: torch.Tensor):
 SHARD_MAP_MIN_TOKENS = 16_384  # below this the reference's scatter path wins
 
 
+def _padded_experts(cfg: ModelConfig, mesh, axes) -> tuple[int, int]:
+    """(E_pad, experts a model column): the expert dim padded up to the model
+    axis (granite's 40 -> 48 on 16); dead experts hold zero weights and never
+    win routing."""
+    msize = mesh_sizes(mesh)[axes.model]
+    E_pad = (cfg.moe.num_experts + msize - 1) // msize * msize
+    return E_pad, E_pad // msize
+
+
 def _moe_expert_parallel(p: dict, cfg: ModelConfig, x2: torch.Tensor, mesh, axes):
     """Every rank runs this (SPMD), as the reference's ``shard_map`` body.
     ``p`` and ``x2`` (T, d) are plain tensors holding the whole values on
@@ -147,18 +194,10 @@ def _moe_expert_parallel(p: dict, cfg: ModelConfig, x2: torch.Tensor, mesh, axes
     averaged over ``data``.  The backward follows ``collectives``' loss
     convention: each rank's gradient of ``p`` and ``x2`` is the whole
     gradient."""
-    m = cfg.moe
-    E, K = m.num_experts, m.top_k
-    msize = mesh_sizes(mesh)[axes.model]
-    # Pad the expert dim up to the model axis (granite's 40 -> 48 on 16):
-    # dead experts hold zero weights and never win routing.
-    E_pad = (E + msize - 1) // msize * msize
-    epp = E_pad // msize
-    dgroup, _, dsize = collectives.axis_group(mesh, axes.dp)
-    mgroup, col, _ = collectives.axis_group(mesh, axes.model)
-    T = x2.shape[0]
-    cap = max(1, int(T // dsize * K * m.capacity_factor / E))
-    x_loc = collectives.own_part(x2, 0, dgroup)            # token rows i
+    E = cfg.moe.num_experts
+    E_pad, _ = _padded_experts(cfg, mesh, axes)
+    dgroup, _, _ = collectives.axis_group(mesh, axes.dp)
+    mgroup, _, _ = collectives.axis_group(mesh, axes.model)
 
     def shard(w: torch.Tensor, d_dim: int) -> torch.Tensor:
         """This rank's experts of a padded (E_pad, ...) weight: its FSDP
@@ -173,6 +212,23 @@ def _moe_expert_parallel(p: dict, cfg: ModelConfig, x2: torch.Tensor, mesh, axes
     w = {"w_gate": shard(p["w_gate"], 1), "w_in": shard(p["w_in"], 1),
          "w_out": shard(p["w_out"], 2)}
     router = collectives.fan_out(p["router"], dgroup)     # meets token rows i
+    y_loc, aux = _expert_rows(w, router, cfg, collectives.own_part(x2, 0, dgroup), mesh, axes)
+    return collectives.all_gather(y_loc, 0, dgroup), aux
+
+
+def _expert_rows(w: dict, router: torch.Tensor, cfg: ModelConfig, x_loc: torch.Tensor,
+                 mesh, axes):
+    """The ``shard_map`` body on rank (data i, model j): ``x_loc`` its token
+    rows i, ``w`` its model column's experts of the padded expert axis (d
+    whole), ``router`` whole.  Routes its rows, packs only its own experts'
+    slots (no dispatch communication), runs them, and sums the columns'
+    outputs over ``model``.  Returns (y rows i, aux averaged over data)."""
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    _, epp = _padded_experts(cfg, mesh, axes)
+    dgroup, _, _ = collectives.axis_group(mesh, axes.dp)
+    mgroup, col, _ = collectives.axis_group(mesh, axes.model)
+    cap = max(1, int(x_loc.shape[0] * K * m.capacity_factor / E))
     gates, topi, aux = _route({"router": router}, cfg, x_loc)
     order, sorted_e, sorted_t, pos = _slots(topi, E)
     mine = (sorted_e // epp) == col
@@ -181,12 +237,66 @@ def _moe_expert_parallel(p: dict, cfg: ModelConfig, x2: torch.Tensor, mesh, axes
     y_part = _run_slots(w, collectives.fan_out(x_loc, mgroup),
                         collectives.fan_out(gates, mgroup), order, e_loc, sorted_t, pos,
                         (pos < cap) & mine, epp, cap)
-    y_loc = collectives.all_reduce(y_part, mgroup)          # combine expert columns
-    return collectives.all_gather(y_loc, 0, dgroup), collectives.all_mean(aux, dgroup)
+    return collectives.all_reduce(y_part, mgroup), collectives.all_mean(aux, dgroup)
+
+
+def _moe_expert_parallel_dtensor(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh, axes):
+    """The expert-parallel path on DTensors: x (B, S, d) an activation, the
+    weights placed by the rule table.  Each rank gathers its own experts'
+    weights over the data axes only (its shard where E lies on ``model``,
+    else its slice of the padded expert axis) and takes its token
+    rows i as they lie (its batch shard, or a slice of a batch that does
+    not divide); nothing else is gathered.  Returns (y laid out as an
+    activation, aux replicated).  The weights' and router's gradients are
+    pending sums over the data axes (each rank met its rows only) and, for
+    a sliced weight, over ``model``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    B, S, d = x.shape
+    E_pad, epp = _padded_experts(cfg, mesh, axes)
+    dgroup, _, dsize = collectives.axis_group(mesh, axes.dp)
+    _, col, _ = collectives.axis_group(mesh, axes.model)
+
+    def pending(t):
+        return t.to_local(grad_placements=[Partial() if isinstance(pl, Replicate) else pl
+                                           for pl in t.placements])
+
+    def mine(t: torch.Tensor) -> torch.Tensor:
+        """Column j's experts, gathered over the data axes.  Where E does
+        not lie on ``model``, the rank first slices them from its shard of
+        the padded expert axis, so that only they are gathered (the
+        reference's ``shard_map`` in_specs), the slice's gradient pending
+        over ``model``."""
+        names = mesh.mesh_dim_names
+        if t.placements[names.index(axes.model)] != Shard(0):   # E does not divide model
+            loc = t.to_local(grad_placements=[Partial() if n == axes.model else pl
+                                              for n, pl in zip(names, t.placements)])
+            loc = F.pad(loc, (0, 0, 0, 0, 0, E_pad - loc.shape[0]))[col * epp:(col + 1) * epp]
+            t = DTensor.from_local(loc, mesh, [Shard(0) if n == axes.model else pl
+                                               for n, pl in zip(names, t.placements)],
+                                   run_check=False)
+        return pending(sharding.gathered(t))
+
+    w = {k: mine(p[k]) for k in ("w_gate", "w_in", "w_out")}
+    router = sharding.whole(p["router"])
+    router = router.to_local(grad_placements=[
+        Partial() if name in axes.dp else Replicate() for name in mesh.mesh_dim_names])
+    xb = sharding.batch_layout(x)
+    if B % dsize == 0:                                      # rows i are its batch shard
+        y_loc, aux = _expert_rows(w, router, cfg, xb.to_local().reshape(-1, d), mesh, axes)
+        y = DTensor.from_local(y_loc.reshape(B // dsize, S, d), mesh, xb.placements,
+                               run_check=False)
+    else:                                                   # the batch lies whole
+        x_loc = collectives.own_part(xb.to_local().reshape(B * S, d), 0, dgroup)
+        y_loc, aux = _expert_rows(w, router, cfg, x_loc, mesh, axes)
+        y = sharding.batch_layout(sharding.replicated_like(
+            collectives.all_gather(y_loc, 0, dgroup).reshape(B, S, d), x))
+    return y, sharding.replicated_like(aux, x)
 
 
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux loss (f32 scalar))."""
+    if sharding.is_dtensor(x):
+        return _moe_dtensor(p, cfg, x)
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     mesh, axes = active_mesh()

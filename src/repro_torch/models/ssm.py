@@ -7,6 +7,12 @@ out-projection.  Decode carries (conv_state, ssm_state) instead of a KV
 cache.  ``dt_bias``, ``A_log`` and ``D`` stay f32 in every config, as in the
 reference, so under bf16 the scan receives x and c in bf16 and a and b in
 f32 (``b * dt`` promotes).
+
+Under the active mesh, on DTensors: the in-projections are column-parallel
+on ``model`` (d_inner, and with it the heads, where ``model`` divides them),
+the scan runs on each rank's batch and heads (``ops.ssd_scan``), the gated
+norm over the whole d_inner of each rank's rows, and the out-projection
+row-parallel with one all-reduce.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..parallel import sharding
 from .common import dense_init, rmsnorm
 
 
@@ -56,7 +63,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
     and differ in bf16)."""
     K = w.shape[0]
     if state is None:
-        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        state = sharding.replicated_like(
+            torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device), x)
     xp = torch.cat([state, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K))
     # a copy: a view would keep the whole padded prompt alive in the cache
@@ -70,13 +78,14 @@ def _ssm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tens
     """Shared by prefill (states None) and decode (states carried)."""
     B, S, _ = x.shape
     d_inner, nh, ph, n = _dims(cfg)
-    xs, conv_state_new = _causal_conv(x @ p["w_x"], p["conv"], conv_state)
+    w = {k: sharding.gathered(p[k]) for k in ("w_x", "w_z", "w_bc", "w_dt", "w_out")}
+    xs, conv_state_new = _causal_conv(x @ w["w_x"], p["conv"], conv_state)
     xs = F.silu(xs)
-    z = x @ p["w_z"]
+    z = x @ w["w_z"]
 
-    b, c = torch.split((x @ p["w_bc"]).reshape(B, S, nh, 2 * n), n, dim=-1)
+    b, c = torch.split((x @ w["w_bc"]).reshape(B, S, nh, 2 * n), n, dim=-1)
     # jax.nn.softplus is logaddexp(x, 0); F.softplus turns linear above 20.
-    dt_ = torch.logaddexp((x @ p["w_dt"]).float() + p["dt_bias"],
+    dt_ = torch.logaddexp((x @ w["w_dt"]).float() + p["dt_bias"],
                           torch.zeros((), device=x.device))        # (B, S, nh) f32
     a = torch.exp(-dt_ * torch.exp(p["A_log"]))                     # decay in (0, 1)
     xh = xs.reshape(B, S, nh, ph)
@@ -86,7 +95,7 @@ def _ssm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tens
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, d_inner)
     y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain) * F.silu(z)
-    return y @ p["w_out"], conv_state_new, ssm_state_new
+    return sharding.batch_layout(y @ w["w_out"]), conv_state_new, ssm_state_new
 
 
 def ssm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, plain: bool = False

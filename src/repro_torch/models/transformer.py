@@ -28,13 +28,19 @@ SSM's carried states), ``conv``, ``C``, ``n``, ``m`` (mLSTM) or ``h``,
 
 ``forward(..., remat=True)`` recomputes each pattern group in the backward
 pass (``torch.utils.checkpoint``), as the reference wraps its group body in
-``jax.checkpoint``.  The reference also constrains the activations' and
-logits' layout (``parallel.sharding``); here every activation is a plain
-tensor holding its whole value on every rank, under a mesh too, and the
-modules that use a mesh (the MoE's expert path) take their rank's part of
-it and give back whole values.  ``param_shapes`` is the parameter tree as
-meta tensors at any width, and ``block_fn`` one layer in the form the
-pipeline executor (``parallel.pipeline``) takes.
+``jax.checkpoint``.  ``param_shapes`` is the parameter tree as meta tensors
+at any width, and ``block_fn`` one layer in the form the pipeline executor
+(``parallel.pipeline``) takes.
+
+Sharded steps: given DTensor parameters (``sharding.shard_params``) and
+inputs (``sharding.place_batch`` / ``place_cache``) under the active mesh,
+each function runs each rank's part of the step.  Activations are DTensors
+laid out at the reference's constraint sites: batch-sharded after every
+block (``sharding.dp_site``, the reference's ``with_dp_constraint``), and the
+loss's padded logits ``("data", None, "model")``; the cache a prefill emits
+is laid out as a decode step takes it (``sharding.cache_leaf_spec``), and a
+decode step's new states keep their cache leaves' layout.  Given plain
+tensors, under a mesh or not, every path runs as on one device.
 
 ``plain=True`` routes every norm, attention and scan through the plain
 PyTorch versions; only the parity checks pass it.
@@ -48,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..parallel import sharding
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -142,8 +149,8 @@ def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums a repeated token's rows in
     # a fixed order on both devices (indexing's scatter-add does not on the
     # CPU), so a resumed training run repeats the uninterrupted one exactly
-    x = batch["embeds"] if "embeds" in batch else F.embedding(batch["tokens"],
-                                                              params["embed"]["table"])
+    x = batch["embeds"] if "embeds" in batch else F.embedding(
+        batch["tokens"], sharding.whole(params["embed"]["table"]))
     return x.to(dtype_of(cfg.compute_dtype))
 
 
@@ -153,10 +160,10 @@ def _lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool,
     (kept with ``keep_padded``, as the reference's loss keeps them)."""
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps, plain=plain)
     head = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head).float()
+    logits = (x @ sharding.gathered(head)).float()
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
-        logits = logits + pad.float() * -1e30
+        logits = logits + sharding.replicated_like(pad.float() * -1e30, logits)
     return logits if keep_padded else logits[..., :cfg.vocab]
 
 
@@ -172,12 +179,12 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool) -> torch.Tenso
 def _block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                  plain: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The training (cache-free) path of one layer.  Returns (x, aux loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = sharding.replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps, plain=plain)
     if "mlstm" in p:
-        return x + xlstm_mod.mlstm_apply(p["mlstm"], cfg, h, plain=plain), aux
+        return sharding.dp_site(x + xlstm_mod.mlstm_apply(p["mlstm"], cfg, h, plain=plain)), aux
     if "slstm" in p:
-        return x + xlstm_mod.slstm_apply(p["slstm"], cfg, h, plain=plain), aux
+        return sharding.dp_site(x + xlstm_mod.slstm_apply(p["slstm"], cfg, h, plain=plain)), aux
     if "mla" in p:
         y = attn_mod.mla_apply(p["mla"], cfg, h, positions, plain=plain)[0]
     if "attn" in p:
@@ -193,7 +200,7 @@ def _block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
         else:
             y2 = mlp_apply(p["mlp"], h2)
         x = x + y2
-    return x, aux
+    return sharding.dp_site(x), aux
 
 
 def block_fn(cfg: ModelConfig, *, plain: bool = False):
@@ -221,7 +228,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, remat: bool = False,
     blocks = params["blocks"]
 
     def group(x: torch.Tensor, *group_blocks: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = sharding.replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
         for p in group_blocks:
             x, a = _block_apply(p, cfg, x, positions, plain)
             aux = aux + a
@@ -240,6 +247,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, remat: bool = False, *,
     """Next-token NLL (tokens) or NLL of ``labels`` (embedding inputs), plus
     0.01 x the MoE's aux loss.  Returns (loss, {"loss", "nll", "aux"})."""
     logits, aux = forward(params, cfg, batch, remat=remat, keep_padded=True, plain=plain)
+    # the padded logits keep the head product and the softmax sharded on model
+    logits = sharding.site(logits, ("data", None, "model"), "logits")
     labels = batch.get("labels")
     if labels is None:
         labels = batch["tokens"][:, 1:]
@@ -257,9 +266,22 @@ def _to_cache(t: torch.Tensor, cfg: ModelConfig, max_len: int) -> torch.Tensor:
     if t.shape[1] >= max_len or (swa and t.shape[1] >= cfg.window):
         return t.contiguous()
     smax = min(max_len, cfg.window) if swa else max_len
+    if sharding.is_dtensor(t):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, smax - t.shape[1]))
     out = torch.zeros((t.shape[0], smax, *t.shape[2:]), dtype=t.dtype, device=t.device)
     out[:, :t.shape[1]] = t
     return out
+
+
+def _ring(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll`` of a prefill's last ``window`` keys or values by
+    ``shift`` slots; a DTensor's (its slots whole on every rank) on each
+    rank's shard."""
+    if sharding.is_dtensor(t):
+        pl = list(t.placements)
+        return sharding.local_call(lambda x: torch.roll(x, shift, dims=1), (t,), (pl,), pl,
+                                   t.device_mesh)
+    return torch.roll(t, shift, dims=1)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype | None = None
@@ -319,8 +341,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
             y, (k, v) = attn_mod.gqa_apply(p["attn"], cfg, h, positions, plain=plain)
             if cfg.attn == "swa" and cfg.window and cfg.window < S:
                 # ring-buffer layout: slot = abs_pos % window
-                k = torch.roll(k[:, -cfg.window:], S % cfg.window, dims=1)
-                v = torch.roll(v[:, -cfg.window:], S % cfg.window, dims=1)
+                k = _ring(k[:, -cfg.window:], S % cfg.window)
+                v = _ring(v[:, -cfg.window:], S % cfg.window)
             c.update(k=_to_cache(k, cfg, max_len), v=_to_cache(v, cfg, max_len))
         if "ssm" in p:
             ys, (c["conv"], c["ssm"]) = ssm_mod.ssm_prefill(p["ssm"], cfg, h, plain=plain)
@@ -333,6 +355,10 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
         x = x + y
         if "norm2" in p:  # a mamba block with d_ff 0 has no FFN
             x = x + _ffn(p, cfg, x, plain)
+        x = sharding.dp_site(x)
+    if sharding.is_dtensor(x):
+        mesh, axes = sharding.active_mesh()
+        cache = sharding.place_cache(cache, cfg.n_kv, mesh, axes)
     logits = _lm_logits(params, cfg, x[:, -1:].contiguous(), plain)
     return logits[:, 0], cache
 
@@ -352,20 +378,28 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: lis
         if "attn" in p:
             y = attn_mod.gqa_decode(p["attn"], cfg, h, (c["k"], c["v"]), pos, plain=plain)
         if "ssm" in p:
-            ys, (c["conv"], c["ssm"]) = ssm_mod.ssm_decode(p["ssm"], cfg, h,
-                                                           (c["conv"], c["ssm"]), plain=plain)
+            ys, state = ssm_mod.ssm_decode(p["ssm"], cfg, h, (c["conv"], c["ssm"]),
+                                           plain=plain)
+            _keep(c, ("conv", "ssm"), state)
             y = 0.5 * (y + ys) if "attn" in p else ys
         if "mlstm" in p:
             names = ("conv", "C", "n", "m")
             y, state = xlstm_mod.mlstm_decode(p["mlstm"], cfg, h, tuple(c[k] for k in names),
                                               plain=plain)
-            c.update(zip(names, state))
+            _keep(c, names, state)
         if "slstm" in p:
             names = ("h", "c", "n", "m")
             y, state = xlstm_mod.slstm_decode(p["slstm"], cfg, h, tuple(c[k] for k in names),
                                               plain=plain)
-            c.update(zip(names, state))
+            _keep(c, names, state)
         x = x + y
         if "norm2" in p:  # a mamba block with d_ff 0 has no FFN
             x = x + _ffn(p, cfg, x, plain)
+        x = sharding.dp_site(x)
     return _lm_logits(params, cfg, x, plain)[:, 0], cache
+
+
+def _keep(c: dict, names: tuple[str, ...], state: tuple) -> None:
+    """A layer's new states into its cache, each laid out as the leaf it
+    replaces (a DTensor cache keeps its layout step to step)."""
+    c.update((k, sharding.like(t, c[k])) for k, t in zip(names, state))

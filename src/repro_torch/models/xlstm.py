@@ -12,6 +12,12 @@ the reference.
 
 Caches: the mLSTM's (conv, C, n, m), C in the sequential form's (k, v)
 layout and in f32; the sLSTM's (h, c, n, m), each (B, nh, ph) f32.
+
+Under the active mesh, on DTensors: the projections run with their weights
+gathered over the data axes, the mLSTM's cell on each rank's batch (and
+heads, where ``model`` divides them), the sLSTM's time loop on each rank's
+batch rows (``sharding.local_call``), the norms through the kernel on each
+rank's rows.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels import ops, ref
+from ..kernels import ops
+from ..parallel import sharding
 from .common import dense_init, rmsnorm
 from .ssm import _causal_conv
 
@@ -54,11 +61,12 @@ def _mlstm_in(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tens
     """Up-projection, causal conv, SiLU, q/k/v and the f32 gates."""
     B, S, _ = x.shape
     _, nh, ph = _mlstm_dims(cfg)
-    xs, z = (x @ p["w_up"]).chunk(2, dim=-1)
+    w = {k: sharding.gathered(p[k]) for k in ("w_up", "w_qkv", "w_gates")}
+    xs, z = (x @ w["w_up"]).chunk(2, dim=-1)
     xc, conv_state_new = _causal_conv(xs, p["conv"], conv_state)
     xc = F.silu(xc)
-    q, k, v = (t.reshape(B, S, nh, ph) for t in (xc @ p["w_qkv"]).chunk(3, dim=-1))
-    gates = (xc @ p["w_gates"]).float() + p["gate_bias"]
+    q, k, v = (t.reshape(B, S, nh, ph) for t in (xc @ w["w_qkv"]).chunk(3, dim=-1))
+    gates = (xc @ w["w_gates"]).float() + p["gate_bias"]
     i_gate, f_gate = gates.chunk(2, dim=-1)                                  # (B,S,nh)
     return q, k, v, i_gate, f_gate, z, conv_state_new
 
@@ -68,7 +76,7 @@ def _mlstm_out(p: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
     B, S = y.shape[:2]
     y = y.reshape(B, S, -1)
     y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain) * F.silu(z)
-    return y @ p["w_out"]
+    return sharding.batch_layout(y @ sharding.gathered(p["w_out"]))
 
 
 def mlstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, plain: bool = False
@@ -98,7 +106,7 @@ def mlstm_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: tuple, *,
     """x: (B, S, d) with the carried (conv, C, n, m): the sequential cell."""
     conv, C, n, m = cache
     q, k, v, i_gate, f_gate, z, conv_new = _mlstm_in(p, cfg, x, conv)
-    y, (C, n, m) = ref.mlstm_scan(q, k, v, i_gate, f_gate, C, n, m)
+    y, (C, n, m) = ops.mlstm_recurrent(q, k, v, i_gate, f_gate, C, n, m)
     return _mlstm_out(p, cfg, y, z, plain), (conv_new, C, n, m)
 
 
@@ -149,24 +157,45 @@ def _slstm_step(p: dict, carry: tuple, wx_t: torch.Tensor) -> tuple:
     return h_new, c_new, n_new, m_new
 
 
+def _slstm_loop(r: torch.Tensor, wx: torch.Tensor, state: tuple | None, dtype: torch.dtype
+                ) -> tuple[torch.Tensor, tuple]:
+    """The time loop over wx (B, S, 4d) f32 from ``state`` (or, for a fresh
+    sequence, from m = -1e30): y (B, S, d) in ``dtype`` and the last state."""
+    B, S, d4 = wx.shape
+    nh = r.shape[0]
+    ph = d4 // 4 // nh
+    if state is None:
+        z = torch.zeros((B, nh, ph), dtype=torch.float32, device=wx.device)
+        state = (z, z, z, torch.full((B, nh, ph), -1e30, dtype=torch.float32, device=wx.device))
+    hs = []
+    for t in range(S):
+        state = _slstm_step({"r": r}, state, wx[:, t])
+        hs.append(state[0])
+    return torch.stack(hs, dim=1).reshape(B, S, nh * ph).to(dtype), state
+
+
 def _slstm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, state: tuple | None,
                 plain: bool) -> tuple[torch.Tensor, tuple]:
     """The time loop, one step of Python a token (the reference's
-    ``lax.scan``).  A fresh sequence starts from m = -1e30."""
-    B, S, d = x.shape
-    nh = cfg.n_heads
-    ph = d // nh
-    wx = (x @ p["w"]).float() + p["bias"]                                     # (B,S,4d)
-    if state is None:
-        z = torch.zeros((B, nh, ph), dtype=torch.float32, device=x.device)
-        state = (z, z, z, torch.full((B, nh, ph), -1e30, dtype=torch.float32, device=x.device))
-    hs = []
-    for t in range(S):
-        state = _slstm_step(p, state, wx[:, t])
-        hs.append(state[0])
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    ``lax.scan``).  A fresh sequence starts from m = -1e30.  Under a mesh the
+    loop runs on each rank's batch rows, whole over ``model``."""
+    wx = (x @ sharding.gathered(p["w"])).float() + p["bias"]                   # (B,S,4d)
+    if sharding.is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        rows = sharding.axis_placements(x, sharding.data_placement(x), Replicate())
+        whole = sharding.replicated(x)
+        st = () if state is None else tuple(state)
+
+        def loop(r, wx, *st):
+            y, s = _slstm_loop(r, wx, st or None, x.dtype)
+            return (y, *s)
+        y, *state = sharding.local_call(loop, (p["r"], wx, *st), (whole, rows) + (rows,) * len(st),
+                                        (rows,) * 5, x.device_mesh)
+        state = tuple(state)
+    else:
+        y, state = _slstm_loop(p["r"], wx, state, x.dtype)
     y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain)
-    return y @ p["w_out"], state
+    return sharding.batch_layout(y @ sharding.gathered(p["w_out"])), state
 
 
 def slstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, plain: bool = False

@@ -74,12 +74,15 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: Any) -> dict:
-    """m and v zeros in f32 beside each param, and an int32 step of 0."""
+    """m and v zeros in f32 beside each param (a DTensor param's laid out as
+    it is), and an int32 step of 0."""
     first = tree_leaves(params)[0]
-    return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                device=p.device), params),
-            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                device=p.device), params),
+
+    def zeros(p: torch.Tensor) -> torch.Tensor:
+        if type(p) is not torch.Tensor and hasattr(p, "placements"):  # a DTensor: its layout
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 

@@ -19,15 +19,24 @@ reference stacks them over pattern groups; :func:`param_pspecs` gives a
 layer's leaf the reference's spec of the stacked leaf without its leading
 (layer-stack) entry.
 
-Layouts are DTensors: parameters placed by :func:`shard_params` and
-checkpoints restored with ``shardings=``.  The models run eagerly on plain
-tensors that hold the whole value on every rank, under a mesh too (the
-reference's global arrays); the modules that use a mesh (the MoE's expert
-path, the engine, the pipeline) take their rank's part of such a tensor and
-give back whole values, so the model code has no layout to constrain.
-:func:`constrain` and :func:`with_dp_constraint` lay out a DTensor, and
-refuse a plain tensor under a mesh of more than one device, which cannot
-carry the layout they name.
+Layouts are DTensors: parameters placed by :func:`shard_params`, a step's
+inputs by :func:`place_batch` and :func:`place_cache` (the reference's
+``in_shardings``), checkpoints restored with ``shardings=``.  Under an
+active mesh (:func:`set_active_mesh`) a model given DTensors runs each
+rank's part of the step: activations are batch-sharded DTensors at the
+reference's constraint sites (:func:`with_dp_constraint` after each block,
+:func:`constrain` on the logits, the MoE's buffers and ``ref._row_shard``'s
+rows), each weight is gathered over the data axes before its product
+(:func:`gathered`, FSDP's program: column-parallel on ``model`` in,
+row-parallel out), and each kernel runs on its rank's local shard through
+:func:`local_call` (``local_map``), so a kernel wrapper never sees a
+DTensor.  A model given plain tensors, under a mesh or not, runs as before on
+tensors that hold the whole value on every rank; the modules that use a mesh
+on them (the MoE's expert path, the engine, the pipeline) take their rank's
+part and give back whole values.  :func:`constrain` and
+:func:`with_dp_constraint` refuse a plain tensor under a mesh of more than
+one device, which cannot carry the layout they name; the models call them
+on DTensors only.
 """
 
 from __future__ import annotations
@@ -303,7 +312,8 @@ def active_mesh() -> tuple[Any | None, MeshAxes]:
     return _ACTIVE["mesh"], _ACTIVE["axes"]
 
 
-def _is_dtensor(x: Any) -> bool:
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (the models' test for the sharded path)."""
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
 
@@ -311,7 +321,7 @@ def _is_dtensor(x: Any) -> bool:
 def _layout(x: torch.Tensor, spec: Spec, mesh: Any) -> torch.Tensor:
     """``x`` redistributed to ``spec`` where it is a DTensor; a plain tensor
     passes only under a mesh of one device, where it is its own shard."""
-    if _is_dtensor(x):
+    if is_dtensor(x):
         return x.redistribute(mesh, placements(spec, mesh))
     n = 1
     for s in mesh_sizes(mesh).values():
@@ -338,3 +348,234 @@ def with_dp_constraint(x: torch.Tensor, batch_divisible: bool = True) -> torch.T
     if mesh is None:
         return x
     return _layout(x, batch_spec(axes, batch_divisible=batch_divisible, ndim=x.dim()), mesh)
+
+
+# --- the sharded step: DTensor activations on the active mesh ----------------
+# A recorder of the constraint sites a step passes (tests only): a list that
+# takes (site, global shape, local shape) at each, or None.
+SITES: list | None = None
+
+
+def _record(site: str, x: Any) -> None:
+    if SITES is not None and is_dtensor(x):
+        SITES.append((site, tuple(x.shape), tuple(x.to_local().shape)))
+
+
+def dsize(mesh: Any, axes: MeshAxes) -> int:
+    """The product of the data axes' sizes."""
+    return _axis_size(mesh_sizes(mesh), "data", axes)
+
+
+def dp_site(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``with_dp_constraint`` site after a block: a DTensor
+    laid out batch-sharded (where the batch divides the data axes, else
+    replicated: a padded shard's per-device shape, as GSPMD pads it);
+    anything else returned as it is."""
+    mesh, axes = active_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    x = with_dp_constraint(x, batch_divisible=x.shape[0] % dsize(mesh, axes) == 0)
+    _record("dp", x)
+    return x
+
+
+def site(x: torch.Tensor, names: tuple[str | None, ...], name: str) -> torch.Tensor:
+    """A reference ``constrain`` site (``name`` for the record): a DTensor
+    laid out by logical names; anything else returned as it is."""
+    mesh, _ = active_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    x = constrain(x, names)
+    _record(name, x)
+    return x
+
+
+def _replicate_axes(x, names: set[str]):
+    mesh = x.device_mesh
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if n in names else p
+            for n, p in zip(mesh.mesh_dim_names, x.placements)]
+    return x if tuple(want) == tuple(x.placements) else x.redistribute(mesh, want)
+
+
+def gathered(w: torch.Tensor) -> torch.Tensor:
+    """A weight at its compute placement: a DTensor gathered over the data
+    axes (FSDP's all-gather before the product), its ``model`` placement
+    kept (column- or row-parallel); a plain tensor as it is."""
+    if not is_dtensor(w):
+        return w
+    _, axes = active_mesh()
+    return _replicate_axes(w, set(axes.dp))
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh axis (a plain tensor as it is)."""
+    if not is_dtensor(x):
+        return x
+    return _replicate_axes(x, set(x.device_mesh.mesh_dim_names))
+
+
+def batch_layout(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor redistributed to an activation's layout (batch on the data
+    axes where it divides, replicated on ``model``) with no site recorded:
+    the row-parallel products' all-reduce.  A plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    mesh, axes = active_mesh()
+    spec = batch_spec(axes, batch_divisible=x.shape[0] % dsize(mesh, axes) == 0,
+                      ndim=x.dim())
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` laid out as ``ref`` is (a decode step's new state as its
+    cache's leaf, the reference's ``out_shardings``); plain tensors pass."""
+    if not (is_dtensor(x) and is_dtensor(ref)):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def replicated_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A plain tensor ``t`` that is the same on every rank (a mask, a
+    position table) as a replicated DTensor on ``x``'s mesh where ``x`` is a
+    DTensor, so the two can meet in one op; else ``t`` itself."""
+    if not is_dtensor(x):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def local_call(fn, args: tuple, in_placements: tuple, out_placements, mesh: Any,
+               **kwargs):
+    """``fn`` on each rank's local shards: the one place a kernel call becomes
+    a ``local_map`` over the placements it needs.  ``in_placements`` gives
+    one entry an argument (a placement list, or None for a non-DTensor);
+    DTensor arguments are redistributed to them, and the outputs wrapped as
+    DTensors with ``out_placements`` (a list, or a tuple of lists for several
+    outputs).  ``fn`` sees plain tensors only.
+
+    The backward: an input replicated on a mesh axis over which an output is
+    sharded met only its rank's part of the work there, so its gradient is
+    a pending sum on that axis (``Partial``), as a replicated weight's is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    outs = out_placements if isinstance(out_placements, tuple) else (out_placements,)
+    split = [any(isinstance(o[i], Shard) for o in outs if o is not None)
+             for i in range(mesh.ndim)]
+    grads = tuple(None if pl is None else
+                  [Partial() if isinstance(p, Replicate) and split[i] else p
+                   for i, p in enumerate(pl)] for pl in in_placements)
+    kw = {} if grads == tuple(in_placements) else {"in_grad_placements": grads}
+    mapped = local_map(lambda *a: fn(*a, **kwargs), out_placements=out_placements,
+                       in_placements=in_placements, device_mesh=mesh,
+                       redistribute_inputs=True, **kw)
+    return mapped(*args)
+
+
+# --- placement lists of a DTensor's mesh (the kernels' local_call layouts) ---
+
+def replicated(x: torch.Tensor) -> list:
+    """Replicate() on every axis of x's mesh."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * x.device_mesh.ndim
+
+
+def whole_dims(x: torch.Tensor, dims: tuple[int, ...]) -> list:
+    """x's placements with every shard of ``dims`` (and any pending sum)
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Replicate() if not isinstance(p, Shard) or p.dim in dims else p
+            for p in x.placements]
+
+
+def axis_placements(x: torch.Tensor, data, model) -> list:
+    """A placement list on x's mesh: ``data`` on each data axis, ``model``
+    on the model axis."""
+    _, axes = active_mesh()
+    return [model if n == axes.model else data for n in x.device_mesh.mesh_dim_names]
+
+
+def data_placement(x: torch.Tensor):
+    """Shard(0) where x's batch lies on every data axis, else Replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+    _, axes = active_mesh()
+    pl = dict(zip(x.device_mesh.mesh_dim_names, x.placements))
+    return Shard(0) if all(pl[a] == Shard(0) for a in axes.dp) else Replicate()
+
+
+def model_placement(x: torch.Tensor):
+    """x's placement on the model axis."""
+    _, axes = active_mesh()
+    return dict(zip(x.device_mesh.mesh_dim_names, x.placements))[axes.model]
+
+
+def scan_placements(x: torch.Tensor) -> tuple[list, list]:
+    """The placements of a scan that runs on each rank's batch and heads, x
+    (B, S, H, ...) its input: (for (B, S, H, ...) operands, for (B, H, ...)
+    states).  The batch on the data axes where x has it there, the heads on
+    ``model`` where x has them there, else whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    dat = data_placement(x)
+    heads = model_placement(x) == Shard(2)
+    return (axis_placements(x, dat, Shard(2) if heads else Replicate()),
+            axis_placements(x, dat, Shard(1) if heads else Replicate()))
+
+
+def model_rank(mesh: Any, axes: MeshAxes | None = None) -> int:
+    axes = axes or active_mesh()[1]
+    return mesh.get_local_rank(axes.model)
+
+
+def place_batch(batch: dict, mesh: Any, axes: MeshAxes | None = None) -> dict:
+    """A step's batch (tokens, labels, embeds: (B, ...) whole on every rank)
+    as DTensors: batch over the data axes where it divides, as the
+    reference's ``in_shardings`` (``batch_spec``)."""
+    axes = axes or MeshAxes()
+    out = {}
+    for k, t in batch.items():
+        spec = batch_spec(axes, batch_divisible=t.shape[0] % dsize(mesh, axes) == 0,
+                          ndim=t.dim())
+        out[k] = NamedSharding(mesh, spec).place(t)
+    return out
+
+
+def cache_leaf_spec(name: str, shape: tuple[int, ...], n_kv: int, mesh: Any,
+                    axes: MeshAxes | None = None) -> Spec:
+    """A layer's cache leaf's spec: k and v (B, S, n_kv, hd) by
+    :func:`cache_pspec` (kv heads on ``model`` where they divide, else the
+    sequence: decode context parallelism), without its stack entry; every
+    other leaf (an SSM's or xLSTM's state, MLA's latent) as the reference's
+    dry-run lays it out: batch over the data axes where it divides, the first
+    later dim the model axis divides on ``model``."""
+    axes = axes or MeshAxes()
+    sizes = mesh_sizes(mesh)
+    if name in ("k", "v"):
+        spec = Spec(*cache_pspec(n_kv, shape[0], mesh, axes)[1:])
+        if spec[1] is not None and shape[1] % sizes[axes.model]:
+            spec = Spec(spec[0], None, None, None)   # no even sequence split
+        return spec
+    dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
+    out: list = [None] * len(shape)
+    if shape and shape[0] % dsize(mesh, axes) == 0:
+        out[0] = dp
+    for i in range(1, len(shape)):
+        if shape[i] % sizes[axes.model] == 0:
+            out[i] = axes.model
+            break
+    return Spec(*out)
+
+
+def place_cache(cache: list, n_kv: int, mesh: Any, axes: MeshAxes | None = None) -> list:
+    """A per-layer cache (whole values, or a prefill's DTensor outputs) laid
+    out by :func:`cache_leaf_spec`."""
+    axes = axes or MeshAxes()
+    out = []
+    for layer in cache:
+        one = {}
+        for k, t in layer.items():
+            spec = cache_leaf_spec(k, tuple(t.shape), n_kv, mesh, axes)
+            one[k] = (t.redistribute(mesh, placements(spec, mesh)) if is_dtensor(t)
+                      else NamedSharding(mesh, spec).place(t))
+        out.append(one)
+    return out

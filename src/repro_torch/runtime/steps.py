@@ -9,6 +9,13 @@ place.  On the card it runs through the kernels' autograd: RMSNorm has a
 backward kernel; flash attention and the SSD scan refuse a grad-requiring
 input until their backward kernels come (``kernels/build.py::refuse_grad``),
 so attention, hybrid and mamba models train on the CPU only, for now.
+
+Sharded steps: under the active mesh (``parallel.sharding.set_active_mesh``)
+each step takes DTensor params (``sharding.shard_params(param_pspecs(...))``)
+and placed inputs (``sharding.place_batch``, ``place_cache``), the
+reference's ``in_shardings``, and runs each rank's part of it
+(``models/transformer.py``); the train step's gradients, AdamW's moments and
+the updated params keep their parameters' placements.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from ..configs.base import ModelConfig
 from ..models import transformer
 from ..optim import adamw
 from ..optim import compression as comp
+from ..parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +53,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         finally:
             for t in leaves:
                 t.requires_grad_(False)
-        grads = adamw.tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+        grads = adamw.tree_unflatten(params, [torch.zeros_like(p) if g is None
+                                              else sharding.like(g, p)
                                               for p, g in zip(leaves, grads)])
         if tcfg.grad_compression:
             grads, new_err = comp.compress_with_feedback(grads, opt_state["comp_error"])

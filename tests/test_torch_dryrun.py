@@ -8,11 +8,14 @@ a JAX subprocess on 512 forced host devices (``input_specs``,
 artifacts not read).  Each meta branch gives the plain version's output
 shapes and dtypes with no launch and no plain call, and its work from
 ``kernels/cost.py``; a reduced model's traced FLOPs equal the analytic count;
-every reduced arch traces; xLSTM's length solve and the batch solve equal
-traces they did not run.
+every reduced arch traces, with rank 0's per-device record of the sharded
+step on (16, 16); a device's FLOPs times the chips are internlm2's step
+within 1 % where every sharded dim divides; xLSTM's length solve and the
+batch solve equal traces they did not run.
 """
 
 import dataclasses
+import functools
 import math
 import os
 import pathlib
@@ -33,6 +36,7 @@ from repro_torch.kernels import cost, ref
 from repro_torch.kernels.chunked import ssd_scan_chunked
 from repro_torch.launch import dryrun as D
 from repro_torch.models import transformer
+from repro_torch.parallel import sharding as TS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF_SCRIPT = r'''
@@ -342,12 +346,21 @@ CELLS = [(a, reduced(a)) for a in TC.ARCH_IDS] + [("granite_moe_3b",
                                                   _scatter_moe(reduced("granite_moe_3b")))]
 
 
+@functools.lru_cache(maxsize=None)
+def _reduced_record(i: int, kind: str) -> dict:
+    arch, hook = CELLS[i]
+    return D.run_cell(arch, SMALL[kind], False, save=False, verbose=False, cfg_transform=hook)
+
+
+CELL_IDS = [a for a in TC.ARCH_IDS] + ["granite_scatter"]
+
+
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
-@pytest.mark.parametrize("arch,hook", CELLS, ids=[a for a in TC.ARCH_IDS] + ["granite_scatter"])
+@pytest.mark.parametrize("arch,hook", CELLS, ids=CELL_IDS)
 def test_every_reduced_arch_traces(arch, hook, kind):
     """prefill and decode trace with status ok; train does for xLSTM, and an
     attention model's train cell records the flash wrapper's refusal."""
-    rec = D.run_cell(arch, SMALL[kind], False, save=False, verbose=False, cfg_transform=hook)
+    rec = _reduced_record(CELLS.index((arch, hook)), kind)
     assert rec["layout"]["argument_size_in_bytes"] > 0
     if kind == "train" and arch != "xlstm_1p3b":
         assert rec["status"] == "error"
@@ -357,7 +370,7 @@ def test_every_reduced_arch_traces(arch, hook, kind):
     assert rec["status"] == "ok", rec.get("traceback")
     calls = rec["work"]["kernel_calls"]
     cfg = hook(None)
-    assert calls["rmsnorm"] > 0 and rec["work"]["flops"] > 0 and rec["collectives"] is None
+    assert calls["rmsnorm"] > 0 and rec["work"]["flops"] > 0
     attn = "attn" in cfg.block_pattern or "hybrid" in cfg.block_pattern
     assert calls["flash_attention"] == (cfg.n_layers if attn and kind == "prefill" else 0)
     assert calls["decode_attention"] == (cfg.n_layers if attn and kind == "decode" else 0)
@@ -368,6 +381,105 @@ def test_every_reduced_arch_traces(arch, hook, kind):
         assert calls["rmsnorm_bwd"] == 0
     oc = rec["one_card"]
     assert oc["fits"] and oc["max_batch"] >= SMALL[kind].global_batch
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("i", range(len(CELLS)), ids=CELL_IDS)
+def test_every_reduced_record_has_the_per_device_fields(i, kind):
+    """Each ok record carries rank 0's program on the (16, 16) mesh under the
+    reference's names: flops_per_partition and bytes_per_partition, memory
+    (its argument bytes equal to the layout's for the device), and
+    collectives with the reference's link weights; the FLOPs of a device
+    times the chips are at least the step's, and a device does no more than
+    the whole step (DTensor's sharding propagation, which runs ops at their
+    global shapes, would: see the next tests); no ``collectives_reason``."""
+    rec = _reduced_record(i, kind)
+    assert "collectives_reason" not in rec
+    if rec["status"] != "ok":
+        assert kind == "train" and "collectives" not in rec
+        return
+    assert rec["flops_per_partition"] > 0 and rec["bytes_per_partition"] > 0
+    assert rec["work"]["flops"] <= rec["flops_per_partition"] * rec["chips"]
+    assert rec["flops_per_partition"] <= rec["work"]["flops"]   # no rank does more
+    mem = rec["memory"]
+    assert set(mem) >= {"argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes",
+                        "peak_memory_in_bytes"}
+    assert mem["argument_size_in_bytes"] == rec["layout"]["argument_size_in_bytes"]
+    assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"]
+    c = rec["collectives"]
+    assert c["count"] > 0
+    assert c["weighted_link_traffic"] == sum(cost.TRAFFIC_W[op] * c[op] for op in cost.TRAFFIC_W)
+    assert rec["partition"]["kernel_calls"] == rec["work"]["kernel_calls"]
+
+
+SMALL_DIVISIBLE = {"internlm2_1p8b": dict(n_layers=2, d_model=128),
+                   "hymba_1p5b": dict(n_layers=2, d_model=128)}
+
+
+@pytest.mark.parametrize("counted", [False, True], ids=["rank", "propagation_counted"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", list(SMALL_DIVISIBLE))
+def test_partition_flops_are_the_steps_on_a_mesh_every_dim_divides(arch, kind, counted,
+                                                                   monkeypatch):
+    """Reduced internlm2 and hymba (4 heads of 32, widths 128, vocab 512) at
+    batch 4 on a 2 x 2 (data, model) mesh, where every sharded dim divides:
+    rank 0's FLOPs times 4 are the whole step's within 1 %.  Counted with
+    DTensor's sharding propagation (its ops at their global shapes, which
+    the trace leaves out), they are several times more: so a torch whose
+    propagation the trace failed to recognise fails this test, not the
+    records silently."""
+    monkeypatch.setitem(D.MESHES, "mesh2x2", ({"data": 2, "model": 2},
+                                              TS.MeshAxes(data=("data",))))
+    if counted:
+        monkeypatch.setattr(D, "_PROPAGATION", ())
+    cfg = TC.get_config(arch).reduced(**SMALL_DIVISIBLE[arch])
+    shape = ShapeConfig(f"small_{kind}", 16 if kind == "prefill" else 20, 4, kind)
+    step = D.trace(cfg, shape, 4)["flops"]
+    rank = D.trace(cfg, shape, 4, mesh_name="mesh2x2", mesh_device="cpu")["flops"]
+    if counted:
+        assert rank * 4 > 5 * step
+    else:
+        assert step <= rank * 4 <= 1.01 * step
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_partition_flops_are_the_steps_where_every_sharded_dim_divides(shape, mesh):
+    """internlm2-1.8B's published cells, whose batch, rows, widths and vocab
+    all divide the production mesh: the FLOPs of rank 0's program times the
+    chips equal the whole step's within 1 %, and its argument bytes are the
+    layout's (the reference's, 15,224,832 and 1,625,575,460 bytes a device
+    on (16, 16)).  Prefill on (2, 16, 16) does more: its 8 kv heads divide
+    neither model axis nor their group of 2, so ``_row_shard`` puts q's rows
+    on ``model`` with the batch whole on every data rank, as the reference's
+    constraint does, and rank 0 attends all 32 sequences' first 2,048 rows
+    (1.5 x the step's FLOPs over 512 chips)."""
+    rec = D.run_cell("internlm2_1p8b", shape, mesh == "multi", save=False, verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    total = rec["flops_per_partition"] * rec["chips"]
+    over = 1.6 if (shape, mesh) == ("prefill_32k", "multi") else 1.01
+    assert rec["work"]["flops"] <= total <= over * rec["work"]["flops"]
+    assert rec["memory"]["argument_size_in_bytes"] == rec["layout"]["argument_size_in_bytes"]
+    if mesh == "single":
+        assert rec["memory"]["argument_size_in_bytes"] == {
+            "prefill_32k": 15_224_832, "decode_32k": 1_625_575_460}[shape]
+
+
+@pytest.mark.parametrize("arch,whole_per_layer", [("granite_moe_3b", 3),
+                                                  ("llama4_maverick_400b", 0)])
+def test_moe_decode_gathers_no_expert_weight_it_does_not_use(arch, whole_per_layer):
+    """Rank 0's program of a published MoE's decode_32k on (16, 16) (the
+    scatter path: 4,096 tokens, under the expert path's threshold): the
+    experts are gathered over the data axes only, once a layer.  granite's
+    40 experts do not divide ``model``, so each of its three expert weights
+    comes whole to every rank, as in the reference; llama4's 128 lie 8 to a
+    column, and none comes whole."""
+    cfg = production_cfg(TC.get_config(arch))
+    shape = TC.SHAPES["decode_32k"]
+    whole = cfg.moe.num_experts * cfg.d_model * cfg.d_ff * 2
+    res = D.trace(cfg, shape, shape.global_batch, mesh_name="single")
+    gathers = [b for op, b in res["coll_log"] if op == "all-gather"]
+    assert gathers.count(whole) == whole_per_layer * cfg.n_layers
 
 
 def test_xlstm_length_solve_equals_a_full_trace():

@@ -1086,3 +1086,81 @@ def test_kernel_wrappers_refuse_a_dtensor_on_the_card(nccl1):
     for name, call in calls.items():
         with pytest.raises(TypeError, match=f"{name}: got a DTensor"):
             call()
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1p8b", "hymba_1p5b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_world_one_sharded_steps_equal_the_unsharded_bit_for_bit(nccl1, arch, dtype):
+    """Reduced internlm2 and hymba on the (1, 1) mesh: DTensor params
+    (``shard_params``) and placed inputs under the active mesh, every kernel
+    through ``sharding.local_call``: prefill and four decode steps give the
+    unsharded path's logits and cache bit for bit, with the same launches."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel import sharding
+    cfg = C.get_config(arch).reduced(n_layers=2, d_model=256, n_heads=4)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(0, cfg, device="cuda")
+    B, S, n = 2, 96, 4
+    toks = torch.randint(0, cfg.vocab, (B, S + n), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator("cuda").manual_seed(1))
+
+    def run(p, place):
+        rmsnorm.n_launches = flash_attention.n_launches = decode_attention.n_launches = 0
+        ssd_scan.n_launches = 0
+        with torch.no_grad():
+            lg, cache = transformer.prefill(p, cfg, place({"tokens": toks[:, :S]}),
+                                            max_len=S + n)
+            outs = [lg]
+            for i in range(n):
+                lg, cache = transformer.decode_step(
+                    p, cfg, place({"tokens": toks[:, S + i:S + i + 1]})["tokens"], cache, S + i)
+                outs.append(lg)
+        counts = (rmsnorm.n_launches, flash_attention.n_launches, decode_attention.n_launches,
+                  ssd_scan.n_launches)
+        return outs, cache, counts
+
+    want, want_cache, want_n = run(params, lambda b: b)
+    mesh = nccl1[0]
+    placed = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
+    sharding.set_active_mesh(mesh)
+    try:
+        got, got_cache, got_n = run(placed, lambda b: sharding.place_batch(b, mesh))
+    finally:
+        sharding.set_active_mesh(None)
+    assert got_n == want_n and want_n[0] > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g.full_tensor(), w)
+    for g, w in zip(got_cache, want_cache):
+        for k in w:
+            assert torch.equal(g[k].full_tensor(), w[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_row_max_and_sum_match_the_plain_version(cuda, dtype):
+    """``return_ml``: the kernel's (o, m, l), m and l written by its combine
+    kernel, against the plain version's, over a full cache, a
+    partly valid one and one with no valid slot (both a uniform row over
+    every slot at m -1e30, which weighs 0 in a merge); two slices' outputs
+    merged by them equal the whole cache's."""
+    dt = DTYPES[dtype]
+    B, S, hq, hkv, hd = 2, 512, 8, 2, 64
+    q, kc, vc = (normal(0, B, hq, hd, dtype=dt), normal(1, B, S, hkv, hd, dtype=dt),
+                 normal(2, B, S, hkv, hd, dtype=dt))
+    for n in (S, 300):
+        o, m, l = decode_attention(q, kc, vc, n, return_ml=True)
+        po, pm, pl = ref.decode_attention(q, kc, vc, n, return_ml=True)
+        np.testing.assert_allclose(f32(o), f32(po), **tol(dtype))
+        assert (m - pm).abs().max() <= 1e-4 * pm.abs().max()
+        assert ((l - pl).abs() / pl).max() <= 1e-3
+    _, m0, l0 = decode_attention(q, kc, vc, 0, return_ml=True)
+    _, pm0, pl0 = ref.decode_attention(q, kc, vc, 0, return_ml=True)
+    assert torch.equal(l0, pl0) and bool((m0 < -1e29).all()) and bool((pm0 < -1e29).all())
+    # two halves of the slots, merged by their (m, l), against the whole
+    h = S // 2
+    parts = [decode_attention(q, kc[:, a:b], vc[:, a:b], b - a, return_ml=True)
+             for a, b in ((0, h), (h, S))]
+    mg = torch.maximum(parts[0][1], parts[1][1])
+    w = [pl_ * torch.exp(pm_ - mg) for _, pm_, pl_ in parts]
+    merged = sum(po_.float() * wi[..., None] for (po_, _, _), wi in zip(parts, w)) / sum(w)[..., None]
+    whole = decode_attention(q, kc, vc, S)
+    np.testing.assert_allclose(f32(merged), f32(whole), **tol(dtype))

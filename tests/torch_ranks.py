@@ -1,5 +1,6 @@
 """Rank programs of the port's multi-rank CPU tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_pipeline.py``).
+(``tests/test_torch_parallel.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_mesh.py``).
 
 Each process is one rank of a gloo world opened through a ``file://`` store
 (no TCP port, so test workers running side by side never collide):
@@ -31,8 +32,12 @@ from repro_torch import configs as C  # noqa: E402
 from repro_torch.checkpointing import CheckpointManager  # noqa: E402
 from repro_torch.exec import ExecutionEngine  # noqa: E402
 from repro_torch.exec.stage_graph import StageGraph, StageTask  # noqa: E402
+from repro_torch.kernels import cost  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import cnn, from_jax_params, init_params, moe, transformer  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel import pipeline, sharding  # noqa: E402
+from repro_torch.runtime import steps  # noqa: E402
 
 # The reduced configs whose placements are checked against the reference's
 # (a width and depth both mesh axes divide), and the pipeline cases.
@@ -43,6 +48,35 @@ PIPE4 = {"uniform-m4": (None, 4), "uniform-m8": (None, 8), "1322-m2": ([1, 3, 2,
 PIPE2 = {"35-m2": ([3, 5], 2), "62-m4": ([6, 2], 4), "uniform-m2": (None, 2)}
 BAD_CUTS = {"three-cuts": [2, 2, 2], "empty-stage": [3, 3, 1, 0], "sum-16": [4, 4, 4, 4]}
 STACK_CUTS = [1, 3, 2, 2]
+# The sharded steps' cases on a 2 x 2 (data, model) mesh: (arch, reduced()
+# arguments, MoE impl or None), the counted ones at head dims the kernels'
+# meta branches take (32).  internlm2's 4 kv heads split over model
+# (head-parallel, its cache by heads); 3 heads of 32 fire _row_shard and
+# shard the cache by sequence (decode context parallelism); hymba runs its
+# scan and attention; granite's scatter MoE at E 4 (divides model: the
+# experts on model) and E 3 (does not: the slots over data x model).
+MESH_CASES = {"internlm2": ("internlm2_1p8b", dict(n_layers=2, d_model=128), None),
+              "row_shard": ("internlm2_1p8b", dict(n_layers=2, d_model=96, n_heads=3, n_kv=3),
+                            None),
+              "hymba": ("hymba_1p5b", dict(n_layers=2, d_model=128), None),
+              "granite_e4": ("granite_moe_3b", dict(n_layers=2, d_model=64, experts=4),
+                             "scatter"),
+              "granite_e3": ("granite_moe_3b", dict(n_layers=2, d_model=64, experts=3),
+                             "scatter")}
+TRAIN_CASES = {"internlm2": ("internlm2_1p8b", dict(n_layers=2, d_model=64), None),
+               "xlstm": ("xlstm_1p3b", dict(n_layers=8, d_model=64), None)}
+MESH_B, MESH_T, MESH_EXTRA = 4, 16, 4   # batch, prompt, cache slots past it
+# the cases whose collectives the gloo run counts beside the dry-run's trace
+COUNTED = ("internlm2", "row_shard", "hymba")
+
+
+def mesh_cfg(configs, case: tuple):
+    """A case's reduced config from either package's ``configs``."""
+    arch, kw, impl = case
+    cfg = configs.get_config(arch).reduced(**kw)
+    if impl is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=impl))
+    return cfg
 
 
 def prefill_cfg(configs):
@@ -290,6 +324,163 @@ def case_pipeline2(rank: int, world: int, inp: dict) -> dict:
     return out
 
 
+# --- tests/test_torch_mesh.py -----------------------------------------------
+
+def _full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def case_mesh(rank: int, world: int, inp: dict) -> dict:
+    """2 x 2 (data, model): each case's sharded prefill, decode and cache,
+    the constraint sites' local shapes, the sharded train step's loss and
+    gradients, and the collectives of a prefill and a decode step in order."""
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out: dict = {}
+    sharding.set_active_mesh(mesh, sharding.MeshAxes())
+    try:
+        for name, case in MESH_CASES.items():
+            cfg = mesh_cfg(C, case)
+            params = from_jax_params(unflatten(inp, f"{name}/params"), cfg, device="cpu")
+            dp = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
+            batch = sharding.place_batch({"tokens": torch.from_numpy(inp[f"{name}/tokens"])},
+                                         mesh)
+            nxt = sharding.place_batch({"t": torch.from_numpy(inp[f"{name}/next"])}, mesh)["t"]
+            sharding.SITES = []
+            with torch.no_grad():
+                logits, cache = transformer.prefill(dp, cfg, batch, max_len=MESH_T + MESH_EXTRA)
+                out[f"{name}/prefill"] = logits.full_tensor().numpy()
+                placed = [{k: tuple(map(str, v.placements)) for k, v in c.items()} for c in cache]
+                dl, cache = transformer.decode_step(dp, cfg, nxt, cache, MESH_T)
+                out[f"{name}/decode"] = dl.full_tensor().numpy()
+                for l, c in enumerate(cache):
+                    for k, v in c.items():
+                        assert tuple(map(str, v.placements)) == placed[l][k], (name, l, k)
+                        out[f"{name}/cache/{l}/{k}"] = v.full_tensor().numpy()
+                        out[f"{name}/cache_local/{l}/{k}"] = np.array(v.to_local().shape)
+            out[f"{name}/sites"] = np.array(sorted({f"{s}|{g}|{loc}"
+                                                   for s, g, loc in sharding.SITES}))
+            sharding.SITES = None
+            if name in COUNTED:
+                for kind in ("prefill", "decode"):
+                    out[f"{name}/coll/{kind}"] = _counted(cfg, params, kind, mesh)
+
+        for name, case in TRAIN_CASES.items():
+            cfg = mesh_cfg(C, case)
+            params = from_jax_params(unflatten(inp, f"train/{name}/params"), cfg, device="cpu")
+            dp = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
+            leaves = adamw.tree_leaves(dp)
+            for t in leaves:
+                t.requires_grad_(True)
+            sharding.SITES = []
+            loss, _ = transformer.loss_fn(dp, cfg, sharding.place_batch(
+                {"tokens": torch.from_numpy(inp[f"train/{name}/tokens"])}, mesh), remat=True)
+            grads = torch.autograd.grad(loss, leaves)
+            for t in leaves:
+                t.requires_grad_(False)
+            out[f"train/{name}/sites"] = np.array(sorted({f"{s}|{g}|{loc}"
+                                                         for s, g, loc in sharding.SITES}))
+            sharding.SITES = None
+            out[f"train/{name}/loss"] = loss.full_tensor().detach().numpy()
+            for (path, p), (_, g) in zip(flat(dp), flat(adamw.tree_unflatten(dp, list(grads)))):
+                g = sharding.like(g, p)
+                out[f"train/{name}/placed/{path}"] = np.array(
+                    tuple(g.placements) == tuple(p.placements))
+                out[f"train/{name}/grad/{path}"] = g.full_tensor().numpy()
+            # the train step: params and AdamW's moments keep their placements
+            opt = steps.init_opt_state(dp, steps.TrainConfig())
+            new, opt, met = steps.make_train_step(cfg, steps.TrainConfig())(
+                dp, opt, sharding.place_batch(
+                    {"tokens": torch.from_numpy(inp[f"train/{name}/tokens"])}, mesh))
+            out[f"train/{name}/step_loss"] = met["loss"].full_tensor().numpy()
+            out[f"train/{name}/step_placed"] = np.array(all(
+                tuple(a.placements) == tuple(b.placements) == tuple(c.placements)
+                for a, b, c in zip(adamw.tree_leaves(new), adamw.tree_leaves(opt["m"]),
+                                   adamw.tree_leaves(opt["v"]))))
+        _moe_expert_parallel_dtensor(mesh, out)
+    finally:
+        sharding.SITES = None
+        sharding.set_active_mesh(None)
+    return out
+
+
+# The DTensor expert path's cases: (experts, batch, sequence); 4 experts lie
+# on model, 3 are padded to 4 and sliced, and a batch of 1 does not divide
+# the data axis.
+MOE_EP_CASES = {"e4_b4": (4, 4, 6), "e3_b4": (3, 4, 6), "e4_b1": (4, 1, 8)}
+
+
+def _moe_expert_parallel_dtensor(mesh, out: dict) -> None:
+    """The expert-parallel path on DTensor params and activations against
+    the same path on whole plain tensors (held to the reference's
+    ``shard_map`` in ``tests/test_torch_parallel.py``): y, aux, every
+    gradient, and the all-gathers' result bytes beside the experts' whole
+    bytes."""
+    floor, moe.SHARD_MAP_MIN_TOKENS = moe.SHARD_MAP_MIN_TOKENS, 0
+    try:
+        for name, (E, B, S) in MOE_EP_CASES.items():
+            base = C.get_config("granite_moe_3b").reduced(d_model=32, experts=4)
+            cfg = dataclasses.replace(base, moe=dataclasses.replace(
+                base.moe, num_experts=E, top_k=2, capacity_factor=1.0, impl="shard_map"))
+            gen = torch.Generator().manual_seed(E * 10 + B)
+            p = moe.moe_init(gen, cfg, torch.float32)
+            x = torch.randn((B, S, cfg.d_model), generator=gen)
+            res = {}
+            for kind in ("plain", "dtensor"):
+                if kind == "plain":
+                    pin, xin = dict(p), x
+                else:
+                    pin = sharding.shard_params({"moe": p}, mesh, sharding.param_pspecs(
+                        {"moe": p}, mesh))["moe"]
+                    xin = sharding.place_batch({"x": x}, mesh)["x"]
+                pin = {k: v.detach().requires_grad_(True) for k, v in pin.items()}
+                xin = xin.detach().requires_grad_(True)
+                counter = cost.collective_counter()
+                with counter:
+                    y, aux = moe.moe_apply(pin, cfg, xin)
+                y, aux = _full(y), _full(aux)
+                grads = torch.autograd.grad(y.sum() + aux, [*pin.values(), xin])
+                res[kind] = counter.log
+                out[f"moe_ep/{name}/{kind}/y"] = y.detach().numpy()
+                out[f"moe_ep/{name}/{kind}/aux"] = aux.detach().numpy()
+                for k, g in zip([*pin, "x"], grads):
+                    out[f"moe_ep/{name}/{kind}/grad/{k}"] = _full(g).numpy()
+            out[f"moe_ep/{name}/gathered"] = np.array(
+                sum(b for op, b in res["dtensor"] if op == "all-gather"))
+            out[f"moe_ep/{name}/experts_whole"] = np.array(
+                sum(p[k].numel() * 4 for k in ("w_in", "w_gate", "w_out")))
+            # a column's 2 experts of the padded 4, the router, and y's rows
+            # where the batch lies whole
+            out[f"moe_ep/{name}/gathered_want"] = np.array(
+                sum(p[k][:2].numel() * 4 for k in ("w_in", "w_gate", "w_out"))
+                + p["router"].numel() * 4 + (x.numel() * 4 if B % 2 else 0))
+    finally:
+        moe.SHARD_MAP_MIN_TOKENS = floor
+
+
+def _counted(cfg, params: dict, kind: str, mesh) -> np.ndarray:
+    """The collectives of the dry-run's step of ``kind`` at (MESH_B, MESH_T
+    (+ MESH_EXTRA for decode)), run for real on this rank: its inputs of the
+    dry-run's shapes (zeros; a decode's cache at ``init_cache``), placed as
+    the dry-run places them, and the step as it runs it.  In order, as
+    "op:bytes"."""
+    S = MESH_T if kind == "prefill" else MESH_T + MESH_EXTRA
+    shape = dryrun.ShapeConfig(f"mesh_{kind}", S, MESH_B, kind)
+    with torch.inference_mode():
+        dp = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
+        if kind == "prefill":
+            specs = {"params": dp, "batch": sharding.place_batch(
+                {"tokens": torch.zeros((MESH_B, S), dtype=torch.int32)}, mesh)}
+        else:
+            cache = transformer.init_cache(cfg, MESH_B, S, device="cpu")
+            specs = {"params": dp, "tokens": sharding.place_batch(
+                {"t": torch.zeros((MESH_B, 1), dtype=torch.int32)}, mesh)["t"],
+                "cache": sharding.place_cache(cache, cfg.n_kv, mesh), "pos": S - 1}
+        counter = cost.collective_counter()
+        with counter:
+            dryrun._step(cfg, shape, specs)
+    return np.array([f"{op}:{b}" for op, b in counter.log])
+
+
 def spawn(case: str, world: int, inputs: pathlib.Path, tmp: pathlib.Path) -> list:
     """Start ``world`` rank processes of ``case``; returns their Popen
     handles (see :func:`collect`)."""
@@ -327,7 +518,7 @@ def collect(procs: list, tmp: pathlib.Path, case: str, timeout: float = 240) -> 
     return outs
 
 
-CASES = {"parallel": case_parallel, "engine_ckpt": case_engine_ckpt,
+CASES = {"parallel": case_parallel, "engine_ckpt": case_engine_ckpt, "mesh": case_mesh,
          "pipeline4": case_pipeline4, "pipeline2": case_pipeline2}
 
 
