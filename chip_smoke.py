@@ -38,7 +38,18 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                (and their split between the row kernel and the dscale sum)
                beside ``F.rms_norm``'s autograd backward, and at the other
                served widths; and its autograd Function under
-               ``torch.utils.checkpoint`` (launch counts, gradients).
+               ``torch.utils.checkpoint`` (launch counts, gradients).  The
+               flash-attention backward kernel against ``ref.attention_bwd``
+               (the closed form, on the forward kernel's own o and lse) at
+               every (K, V) head-dim pair on edge shapes (f32 3e-5 of
+               max|plain|; bf16 at BF16_FLOOR_RATIO x the plain bf16
+               path's distance from f32; two launches bitwise equal; o
+               bitwise equal with and without the lse), its Function under
+               checkpoint, and at the train shapes (internlm2's batch 2 x
+               4096 in bf16 and f32, danube's window 4096 at 4608,
+               minicpm3's strided v, phi3-vision, granite's g = 3) with
+               times, the device us of its three CUDA kernels, the bound
+               and SDPA's backward alone.
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
                with the launch counts set to 0 just before and asserted
@@ -115,13 +126,29 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                the reduced loop
                (``train_loop.run_with_restarts``) resuming after an injected
                failure bit for bit as an uninterrupted run; and a reduced
-               internlm2 train step refused by the flash-attention wrapper
-               (no backward kernel: the reference's Pallas kernel has none).
+               hymba train step refused by the SSD scan's wrapper (its
+               backward kernel is the next slice).
+  6b. train attention — this slice's main path: with every launch count
+               set to 0, internlm2-1.8B at full width and depth, bf16,
+               remat, batch 2 x 4096, three AdamW steps through
+               ``make_train_step`` (exact launches of the flash and norm
+               forward and backward kernels, finite losses, walls, idle
+               share, peak memory); two-layer full-width cuts of internlm2,
+               h2o-danube3 (4608 tokens, past its window), minicpm3 (MLA),
+               phi3-vision and granite (dispatch pinned to the f32 path's
+               experts), each path's token-by-token loss and whole
+               gradient against plain f32 at BF16_FLOOR_RATIO x a floor
+               (``CUT_GATES``); the launcher's default command
+               (``python -m repro_torch.launch.train``: reduced internlm2)
+               in a child process; and the reduced internlm2 loop resuming
+               after an injected failure bit for bit.
   7. dryrun  — the port's dry-run (``repro_torch.launch.dryrun``) and the
                card.  For h2o-danube3-4B, hymba-1.5B and xlstm-1.3B at
                long_500k (decode at position 524,287, the whole cell: batch
-               1) and internlm2-1.8B at decode_32k and prefill_32k (at the
-               trace's largest batch that fits one card): the cell's record
+               1) and internlm2-1.8B at decode_32k, prefill_32k and
+               train_4k (at the trace's largest batch that fits one card;
+               the train step with its optimizer state resident, its loss
+               finite): the cell's record
                (traced on meta tensors, printed), then its step on the card
                with the arguments resident, launch counts set to 0 just
                before and read just after.  Gates: launches equal the
@@ -281,6 +308,7 @@ PATHS = {
 }
 for _path in PATHS.values():
     _path["launches"]["rmsnorm_bwd"] = 0  # serving takes no gradient
+    _path["launches"]["flash_attention_bwd"] = 0
 # The train path: xlstm-1.3B at full width and depth in bf16, batch 2 x 1024
 # tokens, STEPS of AdamW at the reference's defaults, remat on.  A step's
 # forward runs each pattern group's 16 norms (norm1 in 8 layers, the inner
@@ -290,7 +318,44 @@ for _path in PATHS.values():
 TRAIN = dict(B=2, S=1024, steps=3)
 TRAIN_LAUNCHES = {"rmsnorm": TRAIN["steps"] * (2 * 6 * 16 + 1),
                   "rmsnorm_bwd": TRAIN["steps"] * (6 * 16 + 1), "flash_attention": 0,
-                  "decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0}
+                  "flash_attention_bwd": 0, "decode_attention": 0, "ssd_scan": 0,
+                  "dp_sweep": 0}
+# The attention train path (this slice's main path): internlm2-1.8B at full
+# width and depth (24 layers, 16/8 heads of 128) in bf16, batch 2 x 4096
+# tokens, three AdamW steps, remat on.  A step's forward runs each layer's
+# two norms and its attention once, the final norm once; the backward
+# recomputes each layer (its two norms and attention again) and takes one
+# backward launch each.
+TRAIN_ATTN = dict(arch="internlm2_1p8b", B=2, S=4096, steps=3, layers=24)
+TRAIN_ATTN_LAUNCHES = {
+    "rmsnorm": TRAIN_ATTN["steps"] * (2 * 2 * 24 + 1),
+    "rmsnorm_bwd": TRAIN_ATTN["steps"] * (2 * 24 + 1),
+    "flash_attention": TRAIN_ATTN["steps"] * 2 * 24,
+    "flash_attention_bwd": TRAIN_ATTN["steps"] * 24,
+    "decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0}
+# The attention models' two-layer cuts at full width (PERIOD_GATES, one
+# sequence of the train shape; danube's past its 4096 window), each path's
+# loss and gradient against plain f32 with remat off.  The loss is held
+# token by token (the sequence's NLL vector, relative L2): the mean alone is
+# one number, whose distance from f32 in bf16 (~1e-6 relative) comes out
+# above or below another path's by chance (minicpm3's kernel path 2.365e-6
+# against plain bf16's 1.060e-6 on an NVIDIA H100 80GB HBM3 at 700 W, while
+# the gradients of the two agreed to 0.1 %).  The f32 floor path changes
+# each kernel's arithmetic by a rounding-level change of the same kind, in
+# plain PyTorch, forward and backward, by reassociating its f32 sums, as the
+# kernels do: the norms' sum of squares over the row's two halves and their
+# backward in closed form (``NormVariant``); attention's logits over two
+# halves of the head dim, o = exp(S - lse) V over two halves of the keys,
+# and its backward in closed form (``ref.attention_bwd``;
+# ``AttentionClosedForm``).  A change that adds precision (a sum in f64)
+# is a smaller change than the kernels make: with the norms' sums in f64
+# and cuBLAS's order kept for S and P·V, the f32 kernel path sat at
+# 1.02-1.25 x that floor in all five cuts on an NVIDIA H100 80GB HBM3 at
+# 700 W.  granite's dispatch is pinned to the f32 path's experts
+# (``RouteLog``): a near-tie's flip is a discrete jump, not arithmetic.
+CUTS = {"internlm2_1p8b": 4096, "h2o_danube3_4b": 4608, "minicpm3_4b": 4096,
+        "phi3_vision_4p2b": 4096, "granite_moe_3b": 4096}
+CUT_GATES = (("bf16", "kernel", "plain"), ("f32", "kernel32", "f32 floor"))
 # The train period's gates: a path's loss and its gradient (every leaf as
 # one vector, relative L2) against plain f32, each at most BF16_FLOOR_RATIO
 # times a floor path's distance, the floor a change of the same kind:
@@ -482,7 +547,8 @@ def finish(rec: dict) -> dict:
     lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
     dev = rec.get("device_us")
     dev = (f", device {sum(dev.values()):.2f} us a call {dev}"
-           if dev and rec["name"] in ("flash_attention", "decode_attention") else "")
+           if dev and rec["name"] in ("flash_attention", "flash_attention_bwd",
+                                      "decode_attention") else "")
     print(f"[kernels] {rec['name']} at {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, library {lib}, bound {rec['bound_ms'] * 1e3:.2f} us "
           f"({rec['bound_by']}), max|d| {rec['max_abs_err']:.3e}{dev}", flush=True)
@@ -845,6 +911,154 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | N
     return finish(rec)
 
 
+def flash_bwd_inputs(torch, randn, B, S, hq, hkv, hd, dv, dt, kv=None):
+    """q, k, v (v a strided slice of a (.., hd + dv) product where dv !=
+    hd, as MLA passes it) and an output gradient; ``kv`` the key length
+    where it differs from S (a ragged edge)."""
+    kv = S if kv is None else kv
+    q, k = randn(B, S, hq, hd, dtype=dt), randn(B, kv, hkv, hd, dtype=dt)
+    v = randn(B, kv, hkv, dv, dtype=dt) if dv == hd else \
+        randn(B, kv, hkv, hd + dv, dtype=dt)[..., hd:]
+    return q, k, v, randn(B, S, hq, dv, dtype=dt)
+
+
+def flash_bwd_check(torch, q, k, v, do, what: str, **kw) -> tuple[float, float]:
+    """The flash backward kernel against ``ref.attention_bwd`` (the closed
+    form in f32) on the forward kernel's own o and lse: f32 within TOL
+    (3e-5) x max|plain| for each of dq, dk, dv; bf16 each within
+    BF16_FLOOR_RATIO x the plain bf16 path's distance from plain f32 (the
+    same closed form on the same values upcast), relative to max|f32|.
+    Also: the forward's o bitwise equal with and without the lse output, and
+    two backward launches bitwise equal.  Returns (max|kernel - plain| over
+    the three, the worst kernel / floor ratio in bf16 (0 in f32))."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    scale = kw.pop("scale", None)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    kw = {"causal": True, "window": None, "kv_offset": 0, **kw}
+    o0, _ = fa._forward(q, k, v, kw["causal"], kw["window"], scale, kw["kv_offset"], False)
+    o, lse = fa._forward(q, k, v, kw["causal"], kw["window"], scale, kw["kv_offset"], True)
+    need(torch.equal(o0, o), f"flash_attention {what}: o differs when the lse is written")
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale, **kw)
+    need(all(torch.equal(a, b) for a, b in zip(got, again)),
+         f"flash_attention_bwd {what}: two launches differ")
+    plain = ref.attention_bwd(q, k, v, o, lse, do, scale=scale, **kw)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, plain))
+    worst = 0.0
+    if q.dtype == torch.float32:
+        for a, b, n in zip(got, plain, ("dq", "dk", "dv")):
+            rel_close(a, b, "float32", f"flash_attention_bwd {what} {n}")
+    else:
+        f32 = ref.attention_bwd(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                                scale=scale, **kw)
+        for a, b, c, n in zip(got, plain, f32, ("dq", "dk", "dv")):
+            e, fl = rel_max(a, c), rel_max(b, c)
+            need(e <= BF16_FLOOR_RATIO * fl and bool(a.float().isfinite().all()),
+                 f"flash_attention_bwd {what} {n}: kernel-f32 {e:.3e} > {BF16_FLOOR_RATIO} x "
+                 f"the plain bf16 path's {fl:.3e}")
+            worst = max(worst, e / fl if fl else 0.0)
+        del f32
+    del got, again, plain
+    return err, worst
+
+
+def flash_bwd_sweep(torch, randn) -> None:
+    """The backward kernel at every (DK, DV) pair in f32 and bf16 on edge
+    shapes (flash_bwd_check's gates): causal with GQA, a ragged Skv past
+    Sq with a kv_offset, a window at g 3, non-causal ragged, empty leading
+    rows (kv_offset < 0 under a window), empty trailing rows; then the
+    autograd Function under ``torch.utils.checkpoint``: two forward and one
+    backward launch a call, and the gradients of autograd through the plain
+    version."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    cases = ((2, 100, 100, 4, 2, True, None, 0), (1, 70, 130, 6, 2, True, None, 60),
+             (1, 77, 77, 3, 1, True, 20, 0), (1, 40, 90, 4, 4, False, None, 0),
+             (1, 50, 60, 4, 1, True, 16, -10), (1, 33, 40, 2, 2, False, 8, 45))
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for dk, dv in fa.HEAD_DIMS:
+            for B, S, kv, hq, hkv, causal, window, off in cases:
+                q, k, v, do = flash_bwd_inputs(torch, randn, B, S, hq, hkv, dk, dv, dt, kv)
+                _, w = flash_bwd_check(torch, q, k, v, do, f"sweep {dk}x{dv} {dt} "
+                                       f"{(B, S, kv, hq, hkv, causal, window, off)}",
+                                       causal=causal, window=window, kv_offset=off)
+                worst = max(worst, w)
+    q, k, v = (randn(2, 128, h, 64).requires_grad_(True) for h in (4, 2, 2))
+    fa.flash_attention.n_launches = fa.flash_attention_bwd.n_launches = 0
+    y = checkpoint(lambda a, b, c: fa.flash_attention(a, b, c) * 2, q, k, v, use_reentrant=False)
+    got = torch.autograd.grad(y.sum(), (q, k, v))
+    counts = (fa.flash_attention.n_launches, fa.flash_attention_bwd.n_launches)
+    need(counts == (2, 1), f"flash attention under checkpoint: launches (forward, backward) "
+         f"{counts} != (2, 1)")
+    want = torch.autograd.grad((ref.attention(q, k, v) * 2).sum(), (q, k, v))
+    for a, b, n in zip(got, want, ("dq", "dk", "dv")):
+        rel_close(a, b, "float32", f"flash attention autograd under checkpoint {n}")
+    print(f"[kernels] flash_attention_bwd sweep passed: every (DK, DV) pair {fa.HEAD_DIMS} in "
+          f"f32 (3e-5 of max|plain|) and bf16 (worst kernel-f32 {worst:.3f} x the plain bf16 "
+          f"path's distance, gate {BF16_FLOOR_RATIO}) on {len(cases)} edge shapes each, two "
+          "launches bitwise equal, o bitwise equal with and without the lse; under checkpoint "
+          "2 forward and 1 backward launches", flush=True)
+
+
+def flash_bwd_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | None = None,
+                     dtype_name: str = "bfloat16", scale: float | None = None) -> dict:
+    """The flash backward kernel at a train shape (causal; ``window``; v a
+    strided slice where ``dv`` differs from ``hd``): ``flash_bwd_check``,
+    then kernel, plain and library times, the device us of each of its
+    three CUDA kernels (D, dK/dV, dQ), and the bound
+    (``cost.flash_attention_bwd``).  The library call is the backward alone
+    of ``F.scaled_dot_product_attention(..., enable_gqa=True)`` (a band mask
+    where there is a window), its graph built once."""
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    dt = getattr(torch, dtype_name)
+    dv = hd if dv is None else dv
+    q, k, v, do = flash_bwd_inputs(torch, randn, B, S, hq, hkv, hd, dv, dt)
+    kw = dict(causal=True, window=window, scale=scale)
+    err, worst = flash_bwd_check(torch, q, k, v, do, what, **kw)
+    o, lse = fa._forward(q, k, v, True, window, hd ** -0.5 if scale is None else scale, 0, True)
+    work = cost.flash_attention_bwd(B, S, S, hq, hkv, hd, dv, q.element_size(), True, window)
+    ts = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - (window or S))
+    y = (F.scaled_dot_product_attention(*ts, is_causal=True, enable_gqa=True, scale=scale)
+         if window is None else
+         F.scaled_dot_product_attention(*ts, attn_mask=band, enable_gqa=True, scale=scale))
+    g = do.transpose(1, 2).contiguous()
+
+    def lib():
+        return torch.autograd.grad(y, ts, g, retain_graph=True)
+
+    def run():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+    rec = dict(
+        name="flash_attention_bwd", max_abs_err=err, floor_ratio=worst,
+        shape=(f"q ({B},{S},{hq},{hd}), k ({B},{S},{hkv},{hd}), v ({B},{S},{hkv},{dv})"
+               + (" strided" if dv != hd else "") + f" {dtype_name} causal"
+               + (f" window {window}" if window else "") + f" [{what}]"),
+        ms=time_ms([run], reps=5, inner=3),
+        plain_ms=time_ms([lambda: ref.attention_bwd(q, k, v, o, lse, do, **kw)], reps=3,
+                         inner=1),
+        library_ms=time_ms([lib], reps=5, inner=3),
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3,
+        ops_ms=work.flops / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3)
+    rec["device_us"] = device_us([run], 10)
+    rec["library_device_us"] = sum(device_us([lib], 10).values())
+    del y, ts, g
+    out = finish(rec)
+    fwd = cost.flash_attention(B, S, S, hq, hkv, hd, dv, q.element_size(), True, window)
+    print(f"[kernels] flash_attention_bwd {what}: device us a call "
+          f"{sum(rec['device_us'].values()):.1f} ({rec['device_us']}), SDPA backward device us "
+          f"{rec['library_device_us']:.1f}; the forward's work {fwd.flops:.4e} FLOPs, the "
+          f"backward's {work.flops:.4e}", flush=True)
+    return out
+
+
 def scheme_close(got, want32, what: str) -> None:
     """A bf16 tensor-core kernel against its own arithmetic in f32 (the plain
     ``ref.attention_bf16_scheme`` for flash attention,
@@ -1156,6 +1370,22 @@ def kernel_phase(torch, gen) -> dict:
         for rows in (4096, 4):
             x, sc = randn(rows, d, dtype=torch.bfloat16), (randn(d) * 0.1 + 1).bfloat16()
             close(rmsnorm(x, sc), ref.rmsnorm(x, sc), "bfloat16", f"rmsnorm ({rows}, {d})")
+    # The flash backward: its sweep, then the attention train shapes: the
+    # main path's (internlm2, batch 2 x 4096, 16/8 heads of 128) in bf16 and
+    # f32, and a sequence of each two-layer cut's (danube's 120 with window
+    # 4096 at 4608, minicpm3's 96 x 64 with v strided, phi3-vision's 96,
+    # granite's g = 3).
+    flash_bwd_sweep(torch, randn)
+    B, S = TRAIN_ATTN["B"], TRAIN_ATTN["S"]
+    recs["flash_attention_bwd"] = [
+        flash_bwd_record(torch, randn, B, S, 16, 8, 128, None, "internlm2 train"),
+        flash_bwd_record(torch, randn, B, S, 16, 8, 128, None, "internlm2 train f32",
+                         dtype_name="float32"),
+        flash_bwd_record(torch, randn, 1, 4608, 32, 8, 120, 4096, "danube train"),
+        flash_bwd_record(torch, randn, 1, S, 40, 40, 96, None, "minicpm3 train, MLA", dv=64,
+                         scale=96 ** -0.5),
+        flash_bwd_record(torch, randn, 1, S, 32, 32, 96, None, "phi3-vision train"),
+        flash_bwd_record(torch, randn, 1, S, 24, 8, 64, None, "granite train, g = 3")]
     torch.cuda.synchronize()
     return recs
 
@@ -1321,7 +1551,9 @@ def loss_and_grads(torch, cfg, params, batch, plain: bool, remat: bool = False) 
         t.requires_grad_(True)
     try:
         loss, _ = transformer.loss_fn(params, cfg, batch, remat=remat, plain=plain)
-        grads = torch.autograd.grad(loss, leaves)
+        # an embedding-stub arch does not read its token table: a zero gradient
+        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(
+            torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
     finally:
         for t in leaves:
             t.requires_grad_(False)
@@ -1330,11 +1562,14 @@ def loss_and_grads(torch, cfg, params, batch, plain: bool, remat: bool = False) 
 
 class NormVariant:
     """While active, the norm a path runs is changed, for the floor paths
-    of PERIOD_GATES.  ``"closed-form backward"``: the plain norm
+    of PERIOD_GATES and CUT_GATES.  ``"closed-form backward"``: the plain norm
     (``ref.rmsnorm``) under an autograd Function whose backward is
     dx = (g s) r - x r^3 mean(g s x), dscale = sum g (x r) in PyTorch ops,
     f32 (the backward kernel's formula with its own rounding).  ``"var in
     f64"``: the plain norm with its sum of squares in f64, rounded to f32.
+    ``"var in halves, closed-form backward"``: the sum of squares in f32 over
+    the row's two halves, added (a reassociation, as the kernel's sum is),
+    under the closed-form backward.
     ``"kernel backward"``: the kernel path's Function with the plain
     forward in place of the forward kernel, so only the backward kernel
     runs."""
@@ -1348,14 +1583,23 @@ class NormVariant:
         from repro_torch.kernels import rmsnorm as kernel_mod
         self._saved = [(ref, "rmsnorm", ref.rmsnorm), (kernel_mod, "_forward", kernel_mod._forward)]
         real = ref.rmsnorm
+
+        def norm_f64(x, scale, eps=1e-5):
+            var = (x.double() ** 2).mean(-1, keepdim=True).float()
+            return ((x.float() * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+        def norm_halves(x, scale, eps=1e-5):
+            xf, h = x.float(), x.shape[-1] // 2
+            var = ((xf[..., :h] ** 2).sum(-1, keepdim=True)
+                   + (xf[..., h:] ** 2).sum(-1, keepdim=True)) / x.shape[-1]
+            return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
         if self.kind == "kernel backward":
             kernel_mod._forward = lambda x, scale, eps: real(x, scale, eps)
         elif self.kind == "var in f64":
-            def norm(x, scale, eps=1e-5):
-                var = (x.double() ** 2).mean(-1, keepdim=True).float()
-                return ((x.float() * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
-            ref.rmsnorm = norm
+            ref.rmsnorm = norm_f64
         else:
+            if self.kind == "var in halves, closed-form backward":
+                real = norm_halves
             class Norm(torch.autograd.Function):
                 @staticmethod
                 def forward(ctx, x, scale, eps):
@@ -1398,17 +1642,67 @@ def profile_step(torch, fn) -> dict:
     return out, groups, counts
 
 
+def train_steps(torch, step, params, opt, batches, before, n_params: int, want: dict,
+                tag: str) -> tuple:
+    """``step`` over ``batches`` with every launch count set to 0 just
+    before and read just after: each step's synchronised wall and loss, the
+    card's busy share from ``nvidia-smi`` over the steps after the first,
+    peak memory and the params changed since ``before`` are printed; the
+    losses must be finite, the optimizer step count and the launches
+    exact.  Returns (params, opt, launches)."""
+    from repro_torch.optim import tree_leaves
+    kernels = all_kernels()
+    for fn in kernels.values():
+        fn.n_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, smi, util = [], [], None, []
+    try:
+        for i, b in enumerate(batches):
+            if i == 1:  # the card's own busy share, sampled over the steps after the first
+                smi = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
+                                        "--format=csv,noheader,nounits", "-lms", "100"],
+                                       stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                                       text=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+    finally:
+        if smi is not None:
+            smi.terminate()
+            util = [float(x) for x in smi.communicate(timeout=30)[0].split()
+                    if x.replace(".", "", 1).isdigit()]
+    launches = {name: fn.n_launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    changed = sum(int((a != b).sum()) for a, b in zip(before, tree_leaves(params)))
+    before.clear()
+    print(f"[{tag}] step walls {[round(w, 3) for w in walls]} s, losses "
+          f"{[round(x, 6) for x in losses]}, optimizer step {int(opt['step'])}, launches "
+          f"{launches}, peak device memory {peak:.2f} GiB; params changed in {changed} of "
+          f"{n_params} elements (bf16 at lr {float(m['lr']):.3e})", flush=True)
+    print(f"[{tag}] steps after the first: nvidia-smi utilization.gpu (the share of each "
+          f"100 ms in which a kernel ran) over {len(util)} samples, mean "
+          + (f"{statistics.mean(util):.1f} %: device idle share "
+             f"{1 - statistics.mean(util) / 100:.3f}" if util else "not measured"), flush=True)
+    need(all(np.isfinite(losses)), f"{tag} losses not finite: {losses}")
+    need(int(opt["step"]) == len(batches), f"{tag}: optimizer step {int(opt['step'])}")
+    need(changed > 0, f"{tag}: no parameter changed over the train steps")
+    need(launches == want, f"{tag}: kernel launches {launches} != expected {want}")
+    return params, opt, launches
+
+
 def train_phase(torch) -> dict:
     """The training path on the card: (1) one pattern period at full width,
     each path's loss and gradients against plain f32 (PERIOD_GATES); (2) the main path:
     full width and depth, STEPS AdamW steps with remat, exact launch counts;
     (3) the reduced loop resuming exactly after an injected failure; (4) a
-    flash-attention model's train step refused by the flash wrapper."""
+    hybrid model's train step refused by the SSD scan's wrapper."""
     import tempfile
     from repro_torch import configs as C
     from repro_torch.data import DataConfig
     from repro_torch.data.pipeline import _batch_at
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, tree_leaves
     from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step, train_loop
@@ -1506,46 +1800,8 @@ def train_phase(torch) -> dict:
     print(f"[train] full width bf16: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
           f"batch {B} x {S}, {TRAIN['steps']} AdamW steps, remat; params, optimizer state and "
           f"a copy of the params set up in {time.perf_counter() - t0:.1f} s", flush=True)
-    kernels = all_kernels()
-    for fn in kernels.values():
-        fn.n_launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    walls, losses, smi, util = [], [], None, []
-    try:
-        for i, b in enumerate(batches):
-            if i == 1:  # the card's own busy share, sampled over the steps after the first
-                smi = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
-                                        "--format=csv,noheader,nounits", "-lms", "100"],
-                                       stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-                                       text=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt, m = step(params, opt, b)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            losses.append(m["loss"].item())
-    finally:
-        if smi is not None:
-            smi.terminate()
-            util = [float(x) for x in smi.communicate(timeout=30)[0].split()
-                    if x.replace(".", "", 1).isdigit()]
-    launches = {name: fn.n_launches for name, fn in kernels.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    changed = sum(int((a != b).sum()) for a, b in zip(before, tree_leaves(params)))
-    del before
-    print(f"[train] step walls {[round(w, 3) for w in walls]} s, losses "
-          f"{[round(x, 6) for x in losses]}, optimizer step {int(opt['step'])}, launches "
-          f"{launches}, peak device memory {peak:.2f} GiB; params changed in {changed} of "
-          f"{n_params} elements (bf16 at lr {float(m['lr']):.3e})", flush=True)
-    print(f"[train] steps after the first: nvidia-smi utilization.gpu (the share of each "
-          f"100 ms in which a kernel ran) over {len(util)} samples, mean "
-          + (f"{statistics.mean(util):.1f} %: device idle share "
-             f"{1 - statistics.mean(util) / 100:.3f}" if util else "not measured"), flush=True)
-    need(all(np.isfinite(losses)), f"train losses not finite: {losses}")
-    need(int(opt["step"]) == TRAIN["steps"], f"optimizer step {int(opt['step'])}")
-    need(changed > 0, "no parameter changed over the train steps")
-    need(launches == TRAIN_LAUNCHES, f"train: kernel launches {launches} != expected "
-         f"{TRAIN_LAUNCHES}")
+    params, opt, launches = train_steps(torch, step, params, opt, batches, before, n_params,
+                                        TRAIN_LAUNCHES, "train")
     del params, opt, step, leaves, batches
     torch.cuda.empty_cache()
 
@@ -1580,23 +1836,267 @@ def train_phase(torch) -> dict:
     need(out["restarts"] == 1 and out["losses"] == ref["losses"][5:] and same_params,
          "the resumed reduced loop does not reproduce the uninterrupted run bit for bit")
 
-    # (4) A flash-attention model cannot train on the card: its wrapper
-    # refuses a grad-requiring input before any launch.
-    icfg = C.get_config("internlm2_1p8b").reduced(n_layers=2, d_model=128, vocab=1024)
-    ip = init_params(SEED, icfg, device="cuda")
-    n0 = flash_attention.n_launches
-    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, icfg.vocab, (2, 32))).cuda()
+    # (4) A hybrid model cannot train on the card yet: the SSD scan's wrapper
+    # refuses a grad-requiring input before any launch (its backward kernel
+    # is the next slice).
+    from repro_torch.kernels.ssm_scan import ssd_scan
+    hcfg = C.get_config("hymba_1p5b").reduced(n_layers=2, d_model=128, vocab=1024)
+    hp = init_params(SEED, hcfg, device="cuda")
+    n0 = ssd_scan.n_launches
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, hcfg.vocab, (2, 32))).cuda()
     try:
-        make_train_step(icfg, TrainConfig())(ip, init_opt_state(ip, TrainConfig()),
+        make_train_step(hcfg, TrainConfig())(hp, init_opt_state(hp, TrainConfig()),
                                             {"tokens": tokens})
         refused = None
     except NotImplementedError as e:
         refused = str(e)
-    print(f"[train] reduced internlm2 train step on the card: "
+    print(f"[train] reduced hymba train step on the card: "
           + (f"refused: {refused}" if refused else "NOT refused"), flush=True)
-    need(refused is not None and refused.startswith("flash_attention")
-         and flash_attention.n_launches == n0,
-         "a flash-attention model's train step on the card was not refused by the flash wrapper")
+    need(refused is not None and refused.startswith("ssd_scan") and ssd_scan.n_launches == n0,
+         "a hybrid model's train step on the card was not refused by the SSD scan's wrapper")
+    return launches
+
+
+class AttentionClosedForm:
+    """While active, the plain attention (``ref.attention``, what
+    ``plain=True`` runs) is computed in closed form from the rows'
+    log-sum-exp, o = exp(S·scale - lse) V in f32, S over two halves of the
+    head dim and P·V over two halves of the keys (each sum reassociated),
+    and carries its gradient through ``ref.attention_bwd`` under an
+    autograd Function, in place of softmax and autograd through it: the
+    flash kernels' formulas, rounded otherwise (half of CUTS's f32 floor
+    path)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ref
+        self._ref, self._real = ref, ref.attention
+
+        def closed_form(q, k, v, lse, causal=True, window=None, scale=None, kv_offset=0):
+            B, Sq, Hq, D = q.shape
+            _, Skv, Hkv, Dv = v.shape
+            g = Hq // Hkv
+            scale = D ** -0.5 if scale is None else scale
+            qf, kf, vf = q.float().reshape(B, Sq, Hkv, g, D), k.float(), v.float()
+            hd, hk = D // 2, Skv // 2
+            s = (torch.einsum("bqhgd,bkhd->bhgqk", qf[..., :hd], kf[..., :hd])
+                 + torch.einsum("bqhgd,bkhd->bhgqk", qf[..., hd:], kf[..., hd:])) * scale
+            mask = ref._attention_mask(Sq, Skv, causal, window, kv_offset, q.device)
+            p = torch.exp(s.masked_fill(~mask, float("-inf"))
+                          - lse.reshape(B, Hkv, g, Sq)[..., None])
+            p = torch.where(mask.any(-1)[:, None], p, 1.0 / Skv)
+            o = (torch.einsum("bhgqk,bkhd->bqhgd", p[..., :hk], vf[:, :hk])
+                 + torch.einsum("bhgqk,bkhd->bqhgd", p[..., hk:], vf[:, hk:]))
+            return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
+
+        class Attention(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, kw):
+                lse = ref.attention_lse(q, k, **kw)
+                o = closed_form(q, k, v, lse, **kw)
+                ctx.save_for_backward(q, k, v, o, lse)
+                ctx.kw = kw
+                return o
+
+            @staticmethod
+            def backward(ctx, do):
+                return (*ref.attention_bwd(*ctx.saved_tensors, do.contiguous(), **ctx.kw), None)
+
+        ref.attention = lambda q, k, v, **kw: Attention.apply(q, k, v, kw)
+        return self
+
+    def __exit__(self, *exc):
+        self._ref.attention = self._real
+
+
+def cut_batch(torch, cfg, S: int) -> dict:
+    """One sequence of the pipeline's batch 0 at ``S`` tokens (embeddings
+    and labels for an embedding-stub arch), on the card."""
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import _batch_at
+    b = _batch_at(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=1, seed=SEED,
+                             embed_stub_dim=cfg.d_model if cfg.embed_stub else None), 0, 0, 1)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+
+
+def token_nll(torch, cfg, params, batch, plain: bool):
+    """The sequence's per-token NLL, as ``transformer.loss_fn`` forms it
+    before its mean (f32, no gradient)."""
+    from repro_torch.models import transformer
+    with torch.no_grad():
+        logits, _ = transformer.forward(params, cfg, batch, keep_padded=True, plain=plain)
+        labels = batch.get("labels")
+        if labels is None:
+            labels, logits = batch["tokens"][:, 1:], logits[:, :-1]
+        logp = torch.nn.functional.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, labels.long()[..., None])[..., 0].flatten()
+
+
+def train_cut(torch, arch: str, S: int) -> None:
+    """A two-layer cut of ``arch`` at full width (CUTS): each path's loss
+    (token by token) and gradient (every leaf as one vector) against plain
+    f32, remat off, held to CUT_GATES's floors at BF16_FLOOR_RATIO."""
+    from repro_torch import configs as C
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(C.production_cfg(C.get_config(arch)), n_layers=2)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    p = init_params(SEED, cfg, device="cuda")
+    p32 = _tree_map(p, lambda t: t.float())
+    names = leaf_names(p)
+    batch = cut_batch(torch, cfg, S)
+    t0 = time.perf_counter()
+    runs = {}
+    with (RouteLog("f32") if cfg.moe is not None else contextlib.nullcontext()) as routes:
+        for name, c, prm, plain in (("f32", cfg32, p32, True), ("kernel", cfg, p, False),
+                                    ("plain", cfg, p, True), ("kernel32", cfg32, p32, False),
+                                    ("f32 floor", cfg32, p32, True)):
+            if routes is not None:
+                routes.path = name
+            with contextlib.ExitStack() as variants:
+                if name == "f32 floor":
+                    variants.enter_context(NormVariant("var in halves, closed-form backward"))
+                    variants.enter_context(AttentionClosedForm())
+                runs[name] = (*loss_and_grads(torch, c, prm, batch, plain),
+                              token_nll(torch, c, prm, batch, plain))
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dist = {}
+    for name in runs:
+        if name == "f32":
+            continue
+        (la, ga, na), (lb, gb, nb) = runs[name], runs["f32"]
+        mean = (abs(la.float() - lb) / abs(lb)).item()
+        tokens = (torch.linalg.vector_norm(na - nb) / torch.linalg.vector_norm(nb)).item()
+        sq = [((a.float() - b) ** 2).sum().item() for a, b in zip(ga, gb)]
+        grad = (sum(sq) / sum((b ** 2).sum().item() for b in gb)) ** 0.5
+        leaf = [((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(ga, gb)]
+        dist[name] = (tokens, grad)
+        top = sorted(range(len(leaf)), key=leaf.__getitem__, reverse=True)[:3]
+        print(f"[train attention] {arch} two layers at full width, S {S}: {name} vs plain f32: "
+              f"loss {la.item():.6f} (f32 {lb.item():.6f}), |d| / |ref| {mean:.3e}, token by "
+              f"token |d|2 / |ref|2 {tokens:.3e}; gradient ({len(ga)} leaves as one vector) "
+              f"|d|2 / |ref|2 {grad:.3e}; per leaf max|d| / max|g| worst "
+              + ", ".join(f"{names[i]} {leaf[i]:.3e}" for i in top)
+              + f", median {statistics.median(leaf):.3e}", flush=True)
+    need(all(bool(torch.isfinite(r[0])) and bool(torch.isfinite(r[2]).all())
+             for r in runs.values()), f"{arch} cut: loss not finite")
+    for what, k, floor_name in CUT_GATES:
+        for i, metric in enumerate(("token loss", "gradient")):
+            got, floor = dist[k][i], dist[floor_name][i]
+            print(f"[train attention] {arch} {what}: {k}-f32 {metric} {got:.3e} against the "
+                  f"floor ({floor_name}-f32) {floor:.3e}: "
+                  + (f"{got / floor:.3f} x" if floor else "both 0")
+                  + f" (gate {BF16_FLOOR_RATIO} x)", flush=True)
+            need(got <= BF16_FLOOR_RATIO * floor, f"{arch} cut: {k}-f32 {metric} {got:.3e} > "
+                 f"{BF16_FLOOR_RATIO} x the floor {floor:.3e}")
+    print(f"[train attention] {arch} cut: {len(runs)} paths' loss and gradients {wall:.1f} s",
+          flush=True)
+
+
+def train_attention_phase(torch) -> dict:
+    """This slice's main path and its checks: (1) internlm2-1.8B at full
+    width and depth, bf16, remat, TRAIN_ATTN's three AdamW steps through
+    ``make_train_step`` with every launch count set to 0 just before and
+    read just after (exact forward and backward launches of both kernels,
+    finite losses, walls, idle share, peak memory); (2) the two-layer cuts
+    (CUTS) held to their floors; (3) the launcher's default command
+    (``python -m repro_torch.launch.train``: reduced internlm2 on the card)
+    in a child process, and the reduced loop's exact resume for internlm2.
+    Returns (1)'s launches."""
+    import tempfile
+    from repro_torch import configs as C
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import _batch_at
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step, train_loop
+
+    card = card_line()
+    B, S = TRAIN_ATTN["B"], TRAIN_ATTN["S"]
+    cfg = C.production_cfg(C.get_config(TRAIN_ATTN["arch"]))
+    need(cfg.n_layers == TRAIN_ATTN["layers"], f"{cfg.n_layers} layers")
+    t0 = time.perf_counter()
+    params = init_params(SEED, cfg, device="cuda")
+    tcfg = TrainConfig()
+    opt = init_opt_state(params, tcfg)
+    step = make_train_step(cfg, tcfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    before = [t.clone() for t in tree_leaves(params)]
+    batches = [{"tokens": torch.from_numpy(_batch_at(DataConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B, seed=SEED), i, 0, 1)["tokens"]).cuda()}
+        for i in range(TRAIN_ATTN["steps"])]
+    torch.cuda.synchronize()
+    print(f"[train attention] {TRAIN_ATTN['arch']} full width bf16: {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B params, batch {B} x {S}, {TRAIN_ATTN['steps']} AdamW steps, "
+          f"remat; set up in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    params, opt, launches = train_steps(torch, step, params, opt, batches, before, n_params,
+                                        TRAIN_ATTN_LAUNCHES, "train attention")
+    # Where a step's device time goes: one more step, its unprofiled wall,
+    # then the same under the profiler, by kernel group.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt, batches[0])
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    _, groups, counts = profile_step(torch, lambda: step(params, opt, batches[0]))
+    dev_us = sum(groups.values())
+    print(f"[train attention] one step (bf16, remat, batch {B} x {S}): wall {bare * 1e3:.3f} ms "
+          f"unprofiled, kernels {dev_us / 1e3:.3f} ms: device idle share "
+          f"{1 - dev_us / (bare * 1e6):.3f}"
+          + "".join(f"; {g} {us / 1e3:.3f} ms ({counts[g]} kernels)"
+                    for g, us in sorted(groups.items(), key=lambda kv: -kv[1])) + f" [{card}]",
+          flush=True)
+    del params, opt, step, batches
+    torch.cuda.empty_cache()
+
+    for arch, cut_s in CUTS.items():
+        train_cut(torch, arch, cut_s)
+        torch.cuda.empty_cache()
+
+    # (3) the launcher's default command, as a user runs it
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--ckpt-dir",
+                            f"{d}/ckpt"], capture_output=True, text=True, env=env, cwd=ROOT,
+                           timeout=300)
+        wall = time.perf_counter() - t0
+    out = [line for line in r.stdout.splitlines() if line.startswith("[train]")]
+    print(f"[train attention] python -m repro_torch.launch.train (the default command: "
+          f"reduced internlm2, 50 steps, batch 8 x 128, on the card): rc {r.returncode}, "
+          f"{wall:.1f} s; {out[-1] if out else r.stderr[-2000:]}", flush=True)
+    need(r.returncode == 0 and out and "device=cuda" in out[-1] and "nan" not in out[-1],
+         f"the launcher's default command failed: {r.stderr[-3000:]}")
+
+    rcfg = C.get_config(TRAIN_ATTN["arch"]).reduced(n_layers=2, d_model=128, vocab=1024)
+    rtcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=2, total_steps=10))
+    dcfg = DataConfig(vocab=rcfg.vocab, seq_len=64, global_batch=4)
+    fired = []
+
+    def fail_at(s):
+        if s == 7 and not fired:
+            fired.append(s)
+            return True
+        return False
+
+    with tempfile.TemporaryDirectory() as d:
+        ref = train_loop.run(rcfg, rtcfg, train_loop.LoopConfig(
+            total_steps=10, ckpt_every=5, ckpt_dir=f"{d}/ref"), dcfg, device="cuda")
+        res = train_loop.run_with_restarts(rcfg, rtcfg, train_loop.LoopConfig(
+            total_steps=10, ckpt_every=5, ckpt_dir=f"{d}/run"), dcfg, fail_at=fail_at,
+            device="cuda")
+    same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(res["params"]),
+                                                        tree_leaves(ref["params"])))
+    print(f"[train attention] reduced internlm2 loop on the card: uninterrupted losses "
+          f"{[round(x, 6) for x in ref['losses']]}; restarts {res['restarts']}, resumed losses "
+          f"(steps 5-9) {[round(x, 6) for x in res['losses']]}, bitwise equal "
+          f"{res['losses'] == ref['losses'][5:]}, final params bitwise equal {same_params}; "
+          f"step walls median {statistics.median(ref['walls']) * 1e3:.1f} ms", flush=True)
+    need(res["restarts"] == 1 and res["losses"] == ref["losses"][5:] and same_params,
+         "the resumed reduced internlm2 loop does not reproduce the uninterrupted run bit for "
+         "bit")
     return launches
 
 
@@ -1605,7 +2105,7 @@ def train_phase(torch) -> dict:
 # batch that fits one card.
 DRYRUN_CELLS = (("h2o_danube3_4b", "long_500k"), ("hymba_1p5b", "long_500k"),
                 ("xlstm_1p3b", "long_500k"), ("internlm2_1p8b", "decode_32k"),
-                ("internlm2_1p8b", "prefill_32k"))
+                ("internlm2_1p8b", "prefill_32k"), ("internlm2_1p8b", "train_4k"))
 # The card's peak against the trace's: within 2 % and 64 MiB (what the trace
 # does not see: kernels' own temporaries, as cub's in a sort, and blocks the
 # allocator does not split).
@@ -1688,6 +2188,10 @@ def dryrun_inputs(torch, cfg, kind: str, B: int, S: int, dtype=None, first: int 
     same values)."""
     from repro_torch.models import init_cache
     seqs = range(first, first + B)
+    if kind == "train":  # the step's optimizer state is made beside the params (dryrun_cell)
+        rows = [np.random.default_rng([SEED, b]).integers(0, cfg.vocab, S, dtype=np.int32)
+                for b in seqs]
+        return {"batch": {"tokens": torch.from_numpy(np.stack(rows)).cuda()}}
     if kind == "prefill":
         rows = [np.random.default_rng([SEED, b]).integers(0, cfg.vocab, S, dtype=np.int32)
                 for b in seqs]
@@ -1742,7 +2246,11 @@ def dryrun_phase(torch) -> tuple[dict, list]:
 def dryrun_step(torch, cfg, kind: str, params, inputs):
     """The cell's step on ``inputs`` (``dryrun_inputs``), through the
     kernels, as a function of nothing."""
-    from repro_torch.runtime import make_decode_step, make_prefill_step
+    from repro_torch.runtime import (TrainConfig, make_decode_step, make_prefill_step,
+                                     make_train_step)
+    if kind == "train":
+        step = make_train_step(cfg, TrainConfig())
+        return lambda: step(params, inputs["opt"], inputs["batch"])[2]
     if kind == "prefill":
         step = make_prefill_step(cfg)
         return lambda: step(params, inputs["batch"])
@@ -1774,6 +2282,8 @@ def dryrun_cell(torch, arch: str, shape_name: str, card: str, launches: dict) ->
     print(dryrun.summary(rec), flush=True)
     print(f"[dryrun] record {json.dumps(rec)}", flush=True)
     need(rec["status"] == "ok", f"dryrun {arch} {shape_name}: {rec.get('error')}")
+    if SHAPES[shape_name].kind == "train":
+        return dryrun_train_cell(torch, rec, card, launches, t_cell)
     shape, oc = SHAPES[shape_name], rec["one_card"]
     if shape.global_batch == 1:
         need(oc["fits"], f"dryrun {arch} {shape_name}: the whole cell does not fit one card")
@@ -1864,6 +2374,70 @@ def dryrun_cell(torch, arch: str, shape_name: str, card: str, launches: dict) ->
     return held
 
 
+def train_state(params) -> dict:
+    """A fresh AdamW state for ``params`` at the reference's defaults."""
+    from repro_torch.runtime import TrainConfig, init_opt_state
+    return init_opt_state(params, TrainConfig())
+
+
+def dryrun_train_cell(torch, rec: dict, card: str, launches: dict, t_cell: float) -> list:
+    """A train cell of DRYRUN_CELLS: the step (``make_train_step``: forward,
+    remat backward through both backward kernels, AdamW) on the card at the
+    record's largest batch that fits one card, params and optimizer state
+    resident.  Gates: launches equal the trace's kernel calls, peak device
+    memory the trace's within PEAK_REL and PEAK_ABS, the metrics the trace's
+    shapes, a finite loss; then the next batch must peak over the cap or run
+    out of memory (``dryrun_next_batch``)."""
+    from repro_torch import configs as C
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models import init_params
+    arch, shape_name = rec["arch"], rec["shape"]
+    shape, oc = SHAPES[shape_name], rec["one_card"]
+    need(oc["max_batch"] >= 1, f"dryrun {arch} {shape_name}: no batch fits one card")
+    B, S, want = oc["max_batch"], shape.seq_len, oc["check"]
+    cfg = C.production_cfg(C.get_config(arch))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_params(SEED, cfg, device="cuda")
+    inputs = dryrun_inputs(torch, cfg, "train", B, S)
+    inputs["opt"] = train_state(params)
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    run = dryrun_step(torch, cfg, "train", params, inputs)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, counts, wall = counted(torch, run)
+    peak = torch.cuda.max_memory_allocated() - base
+    got_out = dict(collections.Counter(str(tuple(t.shape)) for t in _leaves(metrics)))
+    loss = metrics["loss"].item()
+    del inputs, run, metrics
+    print(f"[dryrun] {arch} {shape_name} on the card at batch {B} x {S}: arguments {args} B "
+          f"(trace {want['arg_bytes']}), peak {peak} B against the trace's "
+          f"{want['peak_bytes']} ({(peak - want['peak_bytes']) / 2**20:+.1f} MiB, "
+          f"{peak / want['peak_bytes'] - 1:+.4%}; the step's rise over its arguments "
+          f"{peak - args} B, traced {want['peak_bytes'] - want['arg_bytes']}); "
+          f"reserved at most {torch.cuda.max_memory_reserved()} B; launches {counts} (trace "
+          f"{want['kernel_calls']}); loss {loss:.6f}; step wall {wall * 1e3:.3f} ms (the "
+          f"first call); mfu {want['flops'] / (wall * PEAK_BF16):.4f}, computed bytes over "
+          f"the byte rate {want['hbm_bytes'] / (wall * PEAK_BYTES):.4f} [{card}]", flush=True)
+    need({k: counts[k] for k in want["kernel_calls"]} == want["kernel_calls"]
+         and counts["dp_sweep"] == 0,
+         f"dryrun {arch} {shape_name}: launches {counts} != the trace's "
+         f"{want['kernel_calls']}")
+    need(abs(peak - want["peak_bytes"]) <= PEAK_REL * want["peak_bytes"] + PEAK_ABS,
+         f"dryrun {arch} {shape_name}: peak {peak} B vs the trace's {want['peak_bytes']} B")
+    need(got_out == want["outputs"],
+         f"dryrun {arch} {shape_name}: outputs {got_out} != the trace's {want['outputs']}")
+    need(np.isfinite(loss), f"dryrun {arch} {shape_name}: loss {loss}")
+    for name in launches:
+        launches[name] += counts[name]
+    dryrun_next_batch(torch, cfg, "train", S, params, base, oc, f"{arch} {shape_name}", card)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[dryrun] {arch} {shape_name}: cell {time.perf_counter() - t_cell:.1f} s", flush=True)
+    return []
+
+
 def dryrun_next_batch(torch, cfg, kind: str, S: int, params, base: int, oc: dict, what: str,
                       card: str) -> None:
     """The batch after the dry-run's largest (``oc["next"]``) on the card,
@@ -1875,8 +2449,10 @@ def dryrun_next_batch(torch, cfg, kind: str, S: int, params, base: int, oc: dict
     torch.cuda.reset_peak_memory_stats()
     try:
         inputs = dryrun_inputs(torch, cfg, kind, nxt["batch"], S)
+        if kind == "train":
+            inputs["opt"] = train_state(params)
         run = dryrun_step(torch, cfg, kind, params, inputs)
-        with torch.inference_mode():
+        with torch.inference_mode(kind != "train"):
             out = run()
             torch.cuda.synchronize()
         del out
@@ -2014,11 +2590,12 @@ def all_kernels() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dp_sweep import dp_sweep
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.ssm_scan import ssd_scan
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
             "decode_attention": decode_attention, "ssd_scan": ssd_scan, "dp_sweep": dp_sweep,
-            "rmsnorm_bwd": rmsnorm_bwd}
+            "rmsnorm_bwd": rmsnorm_bwd, "flash_attention_bwd": flash_attention_bwd}
 
 
 def swarm_problem(model: str, n: int, requests: int, hotspots: int, comp: float):
@@ -3379,6 +3956,10 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     # no TPU kernel: the Pallas rmsnorm has no VJP, and the reference trains
     # through XLA's autodiff of ref.rmsnorm
     "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/ref.py:40"),
+    # no TPU kernel either: the Pallas flash attention has no VJP, and the
+    # reference trains through XLA's autodiff of ref.attention
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/ref.py:47"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 EXTRAS = ("grid", "plan", "device_us", "depth_us", "norepeat_us", "decode_rows")
@@ -3428,6 +4009,9 @@ def main() -> int:
     by_path["train"] = train_phase(torch)
     torch.cuda.empty_cache()
     phase_done("train")
+    by_path["train attention"] = train_attention_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("train attention")
     by_path["dryrun"], held = dryrun_phase(torch)
     for rec in held:  # the kernels at the dry-run cells' shapes
         recs[rec["name"]].append(rec)

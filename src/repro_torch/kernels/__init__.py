@@ -4,7 +4,9 @@ device dispatch.
 rmsnorm          — fused row norm and its backward, dx and a fixed-order
                    dscale (``csrc/rmsnorm.cu``)
 flash_attention  — online-softmax attention forward, causal/window/GQA; bf16
-                   on the tensor cores (``csrc/flash_attention.cu``)
+                   on the tensor cores (``csrc/flash_attention.cu``), and its
+                   backward, dq/dk/dv from the forward's lse, no atomics
+                   (``csrc/flash_attention_bwd.cu``)
 decode_attention — single-token split-K flash-decode over (ring) KV caches
                    (``csrc/decode_attention.cu``)
 ssm_scan         — chunked Mamba-2 SSD scan, one block per (batch, head)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is compiled
 on its own by ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash is of the
-source, so an edited source is rebuilt and a stale library is never loaded).
+source and the ``csrc/*.cuh`` headers, so an edited source or header is
+rebuilt and a stale library is never loaded).
 All missing libraries are built together, one ``nvcc`` process per source, the
 first time any kernel is launched.  Nothing here runs at import time: the CPU
 tests import every module on a machine with no ``nvcc``.
@@ -67,7 +68,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
+    """The library of ``src``, named by a hash of the source, the headers
+    beside it (``csrc/*.cuh``, which a source may include) and the flags."""
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
@@ -147,9 +152,10 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-# Why flash attention and the SSD scan refuse a gradient on the card.
-NO_BACKWARD = ("the reference's Pallas kernel has none either; ROADMAP Queue 2 records a "
-               "backward kernel for it as optional work")
+# Why the SSD scan refuses a gradient on the card.
+NO_BACKWARD = ("the reference's Pallas kernel has none and trains through XLA's autodiff of "
+               "the chunked scan; the scan's backward kernel is the next bring-up slice, "
+               "ROADMAP Queue 1")
 
 
 def refuse_grad(kernel: str, brings: str, *tensors: torch.Tensor | None) -> None:

@@ -72,6 +72,18 @@ def flash_attention(B: int, sq: int, skv: int, hq: int, hkv: int, dk: int, dv: i
                 B * (sq * hq * dk + skv * hkv * dk + skv * hkv * dv + sq * hq * dv) * elem_bytes)
 
 
+def flash_attention_bwd(B: int, sq: int, skv: int, hq: int, hkv: int, dk: int, dv: int,
+                        elem_bytes: int, causal: bool = True, window: int | None = None,
+                        kv_offset: int = 0) -> Work:
+    """q, k, v, o and dO read with the f32 lse, dq, dk and dv written once;
+    for each unmasked pair and query head five products: S and dQ and dK
+    over dk, dP and dV over dv."""
+    pairs = attention_pairs(sq, skv, causal, window, kv_offset)
+    q, kk, vv, o = B * sq * hq * dk, B * skv * hkv * dk, B * skv * hkv * dv, B * sq * hq * dv
+    return Work(2 * B * hq * (3 * dk + 2 * dv) * pairs,
+                (2 * (q + kk + vv) + 2 * o) * elem_bytes + B * hq * sq * 4)
+
+
 def decode_attention(B: int, hq: int, hkv: int, dk: int, dv: int, valid: int,
                      elem_bytes: int) -> Work:
     """The valid K and V slots read, q read and o written once, and a 4-byte

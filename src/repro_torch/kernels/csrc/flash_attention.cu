@@ -18,6 +18,12 @@
 //   are masked here rather than padded in device memory, and q, k and v are
 //   read through their (batch, seq, head) strides, so v may be a slice of a
 //   fused qkv projection.
+//   With `lse` non-null, each row's log-sum-exp of its scaled, masked logits
+//   is also written, f32 (B,Hq,Sq), in natural-log units: m*scale + ln(l),
+//   -1e30 for a row with no valid key (the plain ref.attention_lse).  The
+//   backward (flash_attention_bwd.cu) recomputes P from it.  It is stored
+//   after o and touches nothing o is computed from, so o is the same to the
+//   bit with and without it.
 //
 // Bound on the card: operations.  Causal prefill at B 4, S 1024, 16 heads of
 // 128 does ~17 GFLOP on ~50 MB, well above the H100's ~295 flop/byte ridge.
@@ -60,12 +66,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using namespace flash;  // key_range, tile_range and the bf16 building blocks
 
 constexpr float kNegInf = -1e30f;
 
 struct Params {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;  // (B,Hq,Sq) or null
   int B, Sq, Skv, Hq, Hkv;
   long long q_sb, q_ss, q_sh;  // element strides; the head dim is contiguous
   long long k_sb, k_ss, k_sh;
@@ -73,30 +84,6 @@ struct Params {
   float scale;
   int causal, window, kv_offset;  // window <= 0: none
 };
-
-// Valid keys of the query at absolute position qpos are [lo, hi] (empty if hi < lo).
-__device__ __forceinline__ void key_range(const Params& p, int qpos, int* lo, int* hi) {
-  *lo = p.window > 0 ? max(0, qpos - p.window + 1) : 0;
-  *hi = p.causal ? min(qpos, p.Skv - 1) : p.Skv - 1;
-}
-
-// Key tiles of width bk that the query block [q0, q0 + bq) must visit.  Valid-key
-// bounds are monotone in the query position, so the block's first and last
-// rows give them.  If any row has no valid key at all, every key counts (the
-// plain version's uniform softmax over -1e30), so the whole range is visited.
-__device__ __forceinline__ void tile_range(const Params& p, int q0, int bq, int bk,
-                                           int* begin, int* end) {
-  const int last_row = min(q0 + bq, p.Sq) - 1;
-  int lo0, hi0, lo1, hi1;
-  key_range(p, q0 + p.kv_offset, &lo0, &hi0);
-  key_range(p, last_row + p.kv_offset, &lo1, &hi1);
-  *begin = 0;
-  *end = (p.Skv + bk - 1) / bk;
-  if (hi0 >= lo0 && hi1 >= lo1) {
-    *begin = lo0 / bk;
-    *end = hi1 / bk + 1;
-  }
-}
 
 __device__ __forceinline__ bool key_valid(const Params& p, int kpos, int qpos) {
   return (!p.causal || kpos <= qpos) && (p.window <= 0 || kpos > qpos - p.window);
@@ -249,6 +236,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
     float* orow = o + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * DV;
     #pragma unroll
     for (int c = 0; c < DV / 8; ++c) orow[tx + 8 * c] = acc[i][c] / denom;
+    // m is in scaled units here (Q was pre-scaled); a row with no valid key
+    // has m = -1e30, which absorbs ln(l)
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] = m[i] + logf(denom);
   }
 }
 
@@ -277,7 +268,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;       // K/V tiles in the cp.async ring
 constexpr int BQ = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr int BK = 64;           // keys per tile
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kAbsent = -__builtin_huge_valf();  // a key past Skv: exp2 gives 0
 // A masked logit, in unscaled units.  A power of two, so that its product with
 // the scale is exact and a row whose keys are all masked gets exp2(0) = 1 for
@@ -286,14 +277,7 @@ constexpr float kAbsent = -__builtin_huge_valf();  // a key past Skv: exp2 gives
 constexpr float kMaskRaw = -0x1p100f;
 static_assert(BQ <= BK, "Q is staged through one stage's K buffer");
 
-// A head dim padded to the m16n8k16 k-step (and to ldmatrix.x4's pairs of
-// 8-column matrices): 120 -> 128; 32, 64, 96 and 128 stay.
-template <int D> __host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
-// Shared-memory row pitch in bf16 elements: the padded D plus 16 bytes, so
-// the eight 16-byte rows of an ldmatrix 8x8 matrix start in distinct bank
-// quads (a pitch of 128 + 8 at D 120, not 120 + 8 = 256 bytes, which would
-// start every row in the same quad).  K rows take DK's pitch and V rows DV's.
-template <int D> __host__ __device__ constexpr int pitch() { return padded<D>() + 8; }
+// A K or V tile: BK rows at D's pitch (K rows take DK's, V rows DV's).
 template <int D> __host__ __device__ constexpr int tile_elems() { return BK * pitch<D>(); }
 // One stage: a K tile, then a V tile.
 template <int DK, int DV> __host__ __device__ constexpr int stage_elems() {
@@ -302,76 +286,6 @@ template <int DK, int DV> __host__ __device__ constexpr int stage_elems() {
 // kStages stages of a K and a V tile.
 template <int DK, int DV> __host__ __device__ constexpr int smem_bytes() {
   return kStages * stage_elems<DK, DV>() * 2;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 16-byte global -> shared copy; zero-fills the destination when !pred.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the SFU (MUFU.EX2), subnormal results flushed to 0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (a, b) as a bf16 pair `hi` and the bf16 pair of what rounding left, `lo`:
-// hi + lo carries a and b to ~2^-17 of their size.
-__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsigned& lo) {
-  hi = pack_bf16(a, b);
-  lo = pack_bf16(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xffff0000u));
-}
-
-// Rows [r0, r0 + nr) of a (rows, D) bf16 operand with row stride `ss` into a
-// shared tile of `nr` rows of padded<D>() columns; rows at or past `limit`,
-// and the pad columns past D of every row, are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long ss, int r0, int nr, int limit, int tid) {
-  constexpr int CH = D / 8, CHP = padded<D>() / 8;  // 16-byte chunks per row: real, padded
-  for (int idx = tid; idx < nr * CHP; idx += kThreads) {
-    const int r = idx / CHP, c = idx % CHP, row = r0 + r;
-    const bool in = row < limit && c < CH;
-    cp_async16(smem_addr(dst + r * pitch<D>() + c * 8),
-               src + (row < limit ? row : 0) * ss + (c < CH ? c : 0) * 8, in);
-  }
 }
 
 // Three blocks per SM where the padded dims pass (96,64)'s: (128,128) and
@@ -402,13 +316,15 @@ flash_fwd_bf16_kernel(const Params p) {
   tile_range(p, q0, BQ, BK, &kt_begin, &kt_end);
 
   // Prologue: Q, then the first kStages - 1 K/V tiles, one cp.async group each.
-  load_rows<DK>(q_stage, q, p.q_ss, q0, BQ, p.Sq, tid);
+  load_rows<DK, kThreads>(q_stage, q, p.q_ss, q0, BQ, p.Sq, tid);
   cp_async_commit();
   #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (kt_begin + i < kt_end) {
-      load_rows<DK>(smem + i * STAGE, k, p.k_ss, (kt_begin + i) * BK, BK, p.Skv, tid);
-      load_rows<DV>(smem + i * STAGE + TK, v, p.v_ss, (kt_begin + i) * BK, BK, p.Skv, tid);
+      load_rows<DK, kThreads>(smem + i * STAGE, k, p.k_ss, (kt_begin + i) * BK, BK, p.Skv,
+                              tid);
+      load_rows<DV, kThreads>(smem + i * STAGE + TK, v, p.v_ss, (kt_begin + i) * BK, BK,
+                              p.Skv, tid);
     }
     cp_async_commit();
   }
@@ -449,8 +365,8 @@ flash_fwd_bf16_kernel(const Params p) {
     __syncthreads();  // ... and for all; every thread is done with tile kt - 1's stage
     if (kt + kStages - 1 < kt_end) {  // refill that stage, kStages - 1 tiles ahead
       const int st = (it + kStages - 1) % kStages, kn = k0 + (kStages - 1) * BK;
-      load_rows<DK>(smem + st * STAGE, k, p.k_ss, kn, BK, p.Skv, tid);
-      load_rows<DV>(smem + st * STAGE + TK, v, p.v_ss, kn, BK, p.Skv, tid);
+      load_rows<DK, kThreads>(smem + st * STAGE, k, p.k_ss, kn, BK, p.Skv, tid);
+      load_rows<DV, kThreads>(smem + st * STAGE + TK, v, p.v_ss, kn, BK, p.Skv, tid);
     }
     cp_async_commit();
     const __nv_bfloat16* sK = smem + (it % kStages) * STAGE;
@@ -563,6 +479,14 @@ flash_fwd_bf16_kernel(const Params p) {
     for (int j = 0; j < NT; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
           __floats2bfloat162_rn(o_acc[j][2 * r] * inv, o_acc[j][2 * r + 1] * inv);
+    // The row max is kept unscaled: lse = (m |scale| log2e + log2 l) ln 2, in
+    // the scaled logits' units.  A row with no valid key gets the plain -1e30.
+    if (p.lse != nullptr && (lane & 3) == 0) {
+      int lo, hi;
+      key_range(p, row + p.kv_offset, &lo, &hi);
+      p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] =
+          hi < lo ? -1e30f : (m[r] * sl2 + log2f(fmaxf(lr, 1e-30f))) * kLn2;
+    }
   }
 }
 
@@ -590,13 +514,14 @@ int launch_d(const Params& p, int dtype, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  The output is contiguous (B,Sq,Hq,DV).
+// dtype: 0 = float32, 1 = bfloat16.  The output is contiguous (B,Sq,Hq,DV);
+// `lse`, where non-null, is f32 (B,Hq,Sq) contiguous.
 // (DK, DV) is one of (32,32), (64,64), (128,128), (120,120), (96,96) and (96,64).
 // bf16 operands are read by 16-byte copies: their base pointers must be
 // 16-byte aligned and their (b, s, h) strides multiples of 8 elements.
 // Returns a cudaError_t.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     int B, int Sq, int Skv, int Hq, int Hkv, int DK, int DV,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -612,7 +537,7 @@ extern "C" int flash_attention_fwd(
       if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
         return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  Params p{q, k, v, o, B, Sq, Skv, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+  Params p{q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
            v_sb, v_ss, v_sh, scale, causal, window, kv_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (DK == DV) {

@@ -10,7 +10,10 @@ sequential oracle of the SSD scan; the plain version the CPU path runs is
 mLSTM cell (XLA code in the reference, no kernel; decode runs it a step at
 a time).  The ``*_bf16_scheme`` functions are the
 arithmetic of a kernel's bf16 tensor-core path, in f32, to hold that kernel
-to within its output rounding.  ``dp_sweep`` is the placement path's
+to within its output rounding.  ``attention_lse`` and ``attention_bwd``
+are the plain versions of the flash forward's log-sum-exp output and of its
+backward kernel (the closed form of ``attention``'s gradient).
+``dp_sweep`` is the placement path's
 batched min-plus sweep, in f64 and in the numpy oracle's operation order.
 """
 
@@ -87,17 +90,78 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else D ** -0.5
     qf = q.float().mul(scale).reshape(B, Sq, Hkv, g, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
-    q_pos = torch.arange(Sq, device=q.device)[:, None] + kv_offset
-    k_pos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
+    mask = _attention_mask(Sq, Skv, causal, window, kv_offset, q.device)
     logits = logits.masked_fill(~mask, _NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
+
+
+def _attention_mask(sq: int, skv: int, causal: bool, window: int | None, kv_offset: int,
+                    device) -> torch.Tensor:
+    """(sq, skv) bool: the pairs :func:`attention` keeps."""
+    q_pos = torch.arange(sq, device=device)[:, None] + kv_offset
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None, scale: float | None = None,
+                  kv_offset: int = 0) -> torch.Tensor:
+    """Each row's log-sum-exp of the scaled, masked logits of
+    :func:`attention` (masked pairs at -1e30, the sum clamped at 1e-30), f32
+    (B, Hq, Sq): what the flash forward kernel writes beside o for its
+    backward.  A row with no valid key gets -1e30."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().mul(scale).reshape(B, Sq, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    mask = _attention_mask(Sq, Skv, causal, window, kv_offset, q.device)
+    logits = logits.masked_fill(~mask, _NEG_INF)
+    m = logits.amax(dim=-1)
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1).clamp_min(1e-30))
+    return lse.reshape(B, Hq, Sq)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                  lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None, scale: float | None = None,
+                  kv_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the flash backward kernel: the gradients of
+    :func:`attention` for an output gradient ``do`` (o's shape), in closed
+    form and f32, from the forward's output ``o`` and its ``lse``
+    (:func:`attention_lse`).  P = exp(S·scale - lse), D = rowsum(dO∘O),
+    dV = Pᵀ dO, dS = P∘(dO Vᵀ - D) on the kept pairs (a masked logit is a
+    constant), dQ = scale·dS K, dK = scale·dSᵀ Q, dK and dV summed over
+    each KV head's g query heads.  A row with no valid key weighs every key
+    1/Skv, as the forward's uniform softmax over -1e30 does.  Returns (dq,
+    dk, dv) in q's, k's and v's dtypes.  (The reference's gradient is XLA's
+    autodiff of its ``ref.attention``; its Pallas kernel has no VJP.)"""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, Sq, Hkv, g, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, Hkv, g, Dv)
+    mask = _attention_mask(Sq, Skv, causal, window, kv_offset, q.device)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    p = torch.exp(s.masked_fill(~mask, float("-inf"))
+                  - lse.float().reshape(B, Hkv, g, Sq)[..., None])
+    p = torch.where(mask.any(-1)[:, None], p, 1.0 / Skv)
+    dsum = (dof * o.float().reshape(B, Sq, Hkv, g, Dv)).sum(-1).permute(0, 2, 3, 1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = torch.where(mask, p * (dp - dsum[..., None]), 0.0)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).mul(scale).reshape(B, Sq, Hq, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf).mul(scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

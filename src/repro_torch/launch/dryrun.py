@@ -50,8 +50,10 @@ collectives by the mesh's device type, and its program differs between
 torch versions, so a record names the torch that traced it.
 Prefill and decode are traced under
 ``torch.inference_mode()``, as ``Server`` runs them, and train through
-``steps.make_train_step``; a train cell whose forward reaches a kernel with
-no backward records the wrapper's refusal.  Any failure is recorded as data,
+``steps.make_train_step``, the backward kernels' meta branches recording
+their work (RMSNorm's and flash attention's); a train cell whose forward
+reaches a kernel with no backward (the SSD scan) records the wrapper's
+refusal.  Any failure is recorded as data,
 never raised.
 
 xLSTM's sLSTM steps through its tokens in Python, so a trace at 32,768 tokens
@@ -110,7 +112,8 @@ ALLOCATOR = ("allocated bytes at 512-byte blocks, with the CUDA caching allocato
              "train launchers set them); on fixed segments the reserved bytes, which the "
              "trace does not predict, bind first near the cap")
 BLOCK = 512                    # the CUDA caching allocator's block rounding
-KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "decode_attention", "ssd_scan")
+KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "ssd_scan")
 # ops that allocate their output and write nothing
 _ALLOC_ONLY = {torch.ops.aten.empty, torch.ops.aten.empty_strided, torch.ops.aten.empty_like,
                torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided}
@@ -859,8 +862,9 @@ def _save(rec: dict, out_dir: pathlib.Path) -> None:
 def table(out_dir: pathlib.Path) -> str:
     """The per-device columns of the records in ``out_dir`` as a markdown
     table, a row an arch: its supported cells in shape order, separated by
-    ";", each "(16, 16) / (2, 16, 16)"; a train cell that records the flash
-    wrapper's refusal reads "refused", a record not written "—"."""
+    ";", each "(16, 16) / (2, 16, 16)"; a train cell that records a
+    wrapper's refusal (hymba's, the SSD scan's) reads "refused", a record not
+    written "—"."""
     recs: dict = collections.defaultdict(dict)
     for p in sorted(out_dir.glob("*.json")):
         r = json.loads(p.read_text())

@@ -43,6 +43,9 @@ from ..runtime import ServeConfig, Server, make_decode_step, make_prefill_step
 GROUPS = (("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
           ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")),
           ("flash_attention", ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel")),
+          ("flash_attention_bwd", ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_bf16_kernel",
+                                   "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_bf16_kernel",
+                                   "flash_bwd_dq_f32_kernel")),
           ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
           ("ssd_scan", ("ssd_chunk_state_kernel", "ssd_carry_kernel", "ssd_output_kernel",
                         "ssd_output_tc_kernel", "ssd_step_kernel")),

@@ -1,15 +1,17 @@
 """Training launcher: the fault-tolerant loop on the card by default.
 
+    PYTHONPATH=src python -m repro_torch.launch.train
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_1p3b --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4
 
 The reference's flags, plus ``--device``.  As in the reference,
 ``--reduced`` is on by default and cannot be turned off (``store_true``
 with ``default=True``): the loop always trains the reduced config.  The
-full-width train step runs through ``runtime.steps.make_train_step``.
-Attention, hybrid and mamba models train on the CPU only until flash
-attention and the SSD scan have backward kernels: on the card their kernels
-refuse a grad-requiring input.
+full-width train step runs through ``runtime.steps.make_train_step``.  The
+default command trains reduced internlm2 on the card (RMSNorm's and flash
+attention's backward kernels); hybrid and mamba models train on the CPU
+only until the SSD scan has a backward kernel: on the card it refuses a
+grad-requiring input.
 """
 
 from __future__ import annotations

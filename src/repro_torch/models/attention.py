@@ -42,9 +42,11 @@ def _split_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """Fused projection split as [q | k | v] of widths hq*hd, hkv*hd, hkv*hd."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q, k, v = torch.split(x @ sharding.gathered(p["wqkv"]), [hq * hd, hkv * hd, hkv * hd],
-                          dim=-1)
-    return q.reshape(B, S, hq, hd), k.reshape(B, S, hkv, hd), v.reshape(B, S, hkv, hd)
+    qkv = sharding.batch_layout_grad(x @ sharding.gathered(p["wqkv"]))
+    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    return (sharding.heads_whole(q, hq).reshape(B, S, hq, hd),
+            sharding.heads_whole(k, hkv).reshape(B, S, hkv, hd),
+            sharding.heads_whole(v, hkv).reshape(B, S, hkv, hd))
 
 
 def _window(cfg: ModelConfig) -> int | None:
@@ -65,8 +67,20 @@ def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
 def _out(p: dict, y: torch.Tensor, n_heads: int) -> torch.Tensor:
     """The output projection: row-parallel under a mesh (one all-reduce)
     where ``model`` divides the heads, so each rank's rows of ``wo`` are its
-    heads' rows; else ``wo`` whole."""
+    heads' rows; else ``wo`` whole.  Where attention ran by rows
+    (``ref._row_shard``: y's sequence on ``model``, its batch whole), each
+    rank's rows of its data slice of the batch take ``wo`` whole through
+    ``local_call``: under autograd a product runs as a view flattening
+    (batch, seq), which DTensor refuses over a sequence shard on some torch
+    versions (2.11)."""
     w = p["wo"]
+    if sharding.is_dtensor(y) and sharding.model_placement(y) == Shard(1):
+        mesh, axes = sharding.active_mesh()
+        split = y.shape[0] % sharding.dsize(mesh, axes) == 0
+        rows = sharding.axis_placements(y, Shard(0) if split else Replicate(), Shard(1))
+        w = sharding.whole(w)
+        return sharding.batch_layout(sharding.local_call(
+            torch.matmul, (y, w), (rows, sharding.replicated(w)), rows, y.device_mesh))
     if sharding.is_dtensor(w):
         mesh, axes = sharding.active_mesh()
         w = (sharding.gathered(w) if n_heads % sharding.mesh_sizes(mesh)[axes.model] == 0
@@ -157,7 +171,8 @@ def _expand_kv(p: dict, cfg: ModelConfig, c_kv: torch.Tensor, k_rope: torch.Tens
     # over a cache sharded by sequence the latent's slots stay where they
     # lie (each rank expands its own): the weight goes whole
     w = sharding.whole(w) if _model_sharded(c_kv, 1) else sharding.gathered(w)
-    kvb = (c_kv @ w).reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    kvb = sharding.heads_whole(sharding.batch_layout_grad(c_kv @ w), cfg.n_heads).reshape(
+        B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = torch.split(kvb, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)], dim=-1)
     return k, v
@@ -179,12 +194,14 @@ def _mla_q_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     m = cfg.mla
     B, S, _ = x.shape
     wq_a, wq_b, wkv_a = (sharding.gathered(p[k]) for k in ("wq_a", "wq_b", "wkv_a"))
-    q = rmsnorm(x @ wq_a, p["norm_q"]["scale"], cfg.norm_eps, plain=plain) @ wq_b
-    q = q.reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    lay = sharding.batch_layout_grad
+    q = rmsnorm(lay(x @ wq_a), p["norm_q"]["scale"], cfg.norm_eps, plain=plain) @ wq_b
+    q = sharding.heads_whole(lay(q), cfg.n_heads).reshape(
+        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q = torch.cat([q_nope, rope(q_rope, positions, cfg.rope_theta)], dim=-1)
 
-    c_kv, k_rope = torch.split(x @ wkv_a, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv, k_rope = torch.split(lay(x @ wkv_a), [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     c_kv = rmsnorm(c_kv.contiguous(), p["norm_kv"]["scale"], cfg.norm_eps, plain=plain)
     k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return q, c_kv, k_rope, torch.cat([c_kv, k_rope], dim=-1)

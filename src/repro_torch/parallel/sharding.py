@@ -427,6 +427,51 @@ def batch_layout(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(mesh, placements(spec, mesh))
 
 
+def heads_whole(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """A projection's output (.., n_heads * d) ready to be cut into heads:
+    where a DTensor's last dim lies on mesh axes in pieces that do not hold
+    whole heads, it is gathered there first.  Under autograd a reshape runs
+    as a view, which DTensor cannot unflatten over an uneven split; in
+    inference mode DTensor's own reshape gathers the same way, so prefill
+    and the train step run one program.  A plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+    d = x.dim() - 1
+    ways = 1
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == d:
+            ways *= x.device_mesh.size(i)
+    if n_heads % ways == 0:
+        return x
+    return x.redistribute(x.device_mesh, whole_dims(x, (d,)))
+
+
+class _BatchLayoutGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return batch_layout(g)
+
+
+def batch_layout_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient laid out as an activation
+    (``batch_layout``: pending sums reduced, replicated on ``model``) where
+    x is a DTensor whose batch does not divide the data axes.  There
+    DTensor's product backward would shard the flattened (batch x seq) rows
+    over data, and the view back to (batch, seq, ..) cannot unflatten them.
+    Where the batch divides, nothing changes."""
+    if not is_dtensor(x):
+        return x
+    mesh, axes = active_mesh()
+    if mesh is None or x.shape[0] % dsize(mesh, axes) == 0:
+        return x
+    return _BatchLayoutGrad.apply(x)
+
+
 def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """``x`` laid out as ``ref`` is (a decode step's new state as its
     cache's leaf, the reference's ``out_shardings``); plain tensors pass."""

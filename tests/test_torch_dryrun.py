@@ -152,12 +152,13 @@ def no_plain(monkeypatch):
     launch counts as they were before."""
     def refuse(*a, **k):
         raise AssertionError("a meta branch ran the plain version")
-    for mod, names in ((FA, ("plain",)), (DA, ("plain",)), (SS, ("plain",)),
+    for mod, names in ((FA, ("plain", "plain_bwd")), (DA, ("plain",)), (SS, ("plain",)),
                        (RN, ("plain", "plain_bwd"))):
         for n in names:
             monkeypatch.setattr(mod, n, refuse)
-    counts = {f: f.n_launches for f in (FA.flash_attention, DA.decode_attention,
-                                        SS.ssd_scan, RN.rmsnorm, RN.rmsnorm_bwd)}
+    counts = {f: f.n_launches for f in (FA.flash_attention, FA.flash_attention_bwd,
+                                        DA.decode_attention, SS.ssd_scan, RN.rmsnorm,
+                                        RN.rmsnorm_bwd)}
     yield
     assert {f: f.n_launches for f in counts} == counts
 
@@ -188,9 +189,18 @@ def test_flash_meta_branch(dk, dv, dtype, no_plain):
                                     window, off)
         assert mode.kernel_calls == {"flash_attention": 1}
         assert mode.flops_by["flash_attention"] == work.flops and mode.hbm_bytes == work.bytes
+    # under autograd: the Function's forward, then the backward's meta branch
     q = meta(1, 8, 2, dk, dtype=dtype).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        FA.flash_attention(q, meta(1, 8, 2, dk, dtype=dtype), meta(1, 8, 2, dv, dtype=dtype))
+    k, v = meta(1, 8, 2, dk, dtype=dtype), meta(1, 8, 2, dv, dtype=dtype)
+
+    def fwd_bwd():
+        o = FA.flash_attention(q, k, v)
+        return o, torch.autograd.grad(o, (q,), torch.empty_like(o))[0]
+    (o, dq), mode = recorded(fwd_bwd)
+    assert o.shape == (1, 8, 2, dv) and dq.shape == q.shape and dq.dtype == dtype and dq.is_meta
+    assert mode.kernel_calls == {"flash_attention": 1, "flash_attention_bwd": 1}
+    assert mode.flops_by["flash_attention_bwd"] == cost.flash_attention_bwd(
+        1, 8, 8, 2, 2, dk, dv, q.element_size(), True, None, 0).flops
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -358,13 +368,14 @@ CELL_IDS = [a for a in TC.ARCH_IDS] + ["granite_scatter"]
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 @pytest.mark.parametrize("arch,hook", CELLS, ids=CELL_IDS)
 def test_every_reduced_arch_traces(arch, hook, kind):
-    """prefill and decode trace with status ok; train does for xLSTM, and an
-    attention model's train cell records the flash wrapper's refusal."""
+    """prefill, decode and train trace with status ok, train through the
+    backward kernels' meta branches (RMSNorm's and flash attention's); a
+    hybrid model's train cell records the SSD scan wrapper's refusal."""
     rec = _reduced_record(CELLS.index((arch, hook)), kind)
     assert rec["layout"]["argument_size_in_bytes"] > 0
-    if kind == "train" and arch != "xlstm_1p3b":
+    if kind == "train" and arch == "hymba_1p5b":
         assert rec["status"] == "error"
-        assert rec["error"].startswith("NotImplementedError: flash_attention: an input "
+        assert rec["error"].startswith("NotImplementedError: ssd_scan: an input "
                                        "requires grad"), rec["error"]
         return
     assert rec["status"] == "ok", rec.get("traceback")
@@ -372,10 +383,13 @@ def test_every_reduced_arch_traces(arch, hook, kind):
     cfg = hook(None)
     assert calls["rmsnorm"] > 0 and rec["work"]["flops"] > 0
     attn = "attn" in cfg.block_pattern or "hybrid" in cfg.block_pattern
-    assert calls["flash_attention"] == (cfg.n_layers if attn and kind == "prefill" else 0)
+    # remat: each layer's forward kernels run again in the backward pass
+    runs = {"prefill": 1, "train": 2}.get(kind, 0)
+    assert calls["flash_attention"] == (runs * cfg.n_layers if attn else 0)
+    assert calls["flash_attention_bwd"] == (cfg.n_layers if attn and kind == "train" else 0)
     assert calls["decode_attention"] == (cfg.n_layers if attn and kind == "decode" else 0)
-    if kind == "train":  # xLSTM, remat: every group's 16 norms again in the backward pass
-        norms = 2 * cfg.n_layers
+    if kind == "train":  # every layer's norms again in the backward pass
+        norms = (4 if cfg.mla is not None else 2) * cfg.n_layers  # MLA: norm_q, norm_kv
         assert (calls["rmsnorm"], calls["rmsnorm_bwd"]) == (2 * norms + 1, norms + 1)
     else:
         assert calls["rmsnorm_bwd"] == 0

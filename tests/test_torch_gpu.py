@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain versions, on the
-card.  Every test here carries the ``gpu`` marker and skips where there is no
-CUDA device; the file imports neither jax nor the reference, so it runs on a
+card (the flash backward among them, against ``ref.attention_bwd``).  Every
+test here carries the ``gpu`` marker and skips where there is no CUDA
+device; the file imports neither jax nor the reference, so it runs on a
 machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -430,15 +431,14 @@ def test_rmsnorm_launch_counts_under_checkpoint(cuda):
 
 
 def test_forward_only_kernels_refuse_gradients(cuda):
-    """Flash attention, decode attention, the SSD scan and the DP sweep have
-    no backward kernel: given an input that requires grad, with grad mode
-    on, each wrapper raises NotImplementedError naming itself, before any
-    launch; under no_grad the same call runs."""
-    q = normal(0, 1, 16, 2, 32).requires_grad_(True)
+    """Decode attention, the SSD scan and the DP sweep have no backward
+    kernel: given an input that requires grad, with grad mode on, each
+    wrapper raises NotImplementedError naming itself, before any launch;
+    under no_grad the same call runs.  (Flash attention has its backward
+    kernel: ``test_flash_attention_function_launches_the_backward``.)"""
     qd, kc = normal(1, 1, 2, 32).requires_grad_(True), normal(2, 1, 8, 2, 32)
     x, a, b, c, _ = ssd_inputs(1, 8, 2, 16, 4)
     calls = {
-        "flash_attention": (flash_attention, lambda: flash_attention(q, q, q)),
         "decode_attention": (decode_attention, lambda: decode_attention(qd, kc, kc, 4)),
         "ssd_scan": (ssd_scan, lambda: ssd_scan(x, a, b.requires_grad_(True), c)),
     }
@@ -455,6 +455,122 @@ def test_forward_only_kernels_refuse_gradients(cuda):
         with torch.no_grad():
             call()
         assert wrapper.n_launches == n0 + 1, name
+
+
+# the flash-attention backward kernel
+
+BWD_CASES = [  # B, Sq, Skv, Hq, Hkv, causal, window, kv_offset
+    (2, 100, 100, 4, 2, True, None, 0),     # GQA, a ragged last tile
+    (1, 70, 130, 6, 2, True, None, 60),     # Skv past Sq, a kv_offset, g 3
+    (1, 77, 77, 3, 1, True, 20, 0),         # a window
+    (1, 40, 90, 4, 4, False, None, 0),      # non-causal, ragged
+    (1, 50, 60, 4, 1, True, 16, -10),       # rows with no valid key (leading)
+    (1, 33, 40, 2, 2, False, 8, 45),        # rows with no valid key (trailing)
+    (1, 300, 300, 8, 2, True, None, 0),     # several tiles each way
+]
+
+
+def bwd_inputs(B, Sq, Skv, Hq, Hkv, dk, dv, dtype, seed=0):
+    q, k = normal(seed, B, Sq, Hq, dk, dtype=dtype), normal(seed + 1, B, Skv, Hkv, dk, dtype=dtype)
+    v = (normal(seed + 2, B, Skv, Hkv, dv, dtype=dtype) if dk == dv else
+         normal(seed + 2, B, Skv, Hkv, dk + dv, dtype=dtype)[..., dk:])  # MLA: v strided
+    return q, k, v, normal(seed + 3, B, Sq, Hq, dv, dtype=dtype)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+@pytest.mark.parametrize("dk,dv", [(32, 32), (64, 64), (128, 128), (120, 120), (96, 96),
+                                   (96, 64)], ids=str)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dk, dv, case, name):
+    """dq, dk and dv against ``ref.attention_bwd`` on the forward kernel's
+    own o and lse: f32 within 3e-5 x max|plain|; bf16 within 1.25 x the
+    plain bf16 path's distance from the plain f32 closed form (both round
+    the same f32 values to bf16).  Two launches are bitwise equal (no
+    atomics), and o is the same to the bit with and without the lse."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, Hq, Hkv, causal, window, off = case
+    dt = DTYPES[name]
+    q, k, v, do = bwd_inputs(B, Sq, Skv, Hq, Hkv, dk, dv, dt)
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    o0, _ = fa._forward(q, k, v, causal, window, dk ** -0.5, off, False)
+    o, lse = fa._forward(q, k, v, causal, window, dk ** -0.5, off, True)
+    assert torch.equal(o0, o)
+    torch.testing.assert_close(lse, ref.attention_lse(q, k, **kw), rtol=1e-5, atol=1e-5)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = ref.attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.attention_bwd(*(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+    for g, pl, w, t in zip(got, plain, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dt and g.is_contiguous()
+        err = float(np.abs(f32(g) - f32(w)).max())
+        scale = max(float(np.abs(f32(w)).max()), 1e-30)
+        if name == "float32":
+            assert err <= 3e-5 * scale
+        else:
+            assert err <= 1.25 * float(np.abs(f32(pl) - f32(w)).max()) + 1e-7 * scale
+
+
+def test_flash_attention_function_launches_the_backward(cuda):
+    """A grad-requiring CUDA input runs the forward kernel under the
+    autograd Function (no refusal) and its backward launches the backward
+    kernel, never the plain version; under ``torch.utils.checkpoint`` two
+    forward launches and one backward; the gradients are autograd's through
+    ``ref.attention``; a double backward raises."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (normal(i, 2, 96, h, 64).requires_grad_(True) for i, h in enumerate((6, 2, 2)))
+    fa.flash_attention.n_launches = fa.flash_attention_bwd.n_launches = 0
+    y = checkpoint(lambda a, b, c: fa.flash_attention(a, b, c, window=40) ** 2, q, k, v,
+                   use_reentrant=False)
+    got = torch.autograd.grad(y.sum(), (q, k, v))
+    assert (fa.flash_attention.n_launches, fa.flash_attention_bwd.n_launches) == (2, 1)
+    want = torch.autograd.grad((ref.attention(q, k, v, window=40) ** 2).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-5 * float(np.abs(f32(b)).max()))
+    y = fa.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="double backward"):
+        torch.autograd.grad(y.sum(), (q,), create_graph=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_internlm2_trains_on_the_card(cuda, dtype):
+    """internlm2 reduced (2 layers, d 256) trains on the card: with remat,
+    per step two forward and one backward launch of flash attention a
+    layer, the norms likewise; the loss and gradient of the kernel path
+    against the plain path (f32 at 1e-4 x max|g| a leaf, bf16 finite)."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step
+    cfg = C.get_config("internlm2_1p8b").reduced(n_layers=2, d_model=256, vocab=1000)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(0, cfg, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 1000, (2, 64))).cuda()
+
+    def grads(plain):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = transformer.loss_fn(params, cfg, {"tokens": tokens}, remat=True, plain=plain)
+        out = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return loss, out
+
+    (lk, gk), (lp, gp) = grads(False), grads(True)
+    assert torch.isfinite(lk) and all(bool(torch.isfinite(g).all()) for g in gk)
+    if dtype == "float32":
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-5)
+        for a, b in zip(gk, gp):
+            assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)
+    step = make_train_step(cfg, TrainConfig())
+    opt = init_opt_state(params, TrainConfig())
+    fa.flash_attention.n_launches = fa.flash_attention_bwd.n_launches = 0
+    for _ in range(2):
+        _, opt, m = step(params, opt, {"tokens": tokens})
+        assert np.isfinite(m["loss"].item())
+    assert (fa.flash_attention.n_launches, fa.flash_attention_bwd.n_launches) == (8, 4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -267,22 +267,26 @@ def test_kernels_refuse_gradients_they_cannot_carry():
     itself and what brings its backward, where autograd would record it (an
     input requiring grad, grad mode on): never an output without a
     gradient.  The check itself on CPU tensors; the wrappers call it on
-    their card path, before any launch (``tests/test_torch_gpu.py``)."""
+    their card path, before any launch (``tests/test_torch_gpu.py``).  Flash
+    attention has its backward kernel: its wrapper runs the autograd
+    Function there instead."""
     from repro_torch.kernels import build
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="flash_attention.*ROADMAP Queue 2"):
-        build.refuse_grad("flash_attention", build.NO_BACKWARD, None, x)
+    with pytest.raises(NotImplementedError, match="ssd_scan.*ROADMAP Queue 1"):
+        build.refuse_grad("ssd_scan", build.NO_BACKWARD, None, x)
     with torch.no_grad():
-        build.refuse_grad("flash_attention", "", x)
+        build.refuse_grad("ssd_scan", "", x)
     with torch.inference_mode():
-        build.refuse_grad("flash_attention", "", torch.ones(2))
-    build.refuse_grad("flash_attention", "", x.detach(), None)
+        build.refuse_grad("ssd_scan", "", torch.ones(2))
+    build.refuse_grad("ssd_scan", "", x.detach(), None)
     import inspect
     from repro_torch.kernels import dp_sweep
-    for fn in (flash_attention, decode_attention, ssd_scan, dp_sweep.dp_sweep):
+    for fn in (decode_attention, ssd_scan, dp_sweep.dp_sweep):
         src = inspect.getsource(fn)
         assert "build.refuse_grad(" in src and src.index("build.refuse_grad(") < src.index(
             "build.function("), fn.__name__
+    src = inspect.getsource(flash_attention)
+    assert "build.refuse_grad(" not in src and "_FlashAttentionFunction.apply(" in src
 
 
 def test_xlstm_dispatch_counts_match_the_card_path(monkeypatch):
@@ -403,6 +407,7 @@ def test_profile_groups_name_every_kernel():
         assert names, src.name
         found[src.stem] = names
     want = {"rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
+            "flash_attention_bwd": "flash_attention_bwd",
             "decode_attention": "decode_attention", "ssm_scan": "ssd_scan",
             "dp_sweep": "dp_sweep"}
     backward = {"rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"}  # rmsnorm.cu's backward pair
