@@ -11,7 +11,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                tensor-core instructions (HMMA/HGMMA) of flash attention's bf16
                instantiations (one per (K, V) head-dim pair, MLA's (96, 64)
                and the padded (120, 120) among them) in ``cuobjdump
-               --dump-sass`` of the library; each kernel function's
+               --dump-sass`` of the library, and require Hopper's (HGMMA,
+               no HMMA) in every bf16 dK/dV and dQ function of the
+               backward's library; each kernel function's
                registers and spills from ``-Xptxas -v`` (``ptxas_report``).
   3. kernels — hold each hand-written kernel against its plain PyTorch
                version on the card, at the reference's test-sweep shapes
@@ -48,7 +50,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                checkpoint, and at the train shapes (internlm2's batch 2 x
                4096 in bf16 and f32, danube's window 4096 at 4608,
                minicpm3's strided v, phi3-vision, granite's g = 3) with
-               times, the device us of its three CUDA kernels, the bound
+               times, the device us of its CUDA kernels, the bound
                and SDPA's backward alone.
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
@@ -106,8 +108,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                AdamW bit-identical, params and moments keeping their
                placements, launches equal.  (b) On a ``fake`` process group of 256 ranks
                on the card (``launch/mesh.py::fake_mesh``), rank 0's program
-               of internlm2-1.8B prefill_32k (batch 32) and decode_32k (batch
-               128) on the (16, 16) mesh at its local shapes: launches equal
+               of internlm2-1.8B prefill_32k (batch 32), decode_32k (batch
+               128) and train_4k (batch 256, 16 sequences of 4,096 a rank:
+               the loss on the rank's slice of the vocab, one AdamW step) on
+               the (16, 16) mesh at its local shapes: launches equal
                the dry-run's rank-0 trace, peak device memory its
                ``peak_memory_in_bytes`` within 2 % + 64 MiB; the
                compute-only wall is printed (the fake group moves no bytes,
@@ -1008,7 +1012,7 @@ def flash_bwd_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int
     """The flash backward kernel at a train shape (causal; ``window``; v a
     strided slice where ``dv`` differs from ``hd``): ``flash_bwd_check``,
     then kernel, plain and library times, the device us of each of its
-    three CUDA kernels (D, dK/dV, dQ), and the bound
+    CUDA kernels (bf16: dQ with D, then dK/dV; f32: D, dK/dV, dQ), and the bound
     (``cost.flash_attention_bwd``).  The library call is the backward alone
     of ``F.scaled_dot_product_attention(..., enable_gqa=True)`` (a band mask
     where there is a window), its graph built once."""
@@ -1192,36 +1196,48 @@ def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> 
 
 def tensor_core_count() -> dict:
     """HMMA/HGMMA (tensor-core) and FFMA instructions per kernel function of
-    the built flash-attention library, from ``cuobjdump --dump-sass``."""
+    the built flash-attention libraries, forward and backward, from
+    ``cuobjdump --dump-sass``: every bf16 forward function runs on the
+    tensor cores, and every bf16 dK/dV and dQ function of the backward on
+    Hopper's (HGMMA, no HMMA)."""
     import collections
     import shutil
     from repro_torch.kernels import build
-    lib = build._lib_path(build.CSRC / "flash_attention.cu")
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = shutil.which("cuobjdump") or str(pathlib.Path(build._nvcc()).parent / "cuobjdump")
-    r = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
-                       timeout=300)
-    need(r.returncode == 0, f"cuobjdump --dump-sass {lib.name} failed: {r.stderr[-2000:]}")
-    counts, fn = collections.defaultdict(collections.Counter), None
-    for line in r.stdout.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif fn is not None:
-            for op in ("HGMMA", "HMMA", "FFMA"):
-                if f" {op}." in line or f" {op} " in line:
-                    counts[fn][op] += 1
+    counts = collections.defaultdict(collections.Counter)
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        lib = build._lib_path(build.CSRC / src)
+        r = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
+                           timeout=300)
+        need(r.returncode == 0, f"cuobjdump --dump-sass {lib.name} failed: {r.stderr[-2000:]}")
+        fn = None
+        for line in r.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA", "FFMA"):
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[fn][op] += 1
     bf16 = {f: c for f, c in counts.items() if "flash_fwd_bf16_kernel" in f}
     f32 = {f: c for f, c in counts.items() if "flash_fwd_f32_kernel" in f}
+    bwd = {f: c for f, c in counts.items()
+           if "flash_bwd_dkdv_bf16_kernel" in f or "flash_bwd_dq_bf16_kernel" in f}
     n_tc = sum(c["HMMA"] + c["HGMMA"] for c in bf16.values())
     print(f"[build] flash_attention bf16 instantiations: {len(bf16)} functions, {n_tc} "
           f"tensor-core instructions (HMMA/HGMMA) by function "
           f"{[c['HMMA'] + c['HGMMA'] for c in bf16.values()]}, FFMA "
           f"{[c['FFMA'] for c in bf16.values()]}; f32 instantiations: HMMA "
           f"{[c['HMMA'] + c['HGMMA'] for c in f32.values()]}, FFMA "
-          f"{[c['FFMA'] for c in f32.values()]}", flush=True)
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+          f"{[c['FFMA'] for c in f32.values()]}; flash_attention_bwd bf16 dK/dV and dQ: "
+          f"{len(bwd)} functions, HGMMA {[c['HGMMA'] for c in bwd.values()]}, HMMA "
+          f"{[c['HMMA'] for c in bwd.values()]}", flush=True)
     need(len(bf16) == len(HEAD_DIMS) and all(c["HMMA"] + c["HGMMA"] > 0 for c in bf16.values()),
          f"flash_attention bf16 instantiations without tensor-core instructions: {dict(bf16)}")
-    return {"hmma_bf16": n_tc}
+    need(len(bwd) == 2 * len(HEAD_DIMS)
+         and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in bwd.values()),
+         f"flash_attention_bwd bf16 functions without HGMMA, or with HMMA: {dict(bwd)}")
+    return {"hmma_bf16": n_tc, "hgmma_bwd_bf16": sum(c["HGMMA"] for c in bwd.values())}
 
 
 def ptxas_report() -> dict:
@@ -3721,7 +3737,8 @@ def parallel_phase(torch) -> dict:
 # The [mesh] phase: (a)'s full-width serving paths and decode steps on a
 # world-one mesh, and (b)'s production cells on a fake (16, 16) group.
 MESH = dict(archs=("internlm2_1p8b", "hymba_1p5b"), steps=16,
-            cells=(("internlm2_1p8b", "prefill_32k"), ("internlm2_1p8b", "decode_32k")))
+            cells=(("internlm2_1p8b", "prefill_32k"), ("internlm2_1p8b", "decode_32k"),
+                   ("internlm2_1p8b", "train_4k")))
 
 
 def mesh_phase(torch) -> dict:
@@ -3911,7 +3928,8 @@ def mesh_phase(torch) -> dict:
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
-                    with torch.inference_mode():
+                    # made where the step runs: the serving steps in inference mode
+                    with torch.inference_mode(shape.kind != "train"):
                         inputs = dryrun.sharded_inputs(
                             cfg, shape, mesh, axes,
                             dryrun.input_specs(cfg, shape, params=pshapes), device="cuda")

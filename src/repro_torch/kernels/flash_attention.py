@@ -21,9 +21,11 @@ recording (``cost.record``).  Where autograd records the call (grad mode on
 and q, k or v requiring grad), the forward kernel runs inside
 ``_FlashAttentionFunction``: it also writes each row's log-sum-exp, and the
 Function's backward launches ``flash_attention_bwd``, the hand-written
-backward (``csrc/flash_attention_bwd.cu``: D = rowsum(dO∘O), then dK/dV a
-key tile a block and dQ a query tile a block, P recomputed from the lse, no
-float atomics, so the gradient repeats bit for bit).  The backward has no
+backward (``csrc/flash_attention_bwd.cu``: in bf16 Hopper's wgmma fed by TMA
+in warp-specialised blocks, dQ a block of queries, which also forms D =
+rowsum(dO∘O), then dK/dV a block of keys; in f32 the CUDA cores; P
+recomputed from the lse, no float atomics, so the gradient repeats bit for
+bit).  The backward has no
 TPU counterpart: the Pallas kernel has no VJP, and the reference trains
 through XLA's autodiff of ``ref.attention``, whose closed form
 ``ref.attention_bwd`` (the plain version) is.

@@ -3,11 +3,17 @@ built from another version of ``csrc/flash_attention.cu``, timed in one
 process on one card, in the order A B B A, at the served shapes.
 
     python -m repro_torch.launch.ab_flash --other PATH/flash_attention.cu
+    python -m repro_torch.launch.ab_flash --bwd --other PATH/flash_attention_bwd.cu
 
 A is this checkout's source, B the other one.  Each shape prints both
 versions' milliseconds a call in each round (CUDA events, the median of 7
 windows of 10 calls over inputs cycled past the 50 MB L2) and whether the two
-outputs are bitwise equal.  Needs the card and ``nvcc``.
+outputs are bitwise equal.  With ``--bwd``, the backward
+(``flash_attention_bwd``, bf16, causal) at internlm2's, phi3-vision's and
+granite's train shapes, on o and lse from this checkout's forward: each
+version's microseconds a call (windows of 3 calls) and the largest |dq, dk,
+dv| difference between the two (they sum in different orders, so they are
+not held to bitwise equality).  Needs the card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
 
+# (what, B, S, Hq, Hkv, D): the backward's train shapes (causal, bf16)
+BWD_SHAPES = [("internlm2 train", 2, 4096, 16, 8, 128),
+              ("phi3-vision train", 1, 4096, 32, 32, 96),
+              ("granite train", 1, 4096, 24, 8, 64)]
 # (what, B, S, Hq, Hkv, DK, DV, window)
 SHAPES = [("internlm2 prefill", 4, 1024, 16, 8, 128, 128, None),
           ("hymba prefill", 4, 1536, 25, 5, 64, 64, 1024),
@@ -33,9 +43,38 @@ SHAPES = [("internlm2 prefill", 4, 1024, 16, 8, 128, 128, None),
 
 
 def use(csrc: pathlib.Path) -> None:
-    """Launch the kernel built from ``csrc/flash_attention.cu`` from now on."""
+    """Launch the kernels built from the sources in ``csrc`` from now on."""
     build.CSRC = csrc
     build.set_build_dir(build.BUILD_DIR)   # drops the loaded handles
+
+
+def bwd_main(mine: pathlib.Path, other: pathlib.Path, dev) -> None:
+    """The --bwd comparison (see the module note)."""
+    from repro_torch.kernels.flash_attention import _forward, flash_attention_bwd
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for what, B, S, hq, hkv, d in BWD_SHAPES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        per_set = B * S * (3 * hq + 2 * hkv) * d * 2
+        sets = []
+        for _ in range(max(2, -(-64 * 2**20 // per_set))):
+            q, k, v, do = randn(B, S, hq, d), randn(B, S, hkv, d), randn(B, S, hkv, d), \
+                randn(B, S, hq, d)
+            o, lse = _forward(q, k, v, True, None, d ** -0.5, 0, True)
+            sets.append((q, k, v, o, lse, do))
+        fns = [lambda s=s: flash_attention_bwd(*s, causal=True) for s in sets]
+        us, grads = {"A": [], "B": []}, {}
+        for side in "ABBA":
+            use(mine if side == "A" else other)
+            grads[side] = flash_attention_bwd(*sets[0], causal=True)
+            us[side].append(time_ms(fns, reps=7, inner=3) * 1e3)
+        use(mine)
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(grads["A"], grads["B"]))
+        print(f"[ab_flash] backward {what} q ({B},{S},{hq},{d}) k/v ({B},{S},{hkv},{d}) bf16 "
+              f"causal: A {us['A'][0]:.2f} / {us['A'][1]:.2f} us, B {us['B'][0]:.2f} / "
+              f"{us['B'][1]:.2f} us, B/A {sum(us['B']) / sum(us['A']):.4f}; max |dq, dk, dv| "
+              f"difference {diff:.3e}", flush=True)
 
 
 def time_ms(fns, reps: int = 7, inner: int = 10) -> float:
@@ -57,16 +96,24 @@ def time_ms(fns, reps: int = 7, inner: int = 10) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=pathlib.Path,
-                    help="another version of csrc/flash_attention.cu")
+                    help="another version of csrc/flash_attention.cu (with --bwd: of "
+                         "csrc/flash_attention_bwd.cu)")
+    ap.add_argument("--bwd", action="store_true", help="compare the backward")
     ap.add_argument("--dtypes", default="float32,bfloat16")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     mine = build.CSRC
-    other = build.BUILD_DIR / "ab_other"
+    other = build.BUILD_DIR / ("ab_other_bwd" if args.bwd else "ab_other")
     other.mkdir(parents=True, exist_ok=True)
-    shutil.copyfile(args.other, other / "flash_attention.cu")
+    for header in mine.glob("*.cuh"):  # the sources include the checkout's headers
+        shutil.copyfile(header, other / header.name)
+    shutil.copyfile(args.other,
+                    other / ("flash_attention_bwd.cu" if args.bwd else "flash_attention.cu"))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    if args.bwd:
+        bwd_main(mine, other, dev)
+        return
     gen = torch.Generator(device=dev).manual_seed(0)
     for dtype_name in args.dtypes.split(","):
         dt = getattr(torch, dtype_name)

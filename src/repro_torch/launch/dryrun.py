@@ -531,7 +531,8 @@ def sharded_inputs(cfg: ModelConfig, shape: ShapeConfig, mesh: Any, axes: MeshAx
     inputs on ``mesh``: each leaf a DTensor over a shard of its per-device
     shape (``local_shape``) on ``device`` (meta; zeros elsewhere, as a card
     runs rank 0's program), placed by ``program_shardings``; ``pos`` and the
-    optimizer's step as they are (replicated)."""
+    optimizer's step as they are (replicated), the step a zero on
+    ``device``."""
     sizes = sharding.mesh_sizes(mesh)
     shards = program_shardings(cfg, shape, sizes, axes, specs)
 
@@ -540,8 +541,10 @@ def sharded_inputs(cfg: ModelConfig, shape: ShapeConfig, mesh: Any, axes: MeshAx
             return {k: conv(v, spec[k]) for k, v in node.items()}
         if isinstance(node, list):
             return [conv(v, sp) for v, sp in zip(node, spec)]
-        if not isinstance(node, torch.Tensor) or node.dim() == 0:
+        if not isinstance(node, torch.Tensor):
             return node
+        if node.dim() == 0:
+            return node if device == "meta" else torch.zeros((), dtype=node.dtype, device=device)
         local = torch.zeros(local_shape(tuple(node.shape), spec, sizes), dtype=node.dtype,
                             device=device)
         return DTensor.from_local(local, mesh, sharding.placements(spec, mesh),

@@ -42,7 +42,9 @@ def _split_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """Fused projection split as [q | k | v] of widths hq*hd, hkv*hd, hkv*hd."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    qkv = sharding.batch_layout_grad(x @ sharding.gathered(p["wqkv"]))
+    # the gradient of qkv comes back whole from the split: cut it to each
+    # rank's columns, so wqkv's gradient is each rank's share
+    qkv = sharding.own_layout_grad(x @ sharding.gathered(p["wqkv"]))
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     return (sharding.heads_whole(q, hq).reshape(B, S, hq, hd),
             sharding.heads_whole(k, hkv).reshape(B, S, hkv, hd),
@@ -65,14 +67,16 @@ def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
 
 
 def _out(p: dict, y: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """The output projection: row-parallel under a mesh (one all-reduce)
-    where ``model`` divides the heads, so each rank's rows of ``wo`` are its
-    heads' rows; else ``wo`` whole.  Where attention ran by rows
-    (``ref._row_shard``: y's sequence on ``model``, its batch whole), each
-    rank's rows of its data slice of the batch take ``wo`` whole through
-    ``local_call``: under autograd a product runs as a view flattening
-    (batch, seq), which DTensor refuses over a sequence shard on some torch
-    versions (2.11)."""
+    """The output projection: row-parallel under a mesh (one all-reduce),
+    each rank's rows of ``wo`` against its columns of y.  Where ``model``
+    divides the heads those are its heads' (DTensor lays y out); else y's
+    columns are cut to the rank's rows of ``wo`` (the reference's rule lays
+    them on ``model`` wherever they divide), so no rank multiplies by the
+    whole ``wo``.  Where attention ran by rows (``ref._row_shard``: y's
+    sequence on ``model``, its batch whole), each rank's rows of its data
+    slice of the batch take ``wo`` whole through ``local_call``: under
+    autograd a product runs as a view flattening (batch, seq), which DTensor
+    refuses over a sequence shard on some torch versions (2.11)."""
     w = p["wo"]
     if sharding.is_dtensor(y) and sharding.model_placement(y) == Shard(1):
         mesh, axes = sharding.active_mesh()
@@ -83,8 +87,11 @@ def _out(p: dict, y: torch.Tensor, n_heads: int) -> torch.Tensor:
             torch.matmul, (y, w), (rows, sharding.replicated(w)), rows, y.device_mesh))
     if sharding.is_dtensor(w):
         mesh, axes = sharding.active_mesh()
-        w = (sharding.gathered(w) if n_heads % sharding.mesh_sizes(mesh)[axes.model] == 0
-             else sharding.whole(w))
+        w = sharding.gathered(w)
+        if (n_heads % sharding.mesh_sizes(mesh)[axes.model]
+                and sharding.model_placement(w) == Shard(0)):
+            y = y.redistribute(y.device_mesh, sharding.axis_placements(
+                y, sharding.data_placement(y), Shard(2)))
     return sharding.batch_layout(y @ w)
 
 
@@ -171,7 +178,7 @@ def _expand_kv(p: dict, cfg: ModelConfig, c_kv: torch.Tensor, k_rope: torch.Tens
     # over a cache sharded by sequence the latent's slots stay where they
     # lie (each rank expands its own): the weight goes whole
     w = sharding.whole(w) if _model_sharded(c_kv, 1) else sharding.gathered(w)
-    kvb = sharding.heads_whole(sharding.batch_layout_grad(c_kv @ w), cfg.n_heads).reshape(
+    kvb = sharding.heads_whole(sharding.own_layout_grad(c_kv @ w), cfg.n_heads).reshape(
         B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = torch.split(kvb, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)], dim=-1)
@@ -194,7 +201,7 @@ def _mla_q_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     m = cfg.mla
     B, S, _ = x.shape
     wq_a, wq_b, wkv_a = (sharding.gathered(p[k]) for k in ("wq_a", "wq_b", "wkv_a"))
-    lay = sharding.batch_layout_grad
+    lay = sharding.own_layout_grad
     q = rmsnorm(lay(x @ wq_a), p["norm_q"]["scale"], cfg.norm_eps, plain=plain) @ wq_b
     q = sharding.heads_whole(lay(q), cfg.n_heads).reshape(
         B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)

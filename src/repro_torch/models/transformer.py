@@ -253,10 +253,69 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, remat: bool = False, *,
     if labels is None:
         labels = batch["tokens"][:, 1:]
         logits = logits[:, :-1]
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
-    loss = nll.mean() + 0.01 * aux
-    return loss, {"loss": loss, "nll": nll.mean(), "aux": aux}
+    nll = sharding.mean(_sharded_nll(logits, labels) if sharding.is_dtensor(logits)
+                        else _nll(logits, labels))
+    loss = nll + 0.01 * aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux}
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's NLL from logits holding the whole vocab."""
+    return -F.log_softmax(logits, dim=-1).gather(-1, labels.long()[..., None])[..., 0]
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Each token's NLL from one rank's slice of the vocab (x: (b, s, v)
+    logits, its first column the vocab's ``v0``): the log-sum-exp from the
+    row max and the sum of exponentials reduced over ``group``, minus the
+    label's logit, taken by the rank that holds it and reduced the same way.
+    The backward, softmax minus the label's one-hot, is each rank's own
+    columns and needs no collective."""
+
+    @staticmethod
+    def forward(ctx, x, labels, group, v0):
+        import torch.distributed._functional_collectives as fc
+
+        def reduce(t, op):
+            return fc.wait_tensor(fc.all_reduce(t, op, group))
+        m = reduce(x.amax(-1), "max")
+        lse = m + torch.log(reduce(torch.exp(x - m[..., None]).sum(-1), "sum"))
+        idx = labels.long() - v0
+        hit = (idx >= 0) & (idx < x.shape[-1])
+        idx = idx.clamp(0, x.shape[-1] - 1)
+        picked = reduce(torch.where(hit, x.gather(-1, idx[..., None])[..., 0], 0.0), "sum")
+        ctx.save_for_backward(x, lse, idx, hit)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, idx, hit = ctx.saved_tensors
+        grad = torch.exp(x - lse[..., None])
+        grad.scatter_add_(-1, idx[..., None], -hit.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def _sharded_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The NLL (B, S) of DTensor logits (B, S, V) laid out as the loss's
+    site lays them (batch on the data axes, the vocab on ``model`` where it
+    divides) on each rank's shard: no rank gathers the vocab, and the
+    logits' gradient comes back in their own layout.  Where each rank holds
+    the whole vocab (``model`` of one, or a vocab it does not divide), the
+    plain program runs on the shard, so a world of one repeats the
+    unsharded step bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, axes = logits.device_mesh, sharding.active_mesh()[1]
+    lpl = list(logits.placements)
+    rows = sharding.axis_placements(logits, sharding.data_placement(logits), Replicate())
+    fn = _nll
+    if sharding.model_placement(logits) == Shard(2) and sharding.mesh_sizes(mesh)[axes.model] > 1:
+        group = (mesh, mesh.mesh_dim_names.index(axes.model))
+        v0 = sharding.model_rank(mesh) * logits.to_local().shape[-1]
+
+        def fn(x, y):
+            return _VocabNLL.apply(x, y, group, v0)
+    return sharding.local_call(fn, (logits, labels),
+                               (lpl, rows if sharding.is_dtensor(labels) else None), rows, mesh)
 
 
 def _to_cache(t: torch.Tensor, cfg: ModelConfig, max_len: int) -> torch.Tensor:

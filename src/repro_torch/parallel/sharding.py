@@ -447,29 +447,41 @@ def heads_whole(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.redistribute(x.device_mesh, whole_dims(x, (d,)))
 
 
-class _BatchLayoutGrad(torch.autograd.Function):
+class _OwnLayoutGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
+        ctx.placements = x.placements
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return batch_layout(g)
+        return g.redistribute(g.device_mesh, ctx.placements)
 
 
-def batch_layout_grad(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as it is, its gradient laid out as an activation
-    (``batch_layout``: pending sums reduced, replicated on ``model``) where
-    x is a DTensor whose batch does not divide the data axes.  There
-    DTensor's product backward would shard the flattened (batch x seq) rows
-    over data, and the view back to (batch, seq, ..) cannot unflatten them.
-    Where the batch divides, nothing changes."""
+def own_layout_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient laid out as x is (a replicated gradient
+    cut to each rank's part, a pending sum reduce-scattered).  On a
+    column-parallel product's output, the weight's gradient is then each
+    rank's columns: a split or view downstream that DTensor can only take
+    whole (q, k and v out of a fused projection) hands back a gradient whole
+    on ``model``, and the product's backward would run at full width on
+    every rank.  A plain tensor as it is."""
+    return _OwnLayoutGrad.apply(x) if is_dtensor(x) else x
+
+
+def mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean()``; a DTensor's as each rank's mean of its shard weighted by
+    its share of the elements (exactly 1 in a world of one), reduced to a
+    replicated scalar.  Its gradient comes back in x's own layout: DTensor's
+    mean hands back a gradient of x's global shape, whole on every rank."""
     if not is_dtensor(x):
-        return x
-    mesh, axes = active_mesh()
-    if mesh is None or x.shape[0] % dsize(mesh, axes) == 0:
-        return x
-    return _BatchLayoutGrad.apply(x)
+        return x.mean()
+    from torch.distributed.tensor import Partial, Shard
+    n, mesh = x.numel(), x.device_mesh
+    pl = list(x.placements)
+    part = [Partial() if isinstance(p, Shard) else p for p in pl]
+    return local_call(lambda t: t.mean() * (t.numel() / n), (x,), (pl,), part,
+                      mesh).redistribute(mesh, replicated(x))
 
 
 def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -107,7 +107,11 @@ def cache_pspecs(cache):   # the reference dry-run's (importing it forces 512 de
 
 def mesh_cfg(case):
     arch, kw, impl = case
+    kw = dict(kw)
+    mla = kw.pop("mla", None)
     cfg = C.get_config(arch).reduced(**kw)
+    if mla is not None:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(cfg.mla, **mla))
     if impl is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=impl))
     return cfg
@@ -219,7 +223,8 @@ def test_sharded_prefill_and_decode_match_the_reference(case, world):
 def test_sharded_cache_matches_the_reference(case, world):
     """The cache after prefill and one decode step (the new token's k and v
     written by the rank holding its slot), leaf by leaf: the port's layer l
-    is the reference's stacked leaf l % period at group l // period."""
+    is the reference's stacked leaf l % period at group l // period (MLA's
+    ``latent`` the reference's bare layer array)."""
     cfg = torch_ranks.mesh_cfg(TC, torch_ranks.MESH_CASES[case])
     period = len(cfg.block_pattern)
     out = world["ranks"][0]
@@ -227,7 +232,8 @@ def test_sharded_cache_matches_the_reference(case, world):
     assert keys
     for key in keys:
         l, leaf = key.split("/")[2:]
-        want = world["ref"][f"{case}/cache/{int(l) % period}/{leaf}"][int(l) // period]
+        ref_key = f"{case}/cache/{int(l) % period}" + ("" if leaf == "latent" else f"/{leaf}")
+        want = world["ref"][ref_key][int(l) // period]
         _within(out[key], want)
 
 
@@ -363,3 +369,30 @@ def test_gloo_collectives_equal_the_fake_groups_trace(case, kind, world, fake_tr
     assert len(want) > 0 and res["collectives"]["count"] == len(want)
     assert sum(int(s.split(":")[1]) for s in want) == sum(
         v for k, v in res["collectives"].items() if k != "count")
+
+
+def test_mla_output_projection_takes_each_ranks_rows_of_wo(world, monkeypatch):
+    """minicpm3 reduced to 23 heads of (96, 64), which the 2 x 2 mesh's
+    ``model`` axis does not divide and whose rows ``_row_shard`` does not
+    take (23 x 96 > 2048), as at full width on (16, 16) (wo's 1472 rows it
+    divides): its prefill and decode logits match the reference's, and rank
+    0's output projection, forward and backward, does a quarter of the
+    step's FLOPs in the train step traced on a 4-rank fake group: y's
+    columns cut to the rank's rows of wo, as the reference's rule lays wo
+    out, then one all-reduce over ``model``.  wo taken whole on every rank
+    would do half."""
+    from repro_torch.launch import flops_by_site
+
+    for kind in ("prefill", "decode"):
+        for out in world["ranks"]:
+            _within(out[f"minicpm3/{kind}"], world["ref"][f"minicpm3/{kind}"])
+    monkeypatch.setitem(D.MESHES, "mesh2x2", ({"data": 2, "model": 2},
+                                              TS.MeshAxes(data=("data",))))
+    cfg = torch_ranks.mesh_cfg(TC, torch_ranks.MESH_CASES["minicpm3"])
+    assert cfg.n_heads % 2 and (cfg.n_heads * cfg.mla.v_head_dim) % 2 == 0
+    assert cfg.n_heads * (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) > 2048
+    shape = ShapeConfig("mesh_train", torch_ranks.MESH_T, torch_ranks.MESH_B, "train")
+    rank, _ = flops_by_site.by_site(cfg, shape, "mesh2x2")
+    step, _ = flops_by_site.by_site(cfg, shape, None)
+    for site in ("models/attention.py _out", "models/attention.py _out (backward)"):
+        assert step[site] > 0 and rank[site] * 4 == step[site], (site, rank[site], step[site])

@@ -62,7 +62,12 @@ MESH_CASES = {"internlm2": ("internlm2_1p8b", dict(n_layers=2, d_model=128), Non
               "granite_e4": ("granite_moe_3b", dict(n_layers=2, d_model=64, experts=4),
                              "scatter"),
               "granite_e3": ("granite_moe_3b", dict(n_layers=2, d_model=64, experts=3),
-                             "scatter")}
+                             "scatter"),
+              # MLA, 23 heads of (96, 64): model divides neither the heads nor (at
+              # 23 x 96 > 2048) takes q's rows; wo's 1472 rows it divides
+              "minicpm3": ("minicpm3_4b", dict(n_layers=2, d_model=64, n_heads=23,
+                                               mla=dict(qk_nope_head_dim=64, qk_rope_head_dim=32,
+                                                        v_head_dim=64)), None)}
 TRAIN_CASES = {"internlm2": ("internlm2_1p8b", dict(n_layers=2, d_model=64), None),
                "xlstm": ("xlstm_1p3b", dict(n_layers=8, d_model=64), None)}
 MESH_B, MESH_T, MESH_EXTRA = 4, 16, 4   # batch, prompt, cache slots past it
@@ -71,9 +76,14 @@ COUNTED = ("internlm2", "row_shard", "hymba")
 
 
 def mesh_cfg(configs, case: tuple):
-    """A case's reduced config from either package's ``configs``."""
+    """A case's reduced config from either package's ``configs`` (``mla`` in
+    its keywords: MLA's head dims in place of the reduced ones)."""
     arch, kw, impl = case
+    kw = dict(kw)
+    mla = kw.pop("mla", None)
     cfg = configs.get_config(arch).reduced(**kw)
+    if mla is not None:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(cfg.mla, **mla))
     if impl is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=impl))
     return cfg
