@@ -51,7 +51,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                4096 in bf16 and f32, danube's window 4096 at 4608,
                minicpm3's strided v, phi3-vision, granite's g = 3) with
                times, the device us of its CUDA kernels, the bound
-               and SDPA's backward alone.
+               and SDPA's backward alone.  The SSD scan's backward kernel
+               against ``ref.ssd_scan_bwd`` (the closed form) on the forward
+               kernel's own workspace: f32 at 5e-5 x max|plain| for each of
+               dx, da, db, dc, dh0 at the scan's sweep shapes; the bf16 mix
+               (bf16 x, c, dy; f32 a, b, h0) with dx and dc at
+               BF16_FLOOR_RATIO x the plain path's distance from plain f32
+               and da, db, dh0 at 5e-5; two launches bitwise equal; and at
+               hymba's train shape (batch 2 x 4096, 50 heads of 64, N 16,
+               chunk 256) and serving prefill shape with times, the device
+               us of its four CUDA kernels, the grid and the bound.
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
                with the launch counts set to 0 just before and asserted
@@ -129,10 +138,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                idle share from ``nvidia-smi``'s utilization, peak memory);
                the reduced loop
                (``train_loop.run_with_restarts``) resuming after an injected
-               failure bit for bit as an uninterrupted run; and a reduced
-               hymba train step refused by the SSD scan's wrapper (its
-               backward kernel is the next slice).
-  6b. train attention — this slice's main path: with every launch count
+               failure bit for bit as an uninterrupted run.
+  6b. train attention — the attention train path: with every launch count
                set to 0, internlm2-1.8B at full width and depth, bf16,
                remat, batch 2 x 4096, three AdamW steps through
                ``make_train_step`` (exact launches of the flash and norm
@@ -146,6 +153,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                (``python -m repro_torch.launch.train``: reduced internlm2)
                in a child process; and the reduced internlm2 loop resuming
                after an injected failure bit for bit.
+  6c. train hybrid — this slice's main path: with every launch count set
+               to 0, hymba-1.5B at full width and depth (32 hybrid layers),
+               bf16, remat, batch 2 x 4096, three AdamW steps through
+               ``make_train_step`` (exact launches of the SSD scan's, flash
+               attention's and the norm's forward and backward kernels,
+               finite losses, walls, idle share, peak memory, the step by
+               kernel group); and its two-layer full-width cut at 4096
+               tokens under CUT_GATES (the f32 floor with the scan in
+               chunks of half the length and its closed-form backward,
+               ``SsdClosedForm``).
   7. dryrun  — the port's dry-run (``repro_torch.launch.dryrun``) and the
                card.  For h2o-danube3-4B, hymba-1.5B and xlstm-1.3B at
                long_500k (decode at position 524,287, the whole cell: batch
@@ -313,6 +330,7 @@ PATHS = {
 for _path in PATHS.values():
     _path["launches"]["rmsnorm_bwd"] = 0  # serving takes no gradient
     _path["launches"]["flash_attention_bwd"] = 0
+    _path["launches"]["ssd_scan_bwd"] = 0
 # The train path: xlstm-1.3B at full width and depth in bf16, batch 2 x 1024
 # tokens, STEPS of AdamW at the reference's defaults, remat on.  A step's
 # forward runs each pattern group's 16 norms (norm1 in 8 layers, the inner
@@ -323,7 +341,7 @@ TRAIN = dict(B=2, S=1024, steps=3)
 TRAIN_LAUNCHES = {"rmsnorm": TRAIN["steps"] * (2 * 6 * 16 + 1),
                   "rmsnorm_bwd": TRAIN["steps"] * (6 * 16 + 1), "flash_attention": 0,
                   "flash_attention_bwd": 0, "decode_attention": 0, "ssd_scan": 0,
-                  "dp_sweep": 0}
+                  "ssd_scan_bwd": 0, "dp_sweep": 0}
 # The attention train path (this slice's main path): internlm2-1.8B at full
 # width and depth (24 layers, 16/8 heads of 128) in bf16, batch 2 x 4096
 # tokens, three AdamW steps, remat on.  A step's forward runs each layer's
@@ -336,7 +354,23 @@ TRAIN_ATTN_LAUNCHES = {
     "rmsnorm_bwd": TRAIN_ATTN["steps"] * (2 * 24 + 1),
     "flash_attention": TRAIN_ATTN["steps"] * 2 * 24,
     "flash_attention_bwd": TRAIN_ATTN["steps"] * 24,
-    "decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0}
+    "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, "dp_sweep": 0}
+# The hybrid train path (this slice's main path): hymba-1.5B at full width
+# and depth (32 hybrid layers: SWA 1024 over 25/5 heads of 64 beside 50 SSM
+# heads of P 64, N 16, chunk 256) in bf16, batch 2 x 4096 tokens, three
+# AdamW steps, remat on.  A step's forward runs each layer's three norms
+# (norm1, norm2, the SSM's gated norm), its attention and its scan once, the
+# final norm once; the backward recomputes each layer and takes one
+# backward launch of each.
+TRAIN_HYBRID = dict(arch="hymba_1p5b", B=2, S=4096, steps=3, layers=32)
+TRAIN_HYBRID_LAUNCHES = {
+    "rmsnorm": TRAIN_HYBRID["steps"] * (2 * 3 * 32 + 1),
+    "rmsnorm_bwd": TRAIN_HYBRID["steps"] * (3 * 32 + 1),
+    "flash_attention": TRAIN_HYBRID["steps"] * 2 * 32,
+    "flash_attention_bwd": TRAIN_HYBRID["steps"] * 32,
+    "ssd_scan": TRAIN_HYBRID["steps"] * 2 * 32,
+    "ssd_scan_bwd": TRAIN_HYBRID["steps"] * 32,
+    "decode_attention": 0, "dp_sweep": 0}
 # The attention models' two-layer cuts at full width (PERIOD_GATES, one
 # sequence of the train shape; danube's past its 4096 window), each path's
 # loss and gradient against plain f32 with remat off.  The loss is held
@@ -1194,6 +1228,126 @@ def ssd_record(torch, randn, B, S, H, P, N, chunk, with_h0: bool, what: str) -> 
         ops_ms=work.flops / PEAK_BF16 * 1e3))
 
 
+def ssd_bwd_check(torch, x, a, b, c, h0, dy, dh, chunk: int, what: str) -> tuple[float, float]:
+    """The SSD backward kernel against ``ref.ssd_scan_bwd`` (the closed form
+    in f32) on the forward kernel's own workspace: in f32 each of dx, da,
+    db, dc and dh0 within SSD_TOL x max|plain|; in the bf16 mix, dx and dc
+    (bf16) each within BF16_FLOOR_RATIO x the plain bf16 path's distance
+    from plain f32 (the closed form on the same values upcast), da, db and
+    dh0 (f32) within SSD_TOL x max|f32| of it.  Two launches bitwise equal.
+    Returns (max|kernel - plain| over the five, the worst bf16 kernel /
+    floor ratio (0 in f32))."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    _, _, saved = ss._forward(x, a, b, c, h0, chunk, True)
+    got = ss.ssd_scan_bwd(x, a, b, c, h0, dy, dh, chunk=chunk, saved=saved)
+    again = ss.ssd_scan_bwd(x, a, b, c, h0, dy, dh, chunk=chunk, saved=saved)
+    need(all(g is None and g2 is None or torch.equal(g, g2) for g, g2 in zip(got, again)),
+         f"ssd_scan_bwd {what}: two launches differ")
+    plain = ref.ssd_scan_bwd(x, a, b, c, h0, dy, dh, chunk=chunk)
+    names = ("dx", "da", "db", "dc", "dh0")
+    err = max((g.float() - p.float()).abs().max().item()
+              for g, p in zip(got, plain) if g is not None)
+    worst = 0.0
+    f32 = (plain if x.dtype == torch.float32 else
+           ref.ssd_scan_bwd(x.float(), a, b, c.float(), h0, dy.float(), dh, chunk=chunk))
+    def rel(a, b):  # a gradient that is zero (one step from no state: da) is zero in both
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+
+    for g, p, w, n in zip(got, plain, f32, names):
+        if g is None:
+            continue
+        if g.dtype == torch.float32:
+            e = rel(g, w)
+            need(e <= SSD_TOL and bool(g.isfinite().all()),
+                 f"ssd_scan_bwd {what} {n}: max|d| / max|plain| {e:.3e} beyond {SSD_TOL}")
+        else:
+            e, fl = rel(g, w), rel(p, w)
+            need(e <= BF16_FLOOR_RATIO * fl and bool(g.float().isfinite().all()),
+                 f"ssd_scan_bwd {what} {n}: kernel-f32 {e:.3e} > {BF16_FLOOR_RATIO} x the "
+                 f"plain bf16 path's {fl:.3e}")
+            worst = max(worst, e / fl if fl else 0.0)
+    del got, again, plain, f32
+    return err, worst
+
+
+def ssd_bwd_sweep(torch, randn) -> None:
+    """The backward kernel over the forward's sweep shapes (a ragged last
+    chunk, one step, S < Q, many chunks, the widest head and state, P 100)
+    in f32, with h0 and h_final's gradient and without, and in the bf16 mix."""
+    for (B, S, H, P, N), chunk in [((2, 96, 3, 16, 8), 32), ((2, 100, 3, 16, 8), 32),
+                                   ((2, 1, 3, 16, 8), 256), ((2, 300, 3, 64, 16), 256),
+                                   ((2, 257, 3, 64, 16), 256), ((1, 1000, 2, 64, 16), 64),
+                                   ((1, 130, 2, 128, 64), 64), ((1, 70, 2, 100, 32), 256)]:
+        x, a, b, c, h0 = ssd_inputs(torch, randn, B, S, H, P, N)
+        dy, dh = randn(B, S, H, P), randn(B, H, P, N)
+        for with_state in (True, False):
+            ssd_bwd_check(torch, x, a, b, c, h0 if with_state else None, dy,
+                          dh if with_state else None, chunk,
+                          f"f32 {(B, S, H, P, N)} chunk {chunk} h0/dh {with_state}")
+    worst = 0.0
+    for (B, S, H, P, N), chunk, with_state in [
+            ((2, 300, 3, 64, 16), 256, True), ((2, 257, 3, 64, 16), 256, False),
+            ((2, 1, 3, 64, 16), 256, True), ((1, 130, 2, 128, 64), 64, False),
+            ((1, 70, 2, 100, 32), 64, True)]:
+        x, a, b, c, h0 = ssd_inputs(torch, randn, B, S, H, P, N, mix=True)
+        dy, dh = randn(B, S, H, P, dtype=torch.bfloat16), randn(B, H, P, N)
+        worst = max(worst, ssd_bwd_check(
+            torch, x, a, b, c, h0 if with_state else None, dy, dh if with_state else None,
+            chunk, f"mix {(B, S, H, P, N)} chunk {chunk} h0/dh {with_state}")[1])
+    torch.cuda.synchronize()
+    print(f"[kernels] ssd_scan_bwd sweep passed (f32 5e-5 of max|plain| each gradient; bf16 "
+          f"mix: dx, dc within {BF16_FLOOR_RATIO} x the plain bf16 path's distance from f32, "
+          f"worst {worst:.3f} x; da, db, dh0 5e-5; two launches bitwise equal)", flush=True)
+
+
+def ssd_bwd_record(torch, randn, B, S, H, P, N, chunk, what: str) -> dict:
+    """The backward kernel at a train shape in the bf16 model's dtype mix,
+    from a zero state with no gradient of h_final (the train step's call):
+    ``ssd_bwd_check``, then kernel and plain times, the device us of its
+    four CUDA kernels, the grid and the bound (``cost.ssd_scan_bwd``, its
+    products counted at the bf16 tensor-core peak, as the forward's record
+    counts them: the least time any type of this work could take).  No
+    PyTorch call computes the SSD's backward, so ``library_ms`` is None."""
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import ssm_scan as ss
+
+    def one_set():
+        x, a, b, c, _ = ssd_inputs(torch, randn, B, S, H, P, N, mix=True)
+        dy = randn(B, S, H, P, dtype=torch.bfloat16)
+        return x, a, b, c, dy, ss._forward(x, a, b, c, None, chunk, True)[2]
+
+    sets = [one_set()]
+    sets += [one_set() for _ in range(min(15, -(-64 * 2**20 // nbytes(*sets[0][:5])) - 1))]
+    x, a, b, c, dy, saved = sets[0]
+    err, worst = ssd_bwd_check(torch, x, a, b, c, None, dy, None, chunk, what)
+    work = cost.ssd_scan_bwd(B, S, H, P, N, chunk, *(t.element_size() for t in (x, a, b, c)),
+                             0, 0)
+    runs = [lambda s=s: ss.ssd_scan_bwd(*s[:4], None, s[4], None, chunk=chunk, saved=s[5])
+            for s in sets]
+    ss.ssd_scan_bwd.last_grid = None
+    ms = time_ms(runs, reps=5, inner=3)
+    grid = ss.ssd_scan_bwd.last_grid
+    dev = device_us(runs, 10)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[kernels] ssd_scan_bwd at {what}: grids (chunk sums, carry, tiles, da) = {grid} "
+          f"blocks on {n_sm} SMs (as launched); device us a call {sum(dev.values()):.2f} ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(dev.items(), key=lambda kv: -kv[1]))
+          + f"); work {work.flops:.4e} FLOPs, {work.bytes:.4e} B", flush=True)
+    return finish(dict(
+        name="ssd_scan_bwd", max_abs_err=err, floor_ratio=worst, grid=list(grid),
+        device_us=dev,
+        shape=f"x, dy ({B},{S},{H},{P}) bf16, a f32, b ({B},{S},{H},{N}) f32, c bf16, "
+              f"chunk {chunk}, h0 none, no dh_final [{what}]",
+        ms=ms,
+        plain_ms=time_ms([lambda: ref.ssd_scan_bwd(x, a, b, c, None, dy, None, chunk=chunk)],
+                         reps=3, inner=1),
+        library_ms=None,
+        bytes_ms=work.bytes / PEAK_BYTES * 1e3,
+        ops_ms=work.flops / PEAK_BF16 * 1e3))
+
+
 def tensor_core_count() -> dict:
     """HMMA/HGMMA (tensor-core) and FFMA instructions per kernel function of
     the built flash-attention libraries, forward and backward, from
@@ -1402,6 +1556,14 @@ def kernel_phase(torch, gen) -> dict:
                          scale=96 ** -0.5),
         flash_bwd_record(torch, randn, 1, S, 32, 32, 96, None, "phi3-vision train"),
         flash_bwd_record(torch, randn, 1, S, 24, 8, 64, None, "granite train, g = 3")]
+    # The SSD scan's backward: its sweep, then hymba's train shape (the main
+    # path's: batch 2 x 4096, 50 heads of 64, N 16, chunk 256) and its
+    # serving prefill's (batch 4 x 1536).
+    ssd_bwd_sweep(torch, randn)
+    th = TRAIN_HYBRID
+    recs["ssd_scan_bwd"] = [
+        ssd_bwd_record(torch, randn, th["B"], th["S"], 50, 64, 16, 256, "hymba train"),
+        ssd_bwd_record(torch, randn, hy["B"], hy["S"], 50, 64, 16, 256, "hymba prefill shape")]
     torch.cuda.synchronize()
     return recs
 
@@ -1710,11 +1872,11 @@ def train_steps(torch, step, params, opt, batches, before, n_params: int, want: 
 
 
 def train_phase(torch) -> dict:
-    """The training path on the card: (1) one pattern period at full width,
-    each path's loss and gradients against plain f32 (PERIOD_GATES); (2) the main path:
-    full width and depth, STEPS AdamW steps with remat, exact launch counts;
-    (3) the reduced loop resuming exactly after an injected failure; (4) a
-    hybrid model's train step refused by the SSD scan's wrapper."""
+    """The xLSTM training path on the card: (1) one pattern period at full
+    width, each path's loss and gradients against plain f32 (PERIOD_GATES);
+    (2) full width and depth, TRAIN's AdamW steps with remat, exact launch
+    counts; (3) the reduced loop resuming exactly after an injected
+    failure."""
     import tempfile
     from repro_torch import configs as C
     from repro_torch.data import DataConfig
@@ -1852,24 +2014,6 @@ def train_phase(torch) -> dict:
     need(out["restarts"] == 1 and out["losses"] == ref["losses"][5:] and same_params,
          "the resumed reduced loop does not reproduce the uninterrupted run bit for bit")
 
-    # (4) A hybrid model cannot train on the card yet: the SSD scan's wrapper
-    # refuses a grad-requiring input before any launch (its backward kernel
-    # is the next slice).
-    from repro_torch.kernels.ssm_scan import ssd_scan
-    hcfg = C.get_config("hymba_1p5b").reduced(n_layers=2, d_model=128, vocab=1024)
-    hp = init_params(SEED, hcfg, device="cuda")
-    n0 = ssd_scan.n_launches
-    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, hcfg.vocab, (2, 32))).cuda()
-    try:
-        make_train_step(hcfg, TrainConfig())(hp, init_opt_state(hp, TrainConfig()),
-                                            {"tokens": tokens})
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    print(f"[train] reduced hymba train step on the card: "
-          + (f"refused: {refused}" if refused else "NOT refused"), flush=True)
-    need(refused is not None and refused.startswith("ssd_scan") and ssd_scan.n_launches == n0,
-         "a hybrid model's train step on the card was not refused by the SSD scan's wrapper")
     return launches
 
 
@@ -1925,6 +2069,90 @@ class AttentionClosedForm:
         self._ref.attention = self._real
 
 
+def ssd_scan_halves(x, a, b, c, h0=None, *, chunk: int = 256):
+    """``chunked.ssd_scan_chunked`` with its f32 sums reassociated, as the
+    scan's kernels reassociate them: the running log decays summed 32 steps
+    a block and then across the blocks (pass A's block scan), and C.B^T,
+    the intra-chunk product with x, the injected state and the inter-chunk
+    term each over two halves of their sum."""
+    import torch
+    F = torch.nn.functional
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    xf, af, bf, cf = (t.float() for t in (x, a, b, c))
+    pad = -S % Q
+    if pad:  # a = 1 and zeros past S, as the plain version pads
+        xf, bf, cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, bf, cf))
+        af = F.pad(af, (0, 0, 0, pad), value=1.0)
+    G = xf.shape[1] // Q
+    xf, bf, cf = (t.reshape(B, G, Q, H, -1) for t in (xf, bf, cf))
+    k = 32 if Q % 32 == 0 else 1
+    inner = torch.log(torch.clamp(af, min=1e-37)).reshape(B, G, Q // k, k, H).cumsum(3)
+    blocks = inner[:, :, :, -1]
+    cum = (inner + (blocks.cumsum(2) - blocks)[:, :, :, None]).reshape(B, G, Q, H)
+    total = cum[:, :, -1]
+    n2, q2 = N // 2, Q // 2
+    ein = torch.einsum
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    gate = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(~tri, float("-inf")))
+    m = (ein("bgthn,bgshn->bgtsh", cf[..., :n2], bf[..., :n2])
+         + ein("bgthn,bgshn->bgtsh", cf[..., n2:], bf[..., n2:])) * gate
+    y_intra = (ein("bgtsh,bgshp->bgthp", m[:, :, :, :q2], xf[:, :, :q2])
+               + ein("bgtsh,bgshp->bgthp", m[:, :, :, q2:], xf[:, :, q2:]))
+    bw = bf * torch.exp(total[:, :, None] - cum)[..., None]
+    h_in = (ein("bgqhn,bgqhp->bghpn", bw[:, :, :q2], xf[:, :, :q2])
+            + ein("bgqhn,bgqhp->bghpn", bw[:, :, q2:], xf[:, :, q2:]))
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    starts = []
+    for g in range(G):
+        starts.append(h)
+        h = h * torch.exp(total[:, g])[..., None, None] + h_in[:, g]
+    hs = torch.stack(starts, dim=1)
+    y_inter = (ein("bgthn,bghpn->bgthp", cf[..., :n2], hs[..., :n2])
+               + ein("bgthn,bghpn->bgthp", cf[..., n2:], hs[..., n2:])) * torch.exp(cum)[..., None]
+    return (y_intra + y_inter).reshape(B, -1, H, P)[:, :S].to(x.dtype), h
+
+
+class SsdClosedForm:
+    """While active, the plain SSD scan (``chunked.ssd_scan_chunked``, what
+    ``plain=True`` runs) is ``ssd_scan_halves``, its f32 sums reassociated,
+    and carries its gradient through ``ref.ssd_scan_bwd``, the closed form,
+    under an autograd Function in place of autograd through the chunked
+    form: the kernels' formulas, rounded otherwise (with the norms' and
+    attention's, CUT_GATES's f32 floor path for a hybrid model).  On an
+    NVIDIA H100 80GB HBM3 at 700 W (hymba's two-layer cut at 4096 tokens)
+    the f32 kernel path sat at 1.041 x this floor's token loss and 1.145 x
+    its gradient; against a floor whose scan only ran in chunks of half the
+    length, a smaller change than the kernels' reassociation, at 1.484 x
+    its token loss."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops, ref
+        self._ops, self._real = ops, ops.ssd_scan_chunked
+
+        class Scan(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, a, b, c, h0, chunk):
+                ctx.save_for_backward(x, a, b, c, h0)
+                ctx.chunk = chunk
+                return ssd_scan_halves(x, a, b, c, h0, chunk=chunk)
+
+            @staticmethod
+            def backward(ctx, dy, dh):
+                x, a, b, c, h0 = ctx.saved_tensors
+                return (*ref.ssd_scan_bwd(x, a, b, c, h0, dy, dh, chunk=ctx.chunk), None)
+
+        ops.ssd_scan_chunked = lambda x, a, b, c, h0=None, *, chunk=256: Scan.apply(
+            x, a, b, c, h0, chunk)
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.ssd_scan_chunked = self._real
+
+
 def cut_batch(torch, cfg, S: int) -> dict:
     """One sequence of the pipeline's batch 0 at ``S`` tokens (embeddings
     and labels for an embedding-stub arch), on the card."""
@@ -1948,10 +2176,11 @@ def token_nll(torch, cfg, params, batch, plain: bool):
         return -logp.gather(-1, labels.long()[..., None])[..., 0].flatten()
 
 
-def train_cut(torch, arch: str, S: int) -> None:
+def train_cut(torch, arch: str, S: int, tag: str = "train attention") -> None:
     """A two-layer cut of ``arch`` at full width (CUTS): each path's loss
     (token by token) and gradient (every leaf as one vector) against plain
-    f32, remat off, held to CUT_GATES's floors at BF16_FLOOR_RATIO."""
+    f32, remat off, held to CUT_GATES's floors at BF16_FLOOR_RATIO.  A
+    hybrid model's f32 floor path also takes ``SsdClosedForm``."""
     from repro_torch import configs as C
     from repro_torch.models import init_params
     cfg = dataclasses.replace(C.production_cfg(C.get_config(arch)), n_layers=2)
@@ -1972,6 +2201,8 @@ def train_cut(torch, arch: str, S: int) -> None:
                 if name == "f32 floor":
                     variants.enter_context(NormVariant("var in halves, closed-form backward"))
                     variants.enter_context(AttentionClosedForm())
+                    if cfg.ssm is not None:
+                        variants.enter_context(SsdClosedForm())
                 runs[name] = (*loss_and_grads(torch, c, prm, batch, plain),
                               token_nll(torch, c, prm, batch, plain))
             torch.cuda.empty_cache()
@@ -1990,7 +2221,7 @@ def train_cut(torch, arch: str, S: int) -> None:
                 for a, b in zip(ga, gb)]
         dist[name] = (tokens, grad)
         top = sorted(range(len(leaf)), key=leaf.__getitem__, reverse=True)[:3]
-        print(f"[train attention] {arch} two layers at full width, S {S}: {name} vs plain f32: "
+        print(f"[{tag}] {arch} two layers at full width, S {S}: {name} vs plain f32: "
               f"loss {la.item():.6f} (f32 {lb.item():.6f}), |d| / |ref| {mean:.3e}, token by "
               f"token |d|2 / |ref|2 {tokens:.3e}; gradient ({len(ga)} leaves as one vector) "
               f"|d|2 / |ref|2 {grad:.3e}; per leaf max|d| / max|g| worst "
@@ -2001,38 +2232,34 @@ def train_cut(torch, arch: str, S: int) -> None:
     for what, k, floor_name in CUT_GATES:
         for i, metric in enumerate(("token loss", "gradient")):
             got, floor = dist[k][i], dist[floor_name][i]
-            print(f"[train attention] {arch} {what}: {k}-f32 {metric} {got:.3e} against the "
+            print(f"[{tag}] {arch} {what}: {k}-f32 {metric} {got:.3e} against the "
                   f"floor ({floor_name}-f32) {floor:.3e}: "
                   + (f"{got / floor:.3f} x" if floor else "both 0")
                   + f" (gate {BF16_FLOOR_RATIO} x)", flush=True)
             need(got <= BF16_FLOOR_RATIO * floor, f"{arch} cut: {k}-f32 {metric} {got:.3e} > "
                  f"{BF16_FLOOR_RATIO} x the floor {floor:.3e}")
-    print(f"[train attention] {arch} cut: {len(runs)} paths' loss and gradients {wall:.1f} s",
+    print(f"[{tag}] {arch} cut: {len(runs)} paths' loss and gradients {wall:.1f} s",
           flush=True)
 
 
-def train_attention_phase(torch) -> dict:
-    """This slice's main path and its checks: (1) internlm2-1.8B at full
-    width and depth, bf16, remat, TRAIN_ATTN's three AdamW steps through
-    ``make_train_step`` with every launch count set to 0 just before and
-    read just after (exact forward and backward launches of both kernels,
-    finite losses, walls, idle share, peak memory); (2) the two-layer cuts
-    (CUTS) held to their floors; (3) the launcher's default command
-    (``python -m repro_torch.launch.train``: reduced internlm2 on the card)
-    in a child process, and the reduced loop's exact resume for internlm2.
-    Returns (1)'s launches."""
-    import tempfile
+def full_depth_steps(torch, spec: dict, want: dict, tag: str) -> dict:
+    """``spec``'s arch at full width and depth, bf16, remat, its steps of
+    AdamW through ``make_train_step`` on the pipeline's batches 0, 1, ...
+    with every launch count set to 0 just before and read just after (exact
+    launches ``want``, finite losses, walls, idle share, peak memory:
+    ``train_steps``); then one more step's unprofiled wall and the same step
+    under the profiler, by kernel group.  Returns the steps' launches."""
     from repro_torch import configs as C
     from repro_torch.data import DataConfig
     from repro_torch.data.pipeline import _batch_at
     from repro_torch.models import init_params
-    from repro_torch.optim import AdamWConfig, tree_leaves
-    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step, train_loop
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step
 
     card = card_line()
-    B, S = TRAIN_ATTN["B"], TRAIN_ATTN["S"]
-    cfg = C.production_cfg(C.get_config(TRAIN_ATTN["arch"]))
-    need(cfg.n_layers == TRAIN_ATTN["layers"], f"{cfg.n_layers} layers")
+    B, S = spec["B"], spec["S"]
+    cfg = C.production_cfg(C.get_config(spec["arch"]))
+    need(cfg.n_layers == spec["layers"], f"{cfg.n_layers} layers")
     t0 = time.perf_counter()
     params = init_params(SEED, cfg, device="cuda")
     tcfg = TrainConfig()
@@ -2042,13 +2269,13 @@ def train_attention_phase(torch) -> dict:
     before = [t.clone() for t in tree_leaves(params)]
     batches = [{"tokens": torch.from_numpy(_batch_at(DataConfig(
         vocab=cfg.vocab, seq_len=S, global_batch=B, seed=SEED), i, 0, 1)["tokens"]).cuda()}
-        for i in range(TRAIN_ATTN["steps"])]
+        for i in range(spec["steps"])]
     torch.cuda.synchronize()
-    print(f"[train attention] {TRAIN_ATTN['arch']} full width bf16: {cfg.n_layers} layers, "
-          f"{n_params / 1e9:.3f} B params, batch {B} x {S}, {TRAIN_ATTN['steps']} AdamW steps, "
+    print(f"[{tag}] {spec['arch']} full width bf16: {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B params, batch {B} x {S}, {spec['steps']} AdamW steps, "
           f"remat; set up in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     params, opt, launches = train_steps(torch, step, params, opt, batches, before, n_params,
-                                        TRAIN_ATTN_LAUNCHES, "train attention")
+                                        want, tag)
     # Where a step's device time goes: one more step, its unprofiled wall,
     # then the same under the profiler, by kernel group.
     torch.cuda.synchronize()
@@ -2058,7 +2285,7 @@ def train_attention_phase(torch) -> dict:
     bare = time.perf_counter() - t0
     _, groups, counts = profile_step(torch, lambda: step(params, opt, batches[0]))
     dev_us = sum(groups.values())
-    print(f"[train attention] one step (bf16, remat, batch {B} x {S}): wall {bare * 1e3:.3f} ms "
+    print(f"[{tag}] one step (bf16, remat, batch {B} x {S}): wall {bare * 1e3:.3f} ms "
           f"unprofiled, kernels {dev_us / 1e3:.3f} ms: device idle share "
           f"{1 - dev_us / (bare * 1e6):.3f}"
           + "".join(f"; {g} {us / 1e3:.3f} ms ({counts[g]} kernels)"
@@ -2066,6 +2293,25 @@ def train_attention_phase(torch) -> dict:
           flush=True)
     del params, opt, step, batches
     torch.cuda.empty_cache()
+    return launches
+
+
+def train_attention_phase(torch) -> dict:
+    """The attention train path and its checks: (1) internlm2-1.8B at full
+    width and depth, bf16, remat, TRAIN_ATTN's three AdamW steps through
+    ``make_train_step`` (``full_depth_steps``: exact forward and backward
+    launches of both kernels, finite losses, walls, idle share, peak
+    memory); (2) the two-layer cuts (CUTS) held to their floors; (3) the
+    launcher's default command (``python -m repro_torch.launch.train``:
+    reduced internlm2 on the card) in a child process, and the reduced
+    loop's exact resume for internlm2.  Returns (1)'s launches."""
+    import tempfile
+    from repro_torch import configs as C
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.runtime import TrainConfig, train_loop
+
+    launches = full_depth_steps(torch, TRAIN_ATTN, TRAIN_ATTN_LAUNCHES, "train attention")
 
     for arch, cut_s in CUTS.items():
         train_cut(torch, arch, cut_s)
@@ -2113,6 +2359,21 @@ def train_attention_phase(torch) -> dict:
     need(res["restarts"] == 1 and res["losses"] == ref["losses"][5:] and same_params,
          "the resumed reduced internlm2 loop does not reproduce the uninterrupted run bit for "
          "bit")
+    return launches
+
+
+def train_hybrid_phase(torch) -> dict:
+    """This slice's main path and its checks: (1) hymba-1.5B at full width
+    and depth, bf16, remat, TRAIN_HYBRID's three AdamW steps through
+    ``make_train_step`` (``full_depth_steps``: exact forward and backward
+    launches of the SSD scan, flash attention and the norms, finite losses,
+    walls, idle share, peak memory); (2) its two-layer cut at one sequence
+    of 4096, each path's loss token by token and its whole gradient against
+    plain f32, held to CUT_GATES's floors (the f32 floor with
+    ``SsdClosedForm``).  Returns (1)'s launches."""
+    launches = full_depth_steps(torch, TRAIN_HYBRID, TRAIN_HYBRID_LAUNCHES, "train hybrid")
+    train_cut(torch, TRAIN_HYBRID["arch"], TRAIN_HYBRID["S"], tag="train hybrid")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2608,10 +2869,11 @@ def all_kernels() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.ssm_scan import ssd_scan
+    from repro_torch.kernels.ssm_scan import ssd_scan, ssd_scan_bwd
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
             "decode_attention": decode_attention, "ssd_scan": ssd_scan, "dp_sweep": dp_sweep,
-            "rmsnorm_bwd": rmsnorm_bwd, "flash_attention_bwd": flash_attention_bwd}
+            "rmsnorm_bwd": rmsnorm_bwd, "flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def swarm_problem(model: str, n: int, requests: int, hotspots: int, comp: float):
@@ -3477,9 +3739,6 @@ def transport_phase(torch, build_s: float) -> dict:
 # internlm2's params restored onto the (1, 1) mesh.
 PARALLEL = dict(stack="internlm2_1p8b", B=4, S=1024, n_micro=(4, 2),
                 moe="granite_moe_3b", moe_B=4, moe_S=4096)
-NO_LAUNCH = {"decode_attention": 0, "ssd_scan": 0, "dp_sweep": 0, "rmsnorm_bwd": 0}
-
-
 def rel_max(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -3978,6 +4237,10 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     # reference trains through XLA's autodiff of ref.attention
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/ref.py:47"),
+    # nor for the SSD scan: the Pallas scan has no VJP, and the reference
+    # trains hybrid blocks through XLA's autodiff of its chunked scan
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                     "src/repro/kernels/chunked.py:34"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 EXTRAS = ("grid", "plan", "device_us", "depth_us", "norepeat_us", "decode_rows")
@@ -4030,6 +4293,9 @@ def main() -> int:
     by_path["train attention"] = train_attention_phase(torch)
     torch.cuda.empty_cache()
     phase_done("train attention")
+    by_path["train hybrid"] = train_hybrid_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("train hybrid")
     by_path["dryrun"], held = dryrun_phase(torch)
     for rec in held:  # the kernels at the dry-run cells' shapes
         recs[rec["name"]].append(rec)

@@ -9,8 +9,10 @@ flash_attention  — online-softmax attention forward, causal/window/GQA; bf16
                    (``csrc/flash_attention_bwd.cu``)
 decode_attention — single-token split-K flash-decode over (ring) KV caches
                    (``csrc/decode_attention.cu``)
-ssm_scan         — chunked Mamba-2 SSD scan, one block per (batch, head)
-                   (``csrc/ssm_scan.cu``)
+ssm_scan         — chunked Mamba-2 SSD scan, chunk-parallel passes
+                   (``csrc/ssm_scan.cu``), and its backward, dx/da/db/dc/dh0
+                   from the forward's workspace, no atomics
+                   (``csrc/ssm_scan_bwd.cu``)
 dp_sweep         — the placement path's batched f64 min-plus DP sweep
                    (``csrc/dp_sweep.cu``)
 ref, chunked     — the plain versions (``chunked`` holds the SSD scan's and

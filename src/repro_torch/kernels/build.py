@@ -152,12 +152,6 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-# Why the SSD scan refuses a gradient on the card.
-NO_BACKWARD = ("the reference's Pallas kernel has none and trains through XLA's autodiff of "
-               "the chunked scan; the scan's backward kernel is the next bring-up slice, "
-               "ROADMAP Queue 1")
-
-
 def refuse_grad(kernel: str, brings: str, *tensors: torch.Tensor | None) -> None:
     """Raise where autograd would record a launch of a kernel that has no
     backward kernel: its output would carry no gradient, and a training step

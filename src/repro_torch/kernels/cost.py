@@ -107,6 +107,25 @@ def ssd_scan(B: int, S: int, H: int, P: int, N: int, chunk: int, x_bytes: int, a
     return Work(flops, reads + B * S * H * P * x_bytes + B * H * P * N * 4)
 
 
+def ssd_scan_bwd(B: int, S: int, H: int, P: int, N: int, chunk: int, x_bytes: int,
+                 a_bytes: int, b_bytes: int, c_bytes: int, h0_bytes: int,
+                 dh_final_bytes: int) -> Work:
+    """x, a, b, c, dy (x's dtype), h0 and dh_final (``*_bytes`` 0: none)
+    read, dx, da, db, dc and dh0 written once, each in its input's dtype (the
+    forward's saved workspace is the kernel's own and not counted).
+    Operations of the causal form this call's chunks need: per (batch, head)
+    and chunk of L steps, L(L+1)/2 (t, s) pairs of five products, DY.X^T
+    and dx's over P, C.B^T, db's and dc's over N; and per step 8PN for the
+    state's four terms (the chunk sums, dx's and db's injection, dc's
+    inter-chunk term)."""
+    q = min(chunk, S)
+    lens = [min(q, S - s0) for s0 in range(0, S, q)]
+    flops = B * H * sum(L * (L + 1) * (2 * P + 3 * N) + 8 * L * P * N for L in lens)
+    per_step = 3 * P * x_bytes + 2 * a_bytes + 2 * N * (b_bytes + c_bytes)
+    return Work(flops, B * S * H * per_step
+                + B * H * P * N * (2 * h0_bytes + dh_final_bytes))
+
+
 # The collectives by the reference's names (its dry-run parses them from the
 # partitioned HLO), and its per-chip link traffic a result byte (ring
 # algorithms, n >> 1), copied from ``repro.launch.dryrun._TRAFFIC_W``.

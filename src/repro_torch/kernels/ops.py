@@ -14,8 +14,9 @@ group, row-parallel where ``ref._row_shard`` fires (each rank's call takes
 ``kv_offset`` advanced by its rows' start), else replicated on ``model``;
 decode attention on its kv heads, or, over a cache sharded by sequence, on
 its slice of the slots, the ranks' outputs merged by their row max and sum
-(decode context parallelism); the scans on their batch and heads.  Each
-wrapper sees plain tensors only.
+(decode context parallelism); the scans on their batch and heads (a train
+step's mLSTM cell, whose heads ``model`` does not divide, a head on several
+model ranks by v's columns).  Each wrapper sees plain tensors only.
 """
 
 from __future__ import annotations
@@ -76,9 +77,25 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
-               f_gate: torch.Tensor, *, chunk: int = 256
-               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+               f_gate: torch.Tensor, *, chunk: int = 256, with_state: bool = True
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None]:
+    """The chunked mLSTM cell (``chunked.mlstm_chunked``): y (B, S, H, P) and,
+    ``with_state``, its (C, n, m).  Under a mesh, on each rank's batch and
+    heads; a train step's call (``with_state=False``) whose heads do not
+    divide ``model`` but whose model axis is a multiple of them runs as the
+    reference's partitioner lays it out: each head on model // H ranks, each
+    rank on its slice of v's P (C = k v^T and y cut by v's columns; the
+    normaliser needs q and k only), y returned as (B, S, H * P) with its
+    features on ``model``.  No state is returned then: a rank's C would be
+    one head's slice of v's columns, a split of one mesh axis over two of
+    C's dims (H and v's P) that no DTensor placement holds, and its n and m
+    would repeat on the head's ranks.  So a call that keeps the state
+    (prefill's, whose (C, n, m) become cache leaves laid out by heads as the
+    reference's) runs on each rank's batch and heads as above, whole on
+    ``model`` where the heads do not divide it."""
     # mLSTM rides on the chunked SSD form on every device, as in the reference
+    if sharding.is_dtensor(q) and not with_state and sharding.head_split(q, q.shape[2]):
+        return _mlstm_head_split(q, k, v, i_gate, f_gate, chunk), None
     if sharding.is_dtensor(q):
         # q, k, v (B, S, H, P), gates (B, S, H); C (B, H, P, P), n (B, H, P), m (B, H)
         seq, st = sharding.scan_placements(q)
@@ -112,6 +129,30 @@ def mlstm_recurrent(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: t
 
 
 # --- the sharded forms ----------------------------------------------------------
+
+def _mlstm_head_split(q, k, v, i_gate, f_gate, chunk):
+    """q, k, v (B, S, H, P), gates (B, S, H), whole on ``model``: model rank
+    r computes head r // w on columns (r % w) P / w .. of v, w =
+    ``sharding.head_split`` ranks a head; y (B, S, H * P) with its features
+    on ``model`` (rank r's slice of the flattened heads is its own piece)."""
+    from torch.distributed.tensor import Replicate, Shard
+    B, S, H, P = q.shape
+    _, axes = sharding.active_mesh()
+    ways = sharding.head_split(q, H)
+    dat = sharding.data_placement(q)
+    whole = sharding.axis_placements(q, dat, Replicate())
+    feat = sharding.axis_placements(q, dat, Shard(2))
+    rank = sharding.model_rank(q.device_mesh, axes)
+
+    def fn(q, k, v, i, f):
+        h = rank // ways
+        one = slice(h, h + 1)
+        y, _ = mlstm_chunked(q[:, :, one], k[:, :, one], v.reshape(*v.shape[:2], 1, P // ways),
+                             i[:, :, one], f[:, :, one], chunk=chunk)
+        return y.reshape(*v.shape)
+    return sharding.local_call(fn, (q, k, v.reshape(B, S, H * P), i_gate, f_gate),
+                               (whole, whole, feat, whole, whole), feat, q.device_mesh)
+
 
 def _sharded_attention(fn, q, k, v, *, causal, window, scale, kv_offset):
     """q (B, S, Hq, D), k, v (B, Skv, Hkv, D*) DTensors -> (B, S, Hq, Dv)."""

@@ -405,6 +405,97 @@ def ssd_scan_bf16_scheme(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: t
     return y.reshape(B, -1, H, P)[:, :S], h
 
 
+def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 h0: torch.Tensor | None, dy: torch.Tensor, dh_final: torch.Tensor | None, *,
+                 chunk: int = 256) -> tuple[torch.Tensor, ...]:
+    """The plain version of the SSD scan's backward kernel: the gradients
+    (dx, da, db, dc, dh0) of ``chunked.ssd_scan_chunked(x, a, b, c, h0,
+    chunk=chunk)`` for the cotangents ``dy`` of y and ``dh_final`` of the
+    final state (None: zero), in closed form and f32, chunk by chunk as the
+    forward is.  With cum_t the running log decay within a chunk, W_ts =
+    exp(cum_t - cum_s) for s <= t, and each chunk's start state h_s and its
+    end state's gradient dh_e:
+      dh_start = exp(total) dh_e + sum_t exp(cum_t) dy_t (x) c_t  (the reverse
+                 carry, from dh_final; dh0 is the first chunk's),
+      dx_s = sum_t (c_t.b_s) W_ts dy_t + exp(total - cum_s) dh_e b_s,
+      db_s = sum_t (dy_t.x_s) W_ts c_t + exp(total - cum_s) dh_eᵀ x_s,
+      dc_t = sum_s (dy_t.x_s) W_ts b_s + exp(cum_t) h_sᵀ dy_t,
+    and the gradient of log a_u within the chunk
+      dla_u = sum_{t>=u} dcum_t + sum_{s<u} q_s + exp(total) <dh_e, h_s>,
+      dcum_t = (the pairs' row t) - (their column t) + c_t.(dc_t's inter term),
+      q_s = b_s.(db_s's injection term),
+    divided by a: the total's gradient <dh_e, h_end> spread over the chunk
+    with the injection terms it cancels taken out, so a gradient that is
+    zero (no state before a step) comes out zero, not rounding noise.  The
+    clamp max(a, 1e-37) passes half the gradient at a tie, as
+    ``jnp.maximum``'s does.  Returns each gradient in its input's dtype;
+    dh0 is None without h0.  (The reference trains the scan through XLA's
+    autodiff of its ``chunked.ssd_scan_chunked``; its Pallas kernel has no
+    VJP.)"""
+    F = torch.nn.functional
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    xf, af, bf, cf, dyf = (t.float() for t in (x, a, b, c, dy))
+    pad = -S % Q
+    if pad:  # a = 1 and zeros past S, as the forward pads
+        xf, bf, cf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, bf, cf, dyf))
+        af = F.pad(af, (0, 0, 0, pad), value=1.0)
+    G = xf.shape[1] // Q
+    xf, bf, cf, dyf = (t.reshape(B, G, Q, H, -1) for t in (xf, bf, cf, dyf))
+    lim = torch.tensor(1e-37, dtype=torch.float32, device=x.device)
+    ac = torch.maximum(af, lim)
+    cum = torch.cumsum(torch.log(ac).reshape(B, G, Q, H), dim=2)     # (B,G,Q,H)
+    total = cum[:, :, -1]                                            # (B,G,H)
+    w_end = torch.exp(total[:, :, None] - cum)                       # exp(total - cum_s)
+    e_cum = torch.exp(cum)
+
+    # the forward's chunk start states, and each chunk's end state
+    h_in = torch.einsum("bgqhn,bgqhp->bghpn", bf * w_end[..., None], xf)
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    starts = []
+    for g in range(G):
+        starts.append(h)
+        h = h * torch.exp(total[:, g])[..., None, None] + h_in[:, g]
+    h_start = torch.stack(starts, dim=1)                             # (B,G,H,P,N)
+
+    # the reverse carry of the state's gradient
+    u = torch.einsum("bgthp,bgthn->bghpn", dyf * e_cum[..., None], cf)
+    dh = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device) if dh_final is None
+          else dh_final.float())
+    ends = [None] * G
+    for g in reversed(range(G)):
+        ends[g] = dh
+        dh = dh * torch.exp(total[:, g])[..., None, None] + u[:, g]
+    dh_end = torch.stack(ends, dim=1)                                # (B,G,H,P,N)
+
+    # within each chunk
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    W = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(~tri, float("-inf")))
+    cb = torch.einsum("bgthn,bgshn->bgtsh", cf, bf)                  # c_t . b_s
+    e = torch.einsum("bgthp,bgshp->bgtsh", dyf, xf) * W              # (dy_t . x_s) W_ts
+    dx_state = torch.einsum("bghpn,bgshn->bgshp", dh_end, bf) * w_end[..., None]
+    db_state = torch.einsum("bghpn,bgshp->bgshn", dh_end, xf) * w_end[..., None]
+    dc_inter = torch.einsum("bghpn,bgthp->bgthn", h_start, dyf) * e_cum[..., None]
+    dx = torch.einsum("bgtsh,bgthp->bgshp", cb * W, dyf) + dx_state
+    db = torch.einsum("bgtsh,bgthn->bgshn", e, cf) + db_state
+    dc = torch.einsum("bgtsh,bgshn->bgthn", e, bf) + dc_inter
+    m = e * cb
+    dcum = m.sum(3) - m.sum(2) + (cf * dc_inter).sum(-1)             # (B,G,Q,H)
+    q = (bf * db_state).sum(-1)
+    dla = (dcum.flip(2).cumsum(2).flip(2) + q.cumsum(2) - q
+           + (torch.exp(total) * (dh_end * h_start).sum((-1, -2)))[:, :, None])
+    dla = dla.reshape(B, -1, H)[:, :S]
+    at = af[:, :S]
+    da = dla / ac[:, :S] * torch.where(at > lim, 1.0, torch.where(at == lim, 0.5, 0.0))
+
+    def out(t, like):
+        return t.reshape(B, -1, H, t.shape[-1])[:, :S].to(like.dtype)
+    return (out(dx, x), da.to(a.dtype), out(db, b), out(dc, c),
+            None if h0 is None else dh.to(h0.dtype))
+
+
 def dp_sweep(spb: torch.Tensor, Kv: torch.Tensor, Ks: float, srcs: torch.Tensor,
              cand: torch.Tensor, valid: torch.Tensor, cc: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:

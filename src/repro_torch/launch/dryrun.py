@@ -51,10 +51,9 @@ torch versions, so a record names the torch that traced it.
 Prefill and decode are traced under
 ``torch.inference_mode()``, as ``Server`` runs them, and train through
 ``steps.make_train_step``, the backward kernels' meta branches recording
-their work (RMSNorm's and flash attention's); a train cell whose forward
-reaches a kernel with no backward (the SSD scan) records the wrapper's
-refusal.  Any failure is recorded as data,
-never raised.
+their work (RMSNorm's, flash attention's and the SSD scan's); a train cell
+whose forward reaches a kernel with no backward would record the wrapper's
+refusal.  Any failure is recorded as data, never raised.
 
 xLSTM's sLSTM steps through its tokens in Python, so a trace at 32,768 tokens
 would take minutes.  Its prefill and train cells are traced at 2 and 3
@@ -113,7 +112,7 @@ ALLOCATOR = ("allocated bytes at 512-byte blocks, with the CUDA caching allocato
              "trace does not predict, bind first near the cap")
 BLOCK = 512                    # the CUDA caching allocator's block rounding
 KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "ssd_scan_bwd")
 # ops that allocate their output and write nothing
 _ALLOC_ONLY = {torch.ops.aten.empty, torch.ops.aten.empty_strided, torch.ops.aten.empty_like,
                torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided}
@@ -865,9 +864,8 @@ def _save(rec: dict, out_dir: pathlib.Path) -> None:
 def table(out_dir: pathlib.Path) -> str:
     """The per-device columns of the records in ``out_dir`` as a markdown
     table, a row an arch: its supported cells in shape order, separated by
-    ";", each "(16, 16) / (2, 16, 16)"; a train cell that records a
-    wrapper's refusal (hymba's, the SSD scan's) reads "refused", a record not
-    written "—"."""
+    ";", each "(16, 16) / (2, 16, 16)"; a cell that records a failure (a
+    wrapper's refusal) reads "refused", a record not written "—"."""
     recs: dict = collections.defaultdict(dict)
     for p in sorted(out_dir.glob("*.json")):
         r = json.loads(p.read_text())

@@ -49,6 +49,8 @@ GROUPS = (("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
           ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
           ("ssd_scan", ("ssd_chunk_state_kernel", "ssd_carry_kernel", "ssd_output_kernel",
                         "ssd_output_tc_kernel", "ssd_step_kernel")),
+          ("ssd_scan_bwd", ("ssd_bwd_state_kernel", "ssd_bwd_carry_kernel", "ssd_bwd_tile_kernel",
+                            "ssd_bwd_da_kernel")),
           ("dp_sweep", ("dp_sweep_kernel",)),
           ("matmul", ("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")))
 

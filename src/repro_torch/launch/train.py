@@ -9,9 +9,8 @@ The reference's flags, plus ``--device``.  As in the reference,
 with ``default=True``): the loop always trains the reduced config.  The
 full-width train step runs through ``runtime.steps.make_train_step``.  The
 default command trains reduced internlm2 on the card (RMSNorm's and flash
-attention's backward kernels); hybrid and mamba models train on the CPU
-only until the SSD scan has a backward kernel: on the card it refuses a
-grad-requiring input.
+attention's backward kernels); ``--arch hymba_1p5b`` trains the hybrid
+blocks there too, through the SSD scan's backward kernel.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 parallel SSM head and the generic ``mamba`` block kind.
 
 Per block: in-projections -> short causal depthwise conv -> SiLU -> selective
-scan (chunked SSD; ``csrc/ssm_scan.cu`` on the card) -> gated RMSNorm ->
-out-projection.  Decode carries (conv_state, ssm_state) instead of a KV
-cache.  ``dt_bias``, ``A_log`` and ``D`` stay f32 in every config, as in the
+scan (chunked SSD; ``csrc/ssm_scan.cu`` on the card, its gradient
+``csrc/ssm_scan_bwd.cu``) -> gated RMSNorm -> out-projection.  Decode
+carries (conv_state, ssm_state) instead of a KV cache.  ``dt_bias``, ``A_log`` and ``D`` stay f32 in every config, as in the
 reference, so under bf16 the scan receives x and c in bf16 and a and b in
 f32 (``b * dt`` promotes).
 
@@ -83,12 +83,13 @@ def _ssm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tens
     xs = F.silu(xs)
     z = x @ w["w_z"]
 
-    b, c = torch.split((x @ w["w_bc"]).reshape(B, S, nh, 2 * n), n, dim=-1)
+    bc = sharding.heads_whole(x @ w["w_bc"], nh)
+    b, c = torch.split(bc.reshape(B, S, nh, 2 * n), n, dim=-1)
     # jax.nn.softplus is logaddexp(x, 0); F.softplus turns linear above 20.
     dt_ = torch.logaddexp((x @ w["w_dt"]).float() + p["dt_bias"],
                           torch.zeros((), device=x.device))        # (B, S, nh) f32
     a = torch.exp(-dt_ * torch.exp(p["A_log"]))                     # decay in (0, 1)
-    xh = xs.reshape(B, S, nh, ph)
+    xh = sharding.heads_whole(xs, nh).reshape(B, S, nh, ph)
     b = b * dt_[..., None]                                          # dt-weighted input, f32
     y, ssm_state_new = ops.ssd_scan(xh, a, b, c, h0=ssm_state, chunk=cfg.ssm.chunk,
                                     plain=plain)

@@ -218,26 +218,28 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, remat: bool = False,
     """Full-sequence forward.  Returns (logits f32 (B, S, V), aux loss).
 
     Layers run in pattern groups of ``len(cfg.block_pattern)``, as the
-    reference's scan body; with ``remat`` each group is checkpointed
-    (non-reentrant), so its activations are recomputed in the backward pass
-    and only the group boundaries are kept."""
+    reference's scan body; with ``remat`` each layer of a group is
+    checkpointed (non-reentrant), so its activations are recomputed in the
+    backward pass and only the layers' inputs are kept.  The reference
+    checkpoints the group; per layer, the same recompute holds one layer's
+    activations at a time, not a whole group's (with xLSTM's groups of 8
+    layers, rank 0's train_4k on (16, 16) traced at a 58 GB peak, against
+    the reference's record of 36.8)."""
     check_config(cfg)
     x = _embed_in(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     period = len(cfg.block_pattern)
     blocks = params["blocks"]
 
-    def group(x: torch.Tensor, *group_blocks: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        aux = sharding.replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
-        for p in group_blocks:
-            x, a = _block_apply(p, cfg, x, positions, plain)
-            aux = aux + a
-        return x, aux
+    def layer(x: torch.Tensor, p: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        return _block_apply(p, cfg, x, positions, plain)
 
     auxs = []
     for g in range(0, len(blocks), period):
-        gb = blocks[g:g + period]
-        x, aux = (checkpoint(group, x, *gb, use_reentrant=False) if remat else group(x, *gb))
+        aux = sharding.replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
+        for p in blocks[g:g + period]:
+            x, a = checkpoint(layer, x, p, use_reentrant=False) if remat else layer(x, p)
+            aux = aux + a
         auxs.append(aux)
     return _lm_logits(params, cfg, x, plain, keep_padded), torch.stack(auxs).sum()
 

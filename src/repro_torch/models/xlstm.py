@@ -14,16 +14,21 @@ Caches: the mLSTM's (conv, C, n, m), C in the sequential form's (k, v)
 layout and in f32; the sLSTM's (h, c, n, m), each (B, nh, ph) f32.
 
 Under the active mesh, on DTensors: the projections run with their weights
-gathered over the data axes, the mLSTM's cell on each rank's batch (and
-heads, where ``model`` divides them), the sLSTM's time loop on each rank's
-batch rows (``sharding.local_call``), the norms through the kernel on each
-rank's rows.
+gathered over the data axes, each product's gradient in its own layout
+(``sharding.own_layout_grad``); the mLSTM's cell on each rank's batch and
+heads where ``model`` divides them, and in the train step, where the model
+axis is a multiple of the heads, each head on several model ranks by v's
+columns (the reference's layout: ``ops.mlstm_scan``); the sLSTM's time loop
+on each rank's batch rows, over ``model`` too where they divide
+(``sharding.local_call``); the norms through the kernel on each rank's
+rows.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -62,11 +67,14 @@ def _mlstm_in(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tens
     B, S, _ = x.shape
     _, nh, ph = _mlstm_dims(cfg)
     w = {k: sharding.gathered(p[k]) for k in ("w_up", "w_qkv", "w_gates")}
-    xs, z = (x @ w["w_up"]).chunk(2, dim=-1)
+    # each product's gradient in its own layout: the chunks below take the
+    # column-parallel outputs whole, and would hand back whole gradients
+    lay = sharding.own_layout_grad
+    xs, z = lay(x @ w["w_up"]).chunk(2, dim=-1)
     xc, conv_state_new = _causal_conv(xs, p["conv"], conv_state)
     xc = F.silu(xc)
-    q, k, v = (t.reshape(B, S, nh, ph) for t in (xc @ w["w_qkv"]).chunk(3, dim=-1))
-    gates = (xc @ w["w_gates"]).float() + p["gate_bias"]
+    q, k, v = (t.reshape(B, S, nh, ph) for t in lay(xc @ w["w_qkv"]).chunk(3, dim=-1))
+    gates = lay(xc @ w["w_gates"]).float() + p["gate_bias"]
     i_gate, f_gate = gates.chunk(2, dim=-1)                                  # (B,S,nh)
     return q, k, v, i_gate, f_gate, z, conv_state_new
 
@@ -76,14 +84,24 @@ def _mlstm_out(p: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
     B, S = y.shape[:2]
     y = y.reshape(B, S, -1)
     y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain) * F.silu(z)
-    return sharding.batch_layout(y @ sharding.gathered(p["w_out"]))
+    w = sharding.gathered(p["w_out"])
+    if (y.requires_grad and sharding.is_dtensor(w) and sharding.model_placement(w) == Shard(0)
+            and sharding.model_placement(y) == Replicate()):
+        # row-parallel under autograd: y's columns cut to the rank's rows of
+        # w_out, so the backward's dy = g w_out^T runs on those rows only, not
+        # the whole w_out.  Without a backward DTensor's own choice is kept
+        # (a batch-1 decode splits the product over data x model)
+        _, axes = sharding.active_mesh()
+        y = y.redistribute(y.device_mesh, [Shard(2) if n == axes.model else pl for n, pl in
+                                           zip(y.device_mesh.mesh_dim_names, y.placements)])
+    return sharding.batch_layout(y @ w)
 
 
 def mlstm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, plain: bool = False
                 ) -> torch.Tensor:
     """The training / cache-free forward: the chunked cell."""
     q, k, v, i_gate, f_gate, z, _ = _mlstm_in(p, cfg, x, None)
-    y, _ = ops.mlstm_scan(q, k, v, i_gate, f_gate, chunk=_chunk(cfg))
+    y, _ = ops.mlstm_scan(q, k, v, i_gate, f_gate, chunk=_chunk(cfg), with_state=False)
     return _mlstm_out(p, cfg, y, z, plain)
 
 
@@ -178,11 +196,11 @@ def _slstm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, state: tuple | None,
                 plain: bool) -> tuple[torch.Tensor, tuple]:
     """The time loop, one step of Python a token (the reference's
     ``lax.scan``).  A fresh sequence starts from m = -1e30.  Under a mesh the
-    loop runs on each rank's batch rows, whole over ``model``."""
+    loop runs on each rank's batch rows (``sharding.batch_rows``: over
+    ``model`` too where they divide, else whole there)."""
     wx = (x @ sharding.gathered(p["w"])).float() + p["bias"]                   # (B,S,4d)
     if sharding.is_dtensor(x):
-        from torch.distributed.tensor import Replicate
-        rows = sharding.axis_placements(x, sharding.data_placement(x), Replicate())
+        rows = sharding.batch_rows(x)
         whole = sharding.replicated(x)
         st = () if state is None else tuple(state)
 

@@ -579,6 +579,37 @@ def scan_placements(x: torch.Tensor) -> tuple[list, list]:
             axis_placements(x, dat, Shard(1) if heads else Replicate()))
 
 
+def head_split(x: torch.Tensor, n_heads: int) -> int:
+    """Model ranks across which each head of ``x`` (B, S, n_heads, P), whole
+    on ``model``, is cut by its P, where the model axis holds a multiple of
+    the heads: its size over ``n_heads`` (xLSTM's 4 heads of 1024 on 16 ranks:
+    4 ranks a head, 256 of its P each, the layout the reference's partitioner
+    gives the mLSTM cell).  0 where the heads divide ``model``, where they
+    do not cut evenly this way, or where x is not whole there."""
+    from torch.distributed.tensor import Replicate
+    _, axes = active_mesh()
+    m = mesh_sizes(x.device_mesh)[axes.model]
+    if (m <= n_heads or m % n_heads or x.shape[-1] % (m // n_heads)
+            or model_placement(x) != Replicate()):
+        return 0
+    return m // n_heads
+
+
+def batch_rows(x: torch.Tensor) -> list:
+    """The placements of a loop over time that runs on each rank's batch
+    rows, x (B, ...) its input: the batch on the data axes where x has it
+    there, and on ``model`` too where each data group's rows divide among
+    its model ranks (xLSTM's sLSTM at train_4k on (16, 16): a sequence a
+    rank), else whole on ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    _, axes = active_mesh()
+    dat = data_placement(x)
+    m = mesh_sizes(x.device_mesh)[axes.model]
+    rows = x.shape[0] // dsize(x.device_mesh, axes) if dat == Shard(0) else 0
+    split = m > 1 and rows and rows % m == 0
+    return axis_placements(x, dat, Shard(0) if split else Replicate())
+
+
 def model_rank(mesh: Any, axes: MeshAxes | None = None) -> int:
     axes = axes or active_mesh()[1]
     return mesh.get_local_rank(axes.model)

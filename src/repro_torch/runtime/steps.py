@@ -5,11 +5,9 @@ The reference jits these; the port runs them eagerly.  Every block kind
 ``models/transformer.py`` ports runs through them.  The train step takes the
 gradient of ``loss_fn`` with ``torch.autograd.grad`` over the param leaves,
 optionally compresses it (int8 with error feedback), and applies AdamW in
-place.  On the card it runs through the kernels' autograd: RMSNorm and
-flash attention have backward kernels, so the attention models train there;
-the SSD scan refuses a grad-requiring input until its backward kernel comes
-(``kernels/build.py::refuse_grad``), so hybrid and mamba models train on the
-CPU only, for now.
+place.  On the card it runs through the kernels' autograd: RMSNorm, flash
+attention and the SSD scan have backward kernels, so the attention, hybrid
+and mamba models train there.
 
 Sharded steps: under the active mesh (``parallel.sharding.set_active_mesh``)
 each step takes DTensor params (``sharding.shard_params(param_pspecs(...))``)

@@ -152,13 +152,13 @@ def no_plain(monkeypatch):
     launch counts as they were before."""
     def refuse(*a, **k):
         raise AssertionError("a meta branch ran the plain version")
-    for mod, names in ((FA, ("plain", "plain_bwd")), (DA, ("plain",)), (SS, ("plain",)),
-                       (RN, ("plain", "plain_bwd"))):
+    for mod, names in ((FA, ("plain", "plain_bwd")), (DA, ("plain",)),
+                       (SS, ("plain", "plain_bwd")), (RN, ("plain", "plain_bwd"))):
         for n in names:
             monkeypatch.setattr(mod, n, refuse)
     counts = {f: f.n_launches for f in (FA.flash_attention, FA.flash_attention_bwd,
-                                        DA.decode_attention, SS.ssd_scan, RN.rmsnorm,
-                                        RN.rmsnorm_bwd)}
+                                        DA.decode_attention, SS.ssd_scan, SS.ssd_scan_bwd,
+                                        RN.rmsnorm, RN.rmsnorm_bwd)}
     yield
     assert {f: f.n_launches for f in counts} == counts
 
@@ -272,10 +272,20 @@ def test_ssd_meta_branch(S, with_h0, no_plain):
     work = cost.ssd_scan(B, S, H, P, N, chunk, 2, 4, 4, 2, 4 if with_h0 else 0)
     assert mode.kernel_calls == {"ssd_scan": 1}
     assert mode.flops_by["ssd_scan"] == work.flops and mode.hbm_bytes == work.bytes
+    # under autograd the backward's meta branch records its own work
     grad_in = [meta(*s, dtype=dt) for s, dt in zip(shapes, dts)]
+    if not with_h0:
+        grad_in[-1] = None
     grad_in[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        SS.ssd_scan(*grad_in, chunk=chunk)
+
+    def fwd_bwd():
+        y, _ = SS.ssd_scan(*grad_in, chunk=chunk)
+        return torch.autograd.grad(y, grad_in[0], torch.empty_like(y))[0]
+    dx, mode = recorded(fwd_bwd)
+    assert dx.shape == grad_in[0].shape and dx.dtype == torch.bfloat16 and dx.is_meta
+    assert mode.kernel_calls == {"ssd_scan": 1, "ssd_scan_bwd": 1}
+    bwd = cost.ssd_scan_bwd(B, S, H, P, N, chunk, 2, 4, 4, 2, 4 if with_h0 else 0, 0)
+    assert mode.flops_by["ssd_scan_bwd"] == bwd.flops
 
 
 def test_cost_formulas_are_the_chip_records():
@@ -369,15 +379,10 @@ CELL_IDS = [a for a in TC.ARCH_IDS] + ["granite_scatter"]
 @pytest.mark.parametrize("arch,hook", CELLS, ids=CELL_IDS)
 def test_every_reduced_arch_traces(arch, hook, kind):
     """prefill, decode and train trace with status ok, train through the
-    backward kernels' meta branches (RMSNorm's and flash attention's); a
-    hybrid model's train cell records the SSD scan wrapper's refusal."""
+    backward kernels' meta branches (RMSNorm's, flash attention's and, in a
+    hybrid model, the SSD scan's)."""
     rec = _reduced_record(CELLS.index((arch, hook)), kind)
     assert rec["layout"]["argument_size_in_bytes"] > 0
-    if kind == "train" and arch == "hymba_1p5b":
-        assert rec["status"] == "error"
-        assert rec["error"].startswith("NotImplementedError: ssd_scan: an input "
-                                       "requires grad"), rec["error"]
-        return
     assert rec["status"] == "ok", rec.get("traceback")
     calls = rec["work"]["kernel_calls"]
     cfg = hook(None)
@@ -388,8 +393,12 @@ def test_every_reduced_arch_traces(arch, hook, kind):
     assert calls["flash_attention"] == (runs * cfg.n_layers if attn else 0)
     assert calls["flash_attention_bwd"] == (cfg.n_layers if attn and kind == "train" else 0)
     assert calls["decode_attention"] == (cfg.n_layers if attn and kind == "decode" else 0)
+    scan = "hybrid" in cfg.block_pattern or "mamba" in cfg.block_pattern
+    assert calls["ssd_scan"] == (max(runs, 1) * cfg.n_layers if scan else 0)
+    assert calls["ssd_scan_bwd"] == (cfg.n_layers if scan and kind == "train" else 0)
     if kind == "train":  # every layer's norms again in the backward pass
-        norms = (4 if cfg.mla is not None else 2) * cfg.n_layers  # MLA: norm_q, norm_kv
+        # MLA: norm_q, norm_kv; a hybrid block: the SSM's gated norm
+        norms = (4 if cfg.mla is not None else 3 if scan else 2) * cfg.n_layers
         assert (calls["rmsnorm"], calls["rmsnorm_bwd"]) == (2 * norms + 1, norms + 1)
     else:
         assert calls["rmsnorm_bwd"] == 0
@@ -444,18 +453,14 @@ def test_partition_flops_are_the_steps_on_a_mesh_every_dim_divides(arch, kind, c
     out), they are several times more: so a torch whose propagation the
     trace failed to recognise fails this test, not the records silently.
     The train step's propagation runs on fake tensors, which the trace never
-    counts, so there both counts are the step's.  hymba's train step is
-    refused by the SSD scan's wrapper (no backward kernel)."""
+    counts, so there both counts are the step's.  hymba's train step runs its
+    SSD scan's backward kernel on each rank's batch and heads."""
     monkeypatch.setitem(D.MESHES, "mesh2x2", ({"data": 2, "model": 2},
                                               TS.MeshAxes(data=("data",))))
     if counted:
         monkeypatch.setattr(D, "_PROPAGATION", ())
     cfg = TC.get_config(arch).reduced(**SMALL_DIVISIBLE[arch])
     shape = ShapeConfig(f"small_{kind}", 16 if kind == "prefill" else 20, 4, kind)
-    if kind == "train" and arch == "hymba_1p5b":
-        with pytest.raises(NotImplementedError, match="ssd_scan: an input requires grad"):
-            D.trace(cfg, shape, 4, mesh_name="mesh2x2", mesh_device="cpu")
-        return
     step = D.trace(cfg, shape, 4)["flops"]
     rank = D.trace(cfg, shape, 4, mesh_name="mesh2x2", mesh_device="cpu")["flops"]
     if counted and kind != "train":
@@ -507,6 +512,67 @@ def test_train_step_holds_no_global_logits_on_a_rank(monkeypatch):
     local_logits_f32 = shape.global_batch // 16 * (shape.seq_len - 1) * cfg.vocab_padded * 4
     assert _PeakTrace.last.largest_at_peak < local_logits_f32
     assert res["peak_bytes"] <= TRAIN_PEAK_BOUND, res["peak_bytes"]
+
+
+class _LiveSites(D.Trace):
+    """``dryrun.Trace`` that keeps, for the storages live at its peak, each
+    one's shape and the model function that made it (``flops_by_site``'s
+    sites: a backward op's under its forward's name with "(backward)")."""
+
+    def __init__(self, args):
+        self._made: dict = {}
+        self.at_peak: list = []
+        super().__init__(args)
+        _LiveSites.last = self
+
+    def _track(self, t):
+        from repro_torch.launch import flops_by_site
+        key = t.untyped_storage()._cdata
+        if key not in self._alive:
+            self._made[key] = (tuple(t.shape), flops_by_site._where()[0])
+        peak = self.peak
+        super()._track(t)
+        if self.peak > peak:
+            self.at_peak = [self._made[k] for k in self._alive if k in self._made]
+
+    def _free(self, key, n):
+        self._made.pop(key, None)
+        super()._free(key, n)
+
+
+def test_xlstm_train_step_runs_its_share_where_heads_do_not_divide_model(monkeypatch):
+    """Reduced xlstm (one period: 7 mLSTM + 1 sLSTM layers, d 128, 4 heads,
+    so d_inner 256 in heads of 64, vocab 1024) at batch 256 x 64 tokens on a
+    fake (16, 16) group, train: its 4 heads divide neither ``model``'s 16 nor
+    do they cut by sequence.  Rank 0's matmul FLOPs (``flops_by_site``) are
+    within 1.2 x its share of the step's, and so are those of the backward of
+    ``_mlstm_in``'s three products (each weight gradient on the rank's
+    columns: ``sharding.own_layout_grad``; 6.63 x at xlstm-1.3B's widths
+    before) and of the sLSTM's recurrence (a sequence a rank); the mLSTM
+    cell runs the reference's layout (each head on 4 model ranks, by v's
+    columns), its C.B^T products on each of them (under 2 x, 16 x before).
+    No storage live at rank 0's peak is a gradient of those products at
+    their whole width, (16, 64, 2 d_inner) or (16, 64, 3 d_inner)."""
+    from repro_torch.launch import flops_by_site
+    cfg = production_cfg(TC.get_config("xlstm_1p3b").reduced(n_layers=8, d_model=128, n_heads=4,
+                                                              vocab=1024))
+    shape = ShapeConfig("train_small", 64, 256, "train")
+    rank, _ = flops_by_site.by_site(cfg, shape, "single")
+    step, _ = flops_by_site.by_site(cfg, shape, None)
+
+    def ratio(*sites):
+        return 256 * sum(rank[s] for s in sites) / sum(step[s] for s in sites)
+    assert ratio(*step) <= 1.2
+    assert ratio("models/xlstm.py _mlstm_in (backward)") <= 1.2
+    assert ratio("models/xlstm.py _slstm_step", "models/xlstm.py _slstm_step (backward)") <= 1.2
+    assert ratio("models/xlstm.py mlstm_apply", "models/xlstm.py mlstm_apply (backward)") < 2
+    monkeypatch.setattr(D, "Trace", _LiveSites)
+    with torch.autograd.detect_anomaly(check_nan=False):
+        D.trace(cfg, shape, shape.global_batch, mesh_name="single", mesh_device="cpu")
+    d_inner = 2 * cfg.d_model
+    whole = {(16, 64, 2 * d_inner), (16, 64, 3 * d_inner)}
+    live = _LiveSites.last.at_peak
+    assert live and not [s for s in live if s[0] in whole and s[1].endswith("_mlstm_in (backward)")]
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])

@@ -30,7 +30,8 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.dp_sweep import MAX_K, dp_sweep, sm_count, sweep_plan
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-from repro_torch.kernels.ssm_scan import ssd_scan
+from repro_torch.kernels import ssm_scan as ss
+from repro_torch.kernels.ssm_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.exec import ExecutionEngine, compile_plan, layer_fns_for
 from repro_torch.models import init_params
 from repro_torch.runtime import ServeConfig, Server, make_decode_step, make_prefill_step
@@ -431,16 +432,15 @@ def test_rmsnorm_launch_counts_under_checkpoint(cuda):
 
 
 def test_forward_only_kernels_refuse_gradients(cuda):
-    """Decode attention, the SSD scan and the DP sweep have no backward
-    kernel: given an input that requires grad, with grad mode on, each
-    wrapper raises NotImplementedError naming itself, before any launch;
-    under no_grad the same call runs.  (Flash attention has its backward
-    kernel: ``test_flash_attention_function_launches_the_backward``.)"""
+    """Decode attention and the DP sweep have no backward kernel: given an
+    input that requires grad, with grad mode on, each wrapper raises
+    NotImplementedError naming itself, before any launch; under no_grad the
+    same call runs.  (Flash attention and the SSD scan have their backward
+    kernels: ``test_flash_attention_function_launches_the_backward``,
+    ``test_ssd_scan_function_launches_the_backward``.)"""
     qd, kc = normal(1, 1, 2, 32).requires_grad_(True), normal(2, 1, 8, 2, 32)
-    x, a, b, c, _ = ssd_inputs(1, 8, 2, 16, 4)
     calls = {
         "decode_attention": (decode_attention, lambda: decode_attention(qd, kc, kc, 4)),
-        "ssd_scan": (ssd_scan, lambda: ssd_scan(x, a, b.requires_grad_(True), c)),
     }
     spb = torch.rand(8, 8, dtype=torch.float64, device="cuda").requires_grad_(True)
     cand = torch.zeros((1, 3, 4), dtype=torch.int64, device="cuda")
@@ -677,6 +677,127 @@ def test_ssd_scan_bf16_kernel_matches_its_scheme(cuda, shape, chunk, with_h0):
         want, _ = ref.ssd_scan_bf16_scheme(x, a, b, cc, h0, chunk=chunk)
         np.testing.assert_allclose(f32(y), f32(want), rtol=2.0 ** -8,
                                    atol=2.0 ** -12 * want.abs().max().item())
+
+
+def ssd_bwd_call(x, a, b, c, h0, dy, dh, chunk):
+    """The forward kernels with their workspace kept, then the backward
+    kernel on it."""
+    _, _, saved = ss._forward(x, a, b, c, h0, chunk, True)
+    return ssd_scan_bwd(x, a, b, c, h0, dy, dh, chunk=chunk, saved=saved)
+
+
+@pytest.mark.parametrize("with_dh", [True, False], ids=["dh_final", "no_dh_final"])
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no_h0"])
+@pytest.mark.parametrize("shape,chunk", SSD_CASES, ids=str)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, shape, chunk, with_h0, with_dh):
+    """The backward kernel in f32 against ``ref.ssd_scan_bwd`` at the scan's
+    sweep (a ragged last chunk, one step, S < Q, the widest head and state),
+    each gradient within 5e-5 x its max|g|; a second call equal bit for bit
+    (no atomics, fixed-order sums)."""
+    x, a, b, c, h0 = ssd_inputs(*shape)
+    h0 = h0 if with_h0 else None
+    dy = normal(9, *x.shape)
+    dh = normal(10, shape[0], shape[2], shape[3], shape[4]) if with_dh else None
+    n0 = ssd_scan_bwd.n_launches
+    got = ssd_bwd_call(x, a, b, c, h0, dy, dh, chunk)
+    again = ssd_bwd_call(x, a, b, c, h0, dy, dh, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.n_launches == n0 + 2
+    want = ref.ssd_scan_bwd(x, a, b, c, h0, dy, dh, chunk=chunk)
+    for name, g, w, g2 in zip(("dx", "da", "db", "dc", "dh0"), got, want, again):
+        if w is None:
+            assert g is None and g2 is None
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, g2), name
+        assert (g - w).abs().max().item() <= 5e-5 * max(w.abs().max().item(), 1e-30), name
+
+
+@pytest.mark.parametrize("B,S,H", [(2, 1, 3), (2, 300, 3), (1, 4096, 8)])
+def test_ssd_scan_bwd_kernel_production_dtype_mix(cuda, B, S, H):
+    """bf16 x, c (a strided slice) and dy, f32 a, b and h0, as the train step
+    hands them: each gradient in its input's dtype, within the bf16 2e-2 of
+    the plain version on the same inputs."""
+    x, a, b, c, h0 = ssd_inputs(B, S, H, 64, 16)
+    c = torch.cat([b, c], dim=-1).bfloat16()[..., 16:]
+    x, dy = x.bfloat16(), normal(11, *x.shape, dtype=torch.bfloat16)
+    got = ssd_bwd_call(x, a, b, c, h0, dy, None, 256)
+    want = ref.ssd_scan_bwd(x, a, b, c, h0, dy, None, chunk=256)
+    for name, g, w in zip(("dx", "da", "db", "dc", "dh0"), got, want):
+        assert g.dtype == w.dtype and g.is_contiguous(), name
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * max(
+            w.float().abs().max().item(), 1e-30), name
+
+
+def test_ssd_scan_function_launches_the_backward(cuda):
+    """A grad-requiring input on the card runs ``_SsdScanFunction``: two
+    chained scans launch the forward twice and the backward twice, four and
+    two under ``torch.utils.checkpoint``, with the same gradients bit for
+    bit, which equal autograd through the plain scan (f32 5e-5 x max|g|)."""
+    from torch.utils.checkpoint import checkpoint
+    x, a, b, c, h0 = (t.requires_grad_(True) for t in ssd_inputs(2, 300, 3, 64, 16))
+
+    def loss(fn, *t):
+        y, h = fn(*t)
+        y2, h2 = fn(y, t[1], t[2], t[3], h)
+        return (y2 ** 2).sum() + (h2 ** 2).sum()
+
+    def kernel(*t):
+        return ssd_scan(*t, chunk=128)
+
+    n0 = (ssd_scan.n_launches, ssd_scan_bwd.n_launches)
+    got = torch.autograd.grad(loss(kernel, x, a, b, c, h0), (x, a, b, c, h0))
+    assert (ssd_scan.n_launches - n0[0], ssd_scan_bwd.n_launches - n0[1]) == (2, 2)
+    again = torch.autograd.grad(checkpoint(lambda *t: loss(kernel, *t), x, a, b, c, h0,
+                                           use_reentrant=False), (x, a, b, c, h0))
+    assert (ssd_scan.n_launches - n0[0], ssd_scan_bwd.n_launches - n0[1]) == (6, 4)
+    want = torch.autograd.grad(loss(lambda *t: ssd_scan_chunked(*t, chunk=128), x, a, b, c, h0),
+                               (x, a, b, c, h0))
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert (g - w).abs().max().item() <= 5e-5 * max(w.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_hymba_trains_on_the_card(cuda, dtype):
+    """hymba reduced (2 layers, d 128: 4 SSM heads of 64, N 16, chunk 16)
+    trains on the card: with remat, per step two forward and one backward
+    launch of the SSD scan and of flash attention a layer; the loss and
+    gradient of the kernel path against the plain path (f32 at 1e-4 x
+    max|g| a leaf, bf16 finite)."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime import TrainConfig, init_opt_state, make_train_step
+    cfg = C.get_config("hymba_1p5b").reduced(n_layers=2, d_model=128, vocab=1000)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(0, cfg, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 1000, (2, 70))).cuda()
+
+    def grads(plain):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = transformer.loss_fn(params, cfg, {"tokens": tokens}, remat=True, plain=plain)
+        out = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return loss, out
+
+    (lk, gk), (lp, gp) = grads(False), grads(True)
+    assert torch.isfinite(lk) and all(bool(torch.isfinite(g).all()) for g in gk)
+    if dtype == "float32":
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-5)
+        for a, b in zip(gk, gp):
+            assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)
+    step = make_train_step(cfg, TrainConfig())
+    opt = init_opt_state(params, TrainConfig())
+    ssd_scan.n_launches = ssd_scan_bwd.n_launches = 0
+    fa.flash_attention.n_launches = fa.flash_attention_bwd.n_launches = 0
+    for _ in range(2):
+        _, opt, m = step(params, opt, {"tokens": tokens})
+        assert np.isfinite(m["loss"].item())
+    assert (ssd_scan.n_launches, ssd_scan_bwd.n_launches) == (8, 4)
+    assert (fa.flash_attention.n_launches, fa.flash_attention_bwd.n_launches) == (8, 4)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

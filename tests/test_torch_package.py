@@ -268,25 +268,29 @@ def test_kernels_refuse_gradients_they_cannot_carry():
     input requiring grad, grad mode on): never an output without a
     gradient.  The check itself on CPU tensors; the wrappers call it on
     their card path, before any launch (``tests/test_torch_gpu.py``).  Flash
-    attention has its backward kernel: its wrapper runs the autograd
-    Function there instead."""
+    attention and the SSD scan have their backward kernels: their wrappers
+    run their autograd Functions there instead."""
     from repro_torch.kernels import build
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ssd_scan.*ROADMAP Queue 1"):
-        build.refuse_grad("ssd_scan", build.NO_BACKWARD, None, x)
+    why = "it serves decode steps only, and no slice of the port plans a backward for it"
+    with pytest.raises(NotImplementedError, match="decode_attention.*serves decode steps only"):
+        build.refuse_grad("decode_attention", why, None, x)
     with torch.no_grad():
-        build.refuse_grad("ssd_scan", "", x)
+        build.refuse_grad("decode_attention", why, x)
     with torch.inference_mode():
-        build.refuse_grad("ssd_scan", "", torch.ones(2))
-    build.refuse_grad("ssd_scan", "", x.detach(), None)
+        build.refuse_grad("decode_attention", why, torch.ones(2))
+    build.refuse_grad("decode_attention", why, x.detach(), None)
+    assert not hasattr(build, "NO_BACKWARD")
     import inspect
     from repro_torch.kernels import dp_sweep
-    for fn in (decode_attention, ssd_scan, dp_sweep.dp_sweep):
+    for fn in (decode_attention, dp_sweep.dp_sweep):
         src = inspect.getsource(fn)
         assert "build.refuse_grad(" in src and src.index("build.refuse_grad(") < src.index(
             "build.function("), fn.__name__
-    src = inspect.getsource(flash_attention)
-    assert "build.refuse_grad(" not in src and "_FlashAttentionFunction.apply(" in src
+    for fn, function in ((flash_attention, "_FlashAttentionFunction.apply("),
+                         (ssd_scan, "_SsdScanFunction.apply(")):
+        src = inspect.getsource(fn)
+        assert "build.refuse_grad(" not in src and function in src, fn.__name__
 
 
 def test_xlstm_dispatch_counts_match_the_card_path(monkeypatch):
@@ -409,7 +413,7 @@ def test_profile_groups_name_every_kernel():
     want = {"rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
             "flash_attention_bwd": "flash_attention_bwd",
             "decode_attention": "decode_attention", "ssm_scan": "ssd_scan",
-            "dp_sweep": "dp_sweep"}
+            "ssm_scan_bwd": "ssd_scan_bwd", "dp_sweep": "dp_sweep"}
     backward = {"rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"}  # rmsnorm.cu's backward pair
     assert set(found) == set(want) and backward <= set(found["rmsnorm"])
     for stem, names in found.items():
