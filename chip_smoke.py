@@ -1234,9 +1234,11 @@ def ssd_bwd_check(torch, x, a, b, c, h0, dy, dh, chunk: int, what: str) -> tuple
     db, dc and dh0 within SSD_TOL x max|plain|; in the bf16 mix, dx and dc
     (bf16) each within BF16_FLOOR_RATIO x the plain bf16 path's distance
     from plain f32 (the closed form on the same values upcast), da, db and
-    dh0 (f32) within SSD_TOL x max|f32| of it.  Two launches bitwise equal.
-    Returns (max|kernel - plain| over the five, the worst bf16 kernel /
-    floor ratio (0 in f32))."""
+    dh0 (f32) within SSD_TOL x max|f32| of it, and (the tensor-core passes)
+    each of the five within its output rounding of its own arithmetic in
+    f32, ``ref.ssd_scan_bwd_bf16_scheme`` (``scheme_close``).  Two launches
+    bitwise equal.  Returns (max|kernel - plain| over the five, the worst
+    bf16 kernel / floor ratio (0 in f32))."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as ss
     _, _, saved = ss._forward(x, a, b, c, h0, chunk, True)
@@ -1268,6 +1270,12 @@ def ssd_bwd_check(torch, x, a, b, c, h0, dy, dh, chunk: int, what: str) -> tuple
                  f"ssd_scan_bwd {what} {n}: kernel-f32 {e:.3e} > {BF16_FLOOR_RATIO} x the "
                  f"plain bf16 path's {fl:.3e}")
             worst = max(worst, e / fl if fl else 0.0)
+    if x.dtype == torch.bfloat16:
+        need(ss.ssd_scan_bwd.last_plan.tc, f"ssd_scan_bwd {what}: bf16 x off the tensor cores")
+        scheme = ref.ssd_scan_bwd_bf16_scheme(x, a, b, c, h0, dy, dh, chunk=chunk)
+        for g, w, n in zip(got, scheme, names):
+            if g is not None:
+                scheme_close(g, w, f"ssd_scan_bwd {what} {n}")
     del got, again, plain, f32
     return err, worst
 
@@ -1275,7 +1283,10 @@ def ssd_bwd_check(torch, x, a, b, c, h0, dy, dh, chunk: int, what: str) -> tuple
 def ssd_bwd_sweep(torch, randn) -> None:
     """The backward kernel over the forward's sweep shapes (a ragged last
     chunk, one step, S < Q, many chunks, the widest head and state, P 100)
-    in f32, with h0 and h_final's gradient and without, and in the bf16 mix."""
+    in f32, with h0 and h_final's gradient and without, and in the bf16 mix
+    (there also P 32, padded to the instantiated 64); a bf16 call whose
+    tensor-core block does not fit (P 128, N 64 at chunk 256) is refused
+    before it launches."""
     for (B, S, H, P, N), chunk in [((2, 96, 3, 16, 8), 32), ((2, 100, 3, 16, 8), 32),
                                    ((2, 1, 3, 16, 8), 256), ((2, 300, 3, 64, 16), 256),
                                    ((2, 257, 3, 64, 16), 256), ((1, 1000, 2, 64, 16), 64),
@@ -1290,16 +1301,29 @@ def ssd_bwd_sweep(torch, randn) -> None:
     for (B, S, H, P, N), chunk, with_state in [
             ((2, 300, 3, 64, 16), 256, True), ((2, 257, 3, 64, 16), 256, False),
             ((2, 1, 3, 64, 16), 256, True), ((1, 130, 2, 128, 64), 64, False),
-            ((1, 70, 2, 100, 32), 64, True)]:
+            ((1, 70, 2, 100, 32), 64, True), ((2, 300, 3, 32, 16), 256, False)]:
         x, a, b, c, h0 = ssd_inputs(torch, randn, B, S, H, P, N, mix=True)
         dy, dh = randn(B, S, H, P, dtype=torch.bfloat16), randn(B, H, P, N)
         worst = max(worst, ssd_bwd_check(
             torch, x, a, b, c, h0 if with_state else None, dy, dh if with_state else None,
             chunk, f"mix {(B, S, H, P, N)} chunk {chunk} h0/dh {with_state}")[1])
+    from repro_torch.kernels import ssm_scan as ss
+    x, a, b, c, _ = ssd_inputs(torch, randn, 1, 300, 2, 128, 64, mix=True)
+    dy = randn(1, 300, 2, 128, dtype=torch.bfloat16)
+    _, _, saved = ss._forward(x, a, b, c, None, 256, True)
+    n0 = ss.ssd_scan_bwd.n_launches
+    try:
+        ss.ssd_scan_bwd(x, a, b, c, None, dy, None, chunk=256, saved=saved)
+        refused = False
+    except ValueError:
+        refused = True
+    need(refused and ss.ssd_scan_bwd.n_launches == n0,
+         "ssd_scan_bwd: a bf16 call whose tensor-core block does not fit was not refused")
     torch.cuda.synchronize()
     print(f"[kernels] ssd_scan_bwd sweep passed (f32 5e-5 of max|plain| each gradient; bf16 "
           f"mix: dx, dc within {BF16_FLOOR_RATIO} x the plain bf16 path's distance from f32, "
-          f"worst {worst:.3f} x; da, db, dh0 5e-5; two launches bitwise equal)", flush=True)
+          f"worst {worst:.3f} x; da, db, dh0 5e-5; two launches bitwise equal; a bf16 block "
+          f"that does not fit refused)", flush=True)
 
 
 def ssd_bwd_record(torch, randn, B, S, H, P, N, chunk, what: str) -> dict:
@@ -1350,17 +1374,19 @@ def ssd_bwd_record(torch, randn, B, S, H, P, N, chunk, what: str) -> dict:
 
 def tensor_core_count() -> dict:
     """HMMA/HGMMA (tensor-core) and FFMA instructions per kernel function of
-    the built flash-attention libraries, forward and backward, from
-    ``cuobjdump --dump-sass``: every bf16 forward function runs on the
-    tensor cores, and every bf16 dK/dV and dQ function of the backward on
-    Hopper's (HGMMA, no HMMA)."""
+    the built flash-attention libraries, forward and backward, and of the
+    SSD scan's backward, from ``cuobjdump --dump-sass``: every bf16 forward
+    function runs on the tensor cores, every bf16 dK/dV and dQ function of
+    the backward on Hopper's (HGMMA, no HMMA), and each of the SSD
+    backward's 4 instantiations of its bf16 tile-pair and chunk-sum
+    functions shows HMMA."""
     import collections
     import shutil
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = shutil.which("cuobjdump") or str(pathlib.Path(build._nvcc()).parent / "cuobjdump")
     counts = collections.defaultdict(collections.Counter)
-    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu", "ssm_scan_bwd_tc.cu"):
         lib = build._lib_path(build.CSRC / src)
         r = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
                            timeout=300)
@@ -1391,7 +1417,15 @@ def tensor_core_count() -> dict:
     need(len(bwd) == 2 * len(HEAD_DIMS)
          and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in bwd.values()),
          f"flash_attention_bwd bf16 functions without HGMMA, or with HMMA: {dict(bwd)}")
-    return {"hmma_bf16": n_tc, "hgmma_bwd_bf16": sum(c["HGMMA"] for c in bwd.values())}
+    ssd = {f: c for f, c in counts.items()
+           if "ssd_bwd_chunk_tc_kernel" in f or "ssd_bwd_state_tc_kernel" in f}
+    print(f"[build] ssm_scan_bwd_tc bf16 tile-pair and chunk-sum functions: {len(ssd)}, HMMA "
+          f"{[c['HMMA'] for c in ssd.values()]}, FFMA {[c['FFMA'] for c in ssd.values()]}",
+          flush=True)
+    need(len(ssd) == 8 and all(c["HMMA"] + c["HGMMA"] > 0 for c in ssd.values()),
+         f"ssm_scan_bwd_tc bf16 functions without tensor-core instructions: {dict(ssd)}")
+    return {"hmma_bf16": n_tc, "hgmma_bwd_bf16": sum(c["HGMMA"] for c in bwd.values()),
+            "hmma_ssd_bwd_bf16": sum(c["HMMA"] + c["HGMMA"] for c in ssd.values())}
 
 
 def ptxas_report() -> dict:
@@ -4239,7 +4273,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                             "src/repro/kernels/ref.py:47"),
     # nor for the SSD scan: the Pallas scan has no VJP, and the reference
     # trains hybrid blocks through XLA's autodiff of its chunked scan
-    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd_tc.cu",
                      "src/repro/kernels/chunked.py:34"),
 }
 TIMES = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

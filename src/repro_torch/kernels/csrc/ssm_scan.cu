@@ -53,7 +53,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssd_common.cuh"
+
 namespace {
+
+using namespace ssd;
 
 constexpr int kThreads = 256;
 constexpr int T = 64;       // rows of a t tile and of an s tile
@@ -83,21 +87,6 @@ __device__ __forceinline__ float ld(const void* p, long long i, int dt) {
 __device__ __forceinline__ void st(void* p, long long i, int dt, float v) {
   if (dt) static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
   else static_cast<float*>(p)[i] = v;
-}
-
-// ---- asynchronous copies -------------------------------------------------------
-
-// 16 bytes from device to shared memory without passing through registers;
-// src_bytes 0 writes 16 zero bytes instead (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(d), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int K>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K));
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
@@ -533,42 +522,6 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_output_kernel(const Params p)
 // exact.  So the loss to rounding stays far below y's own bf16 rounding;
 // ref.ssd_scan_bf16_scheme is this arithmetic in f32.
 constexpr int kTcThreads = 128;
-
-__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi, __nv_bfloat16& lo) {
-  hi = __float2bfloat16(v);
-  lo = __float2bfloat16(v - __bfloat162float(hi));
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(a))
-         | (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
-}
-
-// (hi, lo) bf16x2 pairs of two f32 values (the first in the low half).
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat16 h0, l0, h1, l1;
-  split_bf16(v0, h0, l0);
-  split_bf16(v1, h1, l1);
-  hi = pack2(h0, h1);
-  lo = pack2(l0, l1);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed: B fragments of
-// two n8 tiles of a row-major (k, n) tile.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
 
 template <int CP, int NM>
 struct TcLayout {  // shared memory of the tensor-core output kernel, in bytes

@@ -23,81 +23,75 @@
 //   with the injection terms it would cancel left out, so a gradient that is
 //   zero (no state before a step) comes out zero and not rounding noise.
 //
-// Bound on the card: operations.  At hymba's train shape (B 2, S 4096, 50
-// heads of P 64, N 16, Q 256) a call moves ~0.1 GB against ~20 GFLOP of
-// causal f32 products, which the CUDA cores' 67 TFLOP/s take longer to do
-// than the memory takes to move.
+// Bound on the card: bytes.  At hymba's train shape (B 2, S 4096, 50 heads
+// of P 64, N 16, Q 256) a call moves 239 MB (each input read once, each
+// output written once: 71 us at 3.35 TB/s) against 21.9 GFLOP of causal
+// products, which take 22 us at the bf16 tensor-core peak but 327 us on the
+// CUDA cores' f32 FMAs.  So the products must run on the tensor cores, and
+// each tile pair's must be formed once.
 //
 // Design: the forward's three chunk-parallel passes, in reverse, and a
 // fourth for da.  The forward's workspace (cum and the chunks' start states)
-// is kept by the autograd Function and read here, not recomputed.
-//   A'. one block per (batch, head, chunk): U = sum_t exp(cum_t) dy_t (x) c_t,
-//       each thread on 4 x 4 entries of the (P, N) state, groups of threads
-//       on interleaved steps where the state has fewer than 16 entries a
-//       thread, their sums added in a fixed order.
+// is kept by the autograd Function and read here, not recomputed.  For bf16
+// x and dy (the trained model) the two passes with products run on the
+// tensor cores (ssm_scan_bwd_tc.cu, a library of its own so its
+// instantiations compile beside these; the carry and da are shared,
+// ssd_bwd_common.cuh); f32 x keeps exact f32 FMAs on the CUDA cores (this
+// file), so the f32 sweep holds the reference's 5e-5, as the forward splits
+// its output pass.
+//   A'. one block per (batch, head, chunk): U = sum_t exp(cum_t) dy_t (x) c_t.
+//       bf16: a (P x Q)(Q x N) product on the tensor cores
+//       (ssd_bwd_state_tc_kernel), the weighted dy split into bf16 high and
+//       low parts, the chunk's dy streamed through a two-stage ring of
+//       16-byte cp.async copies.  f32: ssd_bwd_state_kernel, FMAs, each
+//       thread on 4 x 4 entries of the state, groups of threads on
+//       interleaved steps where the state has fewer than 16 entries a thread.
 //   B'. the reverse carry, one thread per state entry: over the chunks from
 //       the last, from dh_final, dh_end of each chunk written over its U;
 //       dh0.
-//   C'. one block per (batch, head, chunk, 64-row tile) of the chunk: the
-//       tile's rows as t (for dc: the earlier s tiles, then the inter-chunk
-//       term) and as s (for dx and db: the later t tiles, then the injection
-//       term), each (t, s) tile pair's C.B^T and DY.X^T formed in registers
-//       (4 x 4 a thread), masked and weighted, staged in shared memory and
-//       multiplied out; each row's dcum (row and column sums of M and the
-//       inter-chunk term) and q (the injection term) summed in a fixed order
-//       and written.  A tile pairs with the tiles before it and the tiles
-//       after it, so every block of a chunk does its chunk's tile count plus
-//       one pairs.
+//   C'. bf16: one block per (batch, head, chunk) (ssd_bwd_chunk_tc_kernel)
+//       walks the chunk's lower-triangle 64-row tile pairs once each, s
+//       tiles outer, t tiles at or after the s tile inner (Q 256: 4 tiles,
+//       10 pairs).  Warp w owns s rows 16w..16w+15 of the s tile: per pair
+//       it forms D^T = X_s DY_t^T and (C B^T)^T = B_s C_t^T on the tensor
+//       cores, a 16-column slice of t at a time, weights them by W^T (masked
+//       to t >= s before the f32 values are split: exp of an upper-triangle
+//       difference overflows; off the diagonal through the s tile's last
+//       row r, exp(cum_t - cum_r) exp(cum_r - cum_s), both at most 1), and
+//       multiplies the slice straight out of its accumulator registers into
+//       dx_s += F^T DY_t and db_s += E^T C_t, held in registers for the
+//       whole s tile.  E^T goes to shared memory once, split, for dc_t += E
+//       B_s (the one product whose rows are t), which each warp takes for
+//       16 t rows, into f32 sums in shared memory for the chunk's rows,
+//       final at the t tile's diagonal pair.  The pairs' sums of M = E o
+//       (C B^T) over s (for dcum_t, through shared memory in warp order) and
+//       over t (for dcum_s, in registers) come from the same accumulators.
+//       The inter-chunk term of dc and the injection terms of dx and db are
+//       tensor-core products too, with the state split.  The next pair's DY
+//       and the next s tile's X come by 16-byte cp.async into a second
+//       stage while this pair computes; its C and B (f32 or bf16, split
+//       into bf16 high and low parts) are loaded into registers meanwhile
+//       and stored split after it.  f32: ssd_bwd_tile_kernel, a block per
+//       (batch, head, chunk, 64-row tile) pairing its tile with the tiles
+//       before it (as t) and after it (as s), f32 FMAs.  A bf16 call whose
+//       C' block needs more shared memory than a block has (P 128 and N 64
+//       at Q 256) is refused, not sent to the CUDA cores.
 //   D'. one block per (batch, head, chunk): exp(total) <dh_end, h_start> as
 //       a block sum in a fixed order, the exclusive cumulative sum of q (a
 //       block scan from the chunk's start, written over q), the reverse
 //       cumulative sum of dcum (a block scan from its end), and da.
-// No float atomics: every sum is in a fixed order, so two calls agree bit for
-// bit.  A ragged last chunk ends at S, as in the forward.  Every product is
-// f32 FMAs on the CUDA cores; inputs are read in their own dtypes (f32 or
-// bf16) through their strides, dy contiguous.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Every tensor-core product takes bf16 operands: x, dy and a bf16 c are
+// exact; an f32 operand (b, an f32 c, the weighted E and F, the chunk sums'
+// weighted dy, the states) is a bf16 high part plus the bf16 of its
+// remainder, the low-by-low product dropped, which carries ~16 bits, far
+// below the outputs' bf16 rounding; kernels/ref.py::ssd_scan_bwd_bf16_scheme
+// is this arithmetic in f32.  No float atomics: every sum is in a fixed
+// order, so two calls agree bit for bit.  A ragged last chunk ends at S, as
+// in the forward.  Inputs are read in their own dtypes through their
+// strides, dy contiguous.
+#include "ssd_bwd_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int T = 64;       // rows of a tile
-constexpr int TP = T + 4;   // row of a transposed tile in shared memory
-constexpr int TA = 32;      // steps pass A' stages at a time
-constexpr int kMaxP = 128, kMaxN = 64;
-
-struct Params {
-  const void* x; const void* a; const void* b; const void* c;
-  const void* dy; const void* dhf;          // dy contiguous (B,S,H,P); dhf (B,H,P,N) or null
-  const float* cum;                         // (B*H*G, Q): the forward's running log decays
-  const float* hs;                          // (B*H*G, P*N): the forward's chunk start states
-  void* dx; void* da; void* db; void* dc; void* dh0;  // contiguous; dh0 may be null
-  float* dh;                                // (B*H*G, P*N): U, then each chunk's dh_end
-  float* dcum;                              // (B*H*G, Q)
-  float* qs;                                // (B*H*G, Q)
-  int B, S, H, P, N, Q, G, NT;
-  long long x_sb, x_ss, x_sh;
-  long long a_sb, a_ss, a_sh;
-  long long b_sb, b_ss, b_sh;
-  long long c_sb, c_ss, c_sh;
-  int x_dt, a_dt, b_dt, c_dt, dy_dt, dhf_dt, dh0_dt;  // 0 = float32, 1 = bfloat16
-};
-
-__device__ __forceinline__ float ld(const void* p, long long i, int dt) {
-  return dt ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-            : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void st(void* p, long long i, int dt, float v) {
-  if (dt) static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
-  else static_cast<float*>(p)[i] = v;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // ---- pass A': each chunk's sum_t exp(cum_t) dy_t (x) c_t -------------------------
 
@@ -193,27 +187,6 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_state_kernel(const Params p)
       }
     }
   }
-}
-
-// ---- pass B': the reverse carry ------------------------------------------------------
-
-// One thread per (batch, head, state entry), over the chunks from the last:
-// dh_end of each chunk over its U, then dh = dh exp(total) + U; dh0.
-__global__ void __launch_bounds__(kThreads) ssd_bwd_carry_kernel(const Params p) {
-  const int PN = p.P * p.N;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= p.B * p.H * PN) return;
-  const int bh = idx / PN, e = idx - bh * PN;
-  const float* const cum = p.cum + static_cast<long long>(bh) * p.G * p.Q;
-  float* const dh = p.dh + static_cast<long long>(bh) * p.G * PN + e;
-  float h = p.dhf ? ld(p.dhf, idx, p.dhf_dt) : 0.f;
-  for (int g = p.G - 1; g >= 0; --g) {
-    const float total = cum[g * p.Q + min(p.Q, p.S - g * p.Q) - 1];
-    const float u = dh[static_cast<long long>(g) * PN];
-    dh[static_cast<long long>(g) * PN] = h;
-    h = h * expf(total) + u;
-  }
-  if (p.dh0) st(p.dh0, idx, p.dh0_dt, h);
 }
 
 // ---- pass C': dx, db, dc and dcum by tiles ------------------------------------------
@@ -504,106 +477,18 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(const Params p) 
   }
 }
 
-// ---- pass D': da -----------------------------------------------------------------
-
-// An inclusive scan of v over the block's 256 threads in thread order (warp
-// shuffles, then the eight warp totals); ``total`` gets the sum of all.
-__device__ __forceinline__ float block_scan(float v, float* wsum, float& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  if (lane == 31) wsum[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < kThreads / 32 ? wsum[lane] : 0.f;
-    #pragma unroll
-    for (int o = 1; o < kThreads / 32; o <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += u;
-    }
-    if (lane < kThreads / 32) wsum[lane] = w;
-  }
-  __syncthreads();
-  v += warp ? wsum[warp - 1] : 0.f;
-  total = wsum[kThreads / 32 - 1];
-  __syncthreads();  // wsum is rewritten by the next scan
-  return v;
-}
-
-// One block per (batch, head, chunk): z = exp(total) <dh_end, h_start>, the
-// exclusive cumulative sum of q from the chunk's start (over q), then from the
-// chunk's end dlog a_u = sum_{t>=u} dcum_t + q_u + z, 256 steps at a time, and
-// da = dlog a / max(a, 1e-37), halved at a tie with the clamp.
-__global__ void __launch_bounds__(kThreads) ssd_bwd_da_kernel(const Params p) {
-  __shared__ float wsum[kThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = blockIdx.x, g = chunk % p.G;
-  const long long bh = chunk / p.G, bi = bh / p.H, hi = bh % p.H;
-  if (bh >= static_cast<long long>(p.B) * p.H) return;
-  const int c0 = g * p.Q, L = min(p.Q, p.S - c0), PN = p.P * p.N;
-  const float* const dh = p.dh + static_cast<long long>(chunk) * PN;
-  const float* const hs = p.hs + static_cast<long long>(chunk) * PN;
-  const float* const cum = p.cum + static_cast<long long>(chunk) * p.Q;
-  float z = 0.f;
-  for (int e = tid; e < PN; e += kThreads) z = fmaf(dh[e], hs[e], z);
-  #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
-  if (lane == 0) wsum[warp] = z;
-  __syncthreads();
-  z = 0.f;
-  #pragma unroll
-  for (int k = 0; k < kThreads / 32; ++k) z += wsum[k];
-  z *= expf(cum[L - 1]);
-  __syncthreads();  // wsum is reused by the scans
-
-  float* const q = p.qs + static_cast<long long>(chunk) * p.Q;
-  float carry = 0.f;
-  for (int base = 0; base < L; base += kThreads) {  // q_u <- sum_{s<u} q_s
-    const int t = base + tid;
-    const float v = t < L ? q[t] : 0.f;
-    float piece;
-    const float incl = block_scan(v, wsum, piece);
-    if (t < L) q[t] = incl - v + carry;
-    carry += piece;
-  }
-  __syncthreads();  // every q_u is written before another thread reads it
-
-  const float* const dcum = p.dcum + static_cast<long long>(chunk) * p.Q;
-  const float lim = 1e-37f;
-  carry = 0.f;
-  for (int base = 0; base < L; base += kThreads) {  // from the chunk's end
-    const int t = L - 1 - (base + tid);
-    float piece;
-    const float v = block_scan(t >= 0 ? dcum[t] : 0.f, wsum, piece) + carry;
-    if (t >= 0) {
-      const float av = ld(p.a, bi * p.a_sb + (c0 + t) * p.a_ss + hi * p.a_sh, p.a_dt);
-      const float f = av > lim ? 1.f : (av == lim ? 0.5f : 0.f);
-      st(p.da, (bi * p.S + c0 + t) * p.H + hi, p.a_dt, (v + q[t] + z) / fmaxf(av, lim) * f);
-    }
-    carry += piece;
-  }
-}
-
 // ---- launches ----------------------------------------------------------------------
 
+// The four passes on the CUDA cores.
 template <int CP, int NM>
 int launch_nm(const Params& p, const int (&grid)[4], cudaStream_t stream) {
-  ssd_bwd_state_kernel<CP, NM><<<grid[0], kThreads, 0, stream>>>(p);
-  int rc = static_cast<int>(cudaGetLastError());
+  int rc = launch_smem(ssd_bwd_state_kernel<CP, NM>, grid[0], kThreads, 0, p, stream);
   if (rc) return rc;
   ssd_bwd_carry_kernel<<<grid[1], kThreads, 0, stream>>>(p);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  const int bytes = 4 * TileLayout<CP, NM>::floats;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_bwd_tile_kernel<CP, NM>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ssd_bwd_tile_kernel<CP, NM><<<grid[2], kThreads, bytes, stream>>>(p);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  rc = launch_smem(ssd_bwd_tile_kernel<CP, NM>, grid[2], kThreads,
+                   4 * TileLayout<CP, NM>::floats, p, stream);
+  if (rc) return rc;
   ssd_bwd_da_kernel<<<grid[3], kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -622,35 +507,17 @@ int launch_n(const Params& p, const int (&grid)[4], cudaStream_t stream) {
 // dtype (null: no h0).  cum (B*H*G*Q) and hs (B*H*G*P*N) are the forward's
 // workspace after its carry; dh_ws (B*H*G*P*N) and dcum_ws (2*B*H*G*Q: dcum,
 // then q) are this call's.  grid: the blocks of the four launches as the
-// host planned them (A', B', C', D'); a grid too small for its work is
-// refused.  dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
-extern "C" int ssd_scan_bwd(
-    const void* x, const void* a, const void* b, const void* c, const void* dy,
-    const void* dh_final, const void* cum, const void* hs,
-    void* dx, void* da, void* db, void* dc, void* dh0, void* dh_ws, void* dcum_ws,
-    int B, int S, int H, int P, int N, int Q,
-    long long x_sb, long long x_ss, long long x_sh,
-    long long a_sb, long long a_ss, long long a_sh,
-    long long b_sb, long long b_ss, long long b_sh,
-    long long c_sb, long long c_ss, long long c_sh,
-    int x_dt, int a_dt, int b_dt, int c_dt, int dy_dt, int dhf_dt, int dh0_dt,
-    int grid_state, int grid_carry, int grid_tiles, int grid_da, void* stream) {
+// host planned them (A', B', C', D'; C' a block per chunk and tile); a grid
+// too small for its work is refused.  dtype codes: 0 = float32, 1 =
+// bfloat16; x and dy must be float32 here (bf16 x and dy take the tensor
+// cores' passes, ssm_scan_bwd_tc.cu's ssd_scan_bwd_tc, with the same
+// arguments).  Returns a cudaError_t.
+extern "C" int ssd_scan_bwd(SSD_BWD_ARGS) {
   if (B == 0 || H == 0) return 0;
-  const long long bh = static_cast<long long>(B) * H;
-  if (P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 || S < 1 || Q > S
-      || bh * P * N * 16 >= (1LL << 31) || !cum || !hs || !dh_ws || !dcum_ws)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int G = (S + Q - 1) / Q, NT = (Q + T - 1) / T;
-  if (grid_state < bh * G || static_cast<long long>(grid_carry) * kThreads < bh * P * N
-      || grid_tiles < bh * G * NT || grid_da < bh * G)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{x, a, b, c, dy, dh_final, static_cast<const float*>(cum),
-                 static_cast<const float*>(hs), dx, da, db, dc, dh0,
-                 static_cast<float*>(dh_ws), static_cast<float*>(dcum_ws),
-                 static_cast<float*>(dcum_ws) + bh * G * Q,
-                 B, S, H, P, N, Q, G, NT,
-                 x_sb, x_ss, x_sh, a_sb, a_ss, a_sh, b_sb, b_ss, b_sh, c_sb, c_ss, c_sh,
-                 x_dt, a_dt, b_dt, c_dt, dy_dt, dhf_dt, dh0_dt};
+  Params p;
+  const int rc = x_dt != 0 || dy_dt != 0 ? static_cast<int>(cudaErrorInvalidValue)
+                                         : bwd_params(p, (Q + T - 1) / T, SSD_BWD_NAMES);
+  if (rc) return rc;
   const int grid[4] = {grid_state, grid_carry, grid_tiles, grid_da};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 16) return launch_n<1>(p, grid, s);

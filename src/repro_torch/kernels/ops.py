@@ -11,12 +11,16 @@ Under the active mesh (``parallel.sharding``) a DTensor input runs the op on
 each rank's local shard (``sharding.local_call``): the norm on its rows with
 d whole; attention head-parallel where ``model`` divides the kv heads or the
 group, row-parallel where ``ref._row_shard`` fires (each rank's call takes
-``kv_offset`` advanced by its rows' start), else replicated on ``model``;
+``kv_offset`` advanced by its rows' start), in head groups where the kv
+heads and ``model`` share a factor (``sharding.head_groups``: each rank its
+group's heads, its piece of their flattened output), else replicated on
+``model``;
 decode attention on its kv heads, or, over a cache sharded by sequence, on
 its slice of the slots, the ranks' outputs merged by their row max and sum
 (decode context parallelism); the scans on their batch and heads (a train
 step's mLSTM cell, whose heads ``model`` does not divide, a head on several
-model ranks by v's columns).  Each wrapper sees plain tensors only.
+model ranks by v's columns; a call of the SSD scan that keeps no state in
+head groups, as attention).  Each wrapper sees plain tensors only.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .chunked import mlstm_chunked, ssd_scan_chunked
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
 from .rmsnorm import rmsnorm as _rmsnorm
+from .rmsnorm import rmsnorm_bwd as _rmsnorm_bwd
 from .ssm_scan import ssd_scan as _ssd_scan
 
 
@@ -53,9 +58,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
-            plain: bool = False) -> torch.Tensor:
+            plain: bool = False, keep_cut: bool = False) -> torch.Tensor:
+    """RMSNorm over the last dim.  Under a mesh, rows as they lie with d
+    whole on every rank; ``keep_cut``, where x's features lie cut on
+    ``model``, the output stays cut the same way and each rank keeps only its
+    features for the backward (``_CutFeaturesNorm``: the norm on whole
+    rows, gathered for the forward and again for the backward)."""
     fn = ref.rmsnorm if plain else _rmsnorm
     if sharding.is_dtensor(x):
+        if keep_cut and sharding.model_placement(x) == Shard(x.dim() - 1):
+            mesh, axes = sharding.active_mesh()
+            group = (mesh, mesh.mesh_dim_names.index(axes.model))
+            rank = sharding.model_rank(mesh, axes)
+            pl = list(x.placements)
+            return sharding.local_call(
+                lambda t, sc: _CutFeaturesNorm.apply(t, sc, eps, group, rank, plain), (x, scale),
+                (pl, sharding.replicated(x)), pl, mesh)
         # rows as they lie, d whole on every rank
         pl = sharding.whole_dims(x, (x.dim() - 1,))
         return sharding.local_call(fn, (x, scale, eps), (pl, sharding.replicated(x), None), pl,
@@ -63,17 +81,72 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
     return fn(x, scale, eps)
 
 
+class _CutFeaturesNorm(torch.autograd.Function):
+    """RMSNorm of a rank's local x whose features are its ``model`` rank's
+    slice of each row: the forward all-gathers the rows over ``model``,
+    normalises them whole (the kernel, or ``plain``), and keeps the rank's
+    features; the backward all-gathers x and the output's gradient and runs
+    the norm's backward on the whole rows.  Only the rank's slice of x is
+    saved, and every value is the whole-row norm's, bit for bit.  scale's
+    gradient comes back on the rank's features only (zero elsewhere), a
+    pending sum over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, group, rank, plain):
+        import torch.distributed._functional_collectives as fc
+        c = x.shape[-1]
+        rows = fc.wait_tensor(fc.all_gather_tensor(x.contiguous(), x.dim() - 1, group))
+        y = (ref.rmsnorm if plain else _rmsnorm)(rows, scale, eps)
+        ctx.save_for_backward(x, scale)
+        ctx.eps, ctx.group, ctx.rank, ctx.plain = eps, group, rank, plain
+        return y[..., rank * c:(rank + 1) * c].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as fc
+        x, scale = ctx.saved_tensors
+        c = x.shape[-1]
+        rows, grows = (fc.wait_tensor(fc.all_gather_tensor(t.contiguous(), t.dim() - 1,
+                                                           ctx.group)) for t in (x, g))
+        dx, dscale = (ref.rmsnorm_bwd if ctx.plain else _rmsnorm_bwd)(rows, scale, grows,
+                                                                      ctx.eps)
+        own = slice(ctx.rank * c, (ctx.rank + 1) * c)
+        ds = torch.zeros_like(dscale)
+        ds[own] = dscale[own]
+        return dx[..., own].contiguous(), ds, None, None, None, None
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-             h0: torch.Tensor | None = None, *, chunk: int = 256,
-             plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+             h0: torch.Tensor | None = None, *, chunk: int = 256, plain: bool = False,
+             with_state: bool = True, skip: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The chunked SSD scan: y (B, S, H, P), plus ``x skip`` (``skip`` (H,),
+    each head's skip weight, in y's dtype) where given, and, ``with_state``,
+    the final state (B, H, P, N) (else None).  Under a mesh, on each rank's
+    batch and heads; a call that keeps no state from no h0 (the train
+    step's) whose heads share a factor with ``model`` runs in the
+    reference's head groups (``sharding.head_groups``), the skip term on each
+    rank's own piece, y returned as (B, S, H * P) with its features on
+    ``model``.  A call that keeps the state (prefill's and decode's, a cache
+    leaf laid out by heads or P) runs whole on ``model`` where the heads do
+    not divide it: a group's state would be a split of one mesh axis over
+    two of its dims."""
     fn = ssd_scan_chunked if plain else _ssd_scan
     if sharding.is_dtensor(x):
+        groups = (0 if with_state or h0 is not None
+                  else sharding.head_groups(x, x.shape[2], x.shape[3]))
+        if groups:
+            return _ssd_head_groups(fn, x, a, b, c, skip, groups, chunk), None
         # x (B, S, H, P), a (B, S, H), b, c (B, S, H, N), h0 (B, H, P, N)
         seq, st = sharding.scan_placements(x)
-        return sharding.local_call(lambda *t: fn(*t, chunk=chunk), (x, a, b, c, h0),
+        y, h = sharding.local_call(lambda *t: fn(*t, chunk=chunk), (x, a, b, c, h0),
                                    (seq, seq, seq, seq, None if h0 is None else st),
                                    (seq, st), x.device_mesh)
-    return fn(x, a, b, c, h0, chunk=chunk)
+    else:
+        y, h = fn(x, a, b, c, h0, chunk=chunk)
+    if skip is not None:
+        y = y + x * skip[None, None, :, None].to(y.dtype)
+    return y, h if with_state else None
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
@@ -154,8 +227,44 @@ def _mlstm_head_split(q, k, v, i_gate, f_gate, chunk):
                                (whole, whole, feat, whole, whole), feat, q.device_mesh)
 
 
+def _head_group_call(fn, ins: tuple, n_heads: int, width: int, groups: int):
+    """``fn`` on model rank r's head group of ``ins`` (each (B, S, H_i, ..),
+    whole on ``model``, its heads cut into ``groups`` equal groups), group
+    r // w of the w = model // groups ranks a group; fn returns (B, S, H_0 /
+    groups, width) for its group's ``n_heads / groups`` heads, and the rank
+    keeps its piece, 1 / w of them flattened: (B, S, n_heads * width) with
+    its features on ``model`` (``sharding.head_groups``)."""
+    mesh, axes = sharding.active_mesh()
+    ways = sharding.mesh_sizes(mesh)[axes.model] // groups
+    dat = sharding.data_placement(ins[0])
+    whole = sharding.axis_placements(ins[0], dat, Replicate())
+    feat = sharding.axis_placements(ins[0], dat, Shard(2))
+    rank = sharding.model_rank(mesh, axes)
+    grp, piece = rank // ways, rank % ways
+    cols = n_heads // groups * width // ways
+
+    def one(*ts):
+        y = fn(*(t[:, :, grp * (t.shape[2] // groups):(grp + 1) * (t.shape[2] // groups)]
+                 for t in ts))
+        return y.reshape(*y.shape[:2], -1)[..., piece * cols:(piece + 1) * cols]
+    return sharding.local_call(one, ins, (whole,) * len(ins), feat, mesh)
+
+
+def _ssd_head_groups(fn, x, a, b, c, skip, groups, chunk):
+    """The SSD scan of x (B, S, H, P), a (B, S, H), b, c (B, S, H, N), whole on
+    ``model``, from no state, in head groups, plus x skip (H,) where given:
+    y (B, S, H * P), features on ``model``."""
+    def one(x, a, b, c, *sk):
+        y = fn(x, a, b, c, chunk=chunk)[0]
+        return y + x * sk[0][..., None].to(y.dtype) if sk else y
+    ins = (x, a, b, c) + (() if skip is None else (skip[None, None, :],))
+    return _head_group_call(one, ins, x.shape[2], x.shape[3], groups)
+
+
 def _sharded_attention(fn, q, k, v, *, causal, window, scale, kv_offset):
-    """q (B, S, Hq, D), k, v (B, Skv, Hkv, D*) DTensors -> (B, S, Hq, Dv)."""
+    """q (B, S, Hq, D), k, v (B, Skv, Hkv, D*) DTensors -> (B, S, Hq, Dv), or
+    (B, S, Hq * Dv) with its features on ``model`` where the kv heads run in
+    groups (``sharding.head_groups``)."""
     mesh, axes = sharding.active_mesh()
     msize = sharding.mesh_sizes(mesh)[axes.model]
     B, Sq, Hq, D = q.shape
@@ -191,6 +300,10 @@ def _sharded_attention(fn, q, k, v, *, causal, window, scale, kv_offset):
                 off = kv_offset + sharding.model_rank(mesh) * s
                 return fn(q5.reshape(b, s, h * gl, d), k, v, kv_offset=off, **kw)
             return sharding.local_call(by_rows, (q5, k, v), (rows, whole, whole), rows, mesh)
+        groups = sharding.head_groups(q, Hkv, g * v.shape[-1])
+        if groups:  # each rank its kv head group's, the reference's layout
+            return _head_group_call(lambda *t: fn(*t, kv_offset=kv_offset, **kw), (q, k, v),
+                                    Hq, v.shape[-1], groups)
     pl = sharding.axis_placements(q, dat, Replicate())  # every head on every model rank
     return sharding.local_call(lambda *t: fn(*t, kv_offset=kv_offset, **kw),
                                (q5.reshape(B, Sq, Hq, D), k, v), (pl, pl, pl), pl, mesh)

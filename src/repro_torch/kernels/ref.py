@@ -432,6 +432,39 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Ten
     dh0 is None without h0.  (The reference trains the scan through XLA's
     autodiff of its ``chunked.ssd_scan_chunked``; its Pallas kernel has no
     VJP.)"""
+    out = _ssd_bwd_closed_form(x, a, b, c, h0, dy, dh_final, chunk, torch.einsum, lambda t: t)
+    return tuple(None if g is None else g.to(t.dtype) for g, t in zip(out, (x, a, b, c, h0)))
+
+
+def ssd_scan_bwd_bf16_scheme(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                             h0: torch.Tensor | None, dy: torch.Tensor,
+                             dh_final: torch.Tensor | None, *, chunk: int = 256
+                             ) -> tuple[torch.Tensor, ...]:
+    """The SSD scan's backward in the arithmetic of the kernel's bf16 path
+    (``csrc/ssm_scan_bwd.cu``'s tensor-core passes), in f32: as
+    ``ssd_scan_bwd`` (the carry, the decays W, the sums of M and da in f32),
+    except that each product the kernel runs on the tensor cores takes bf16
+    operands.  An operand is a bf16 high part plus the bf16 of its remainder
+    and the low-by-low product is dropped (x, dy and a bf16 c have no
+    remainder): the chunk sums' exp(cum_t) dy_t with c; C.B^T; dy.x; the
+    masked and weighted E and F with dy, c and b; the states h_start and
+    dh_end with dy, x and b.  Where the kernel reads b or c back as f32 (q
+    and c's part of dcum), it reads the high part plus the low part.
+    Returns (dx, da, db, dc, dh0) in f32, before the kernel's one rounding
+    of each to its input's dtype; dh0 is None without h0."""
+    def mm(eq, u, v):
+        (uh, ul), (vh, vl) = _split_bf16(u), _split_bf16(v)
+        return torch.einsum(eq, uh, vh) + torch.einsum(eq, uh, vl) + torch.einsum(eq, ul, vh)
+
+    def hl(t):
+        hi, lo = _split_bf16(t)
+        return hi + lo
+    return _ssd_bwd_closed_form(x, a, b, c, h0, dy, dh_final, chunk, mm, hl)
+
+
+def _ssd_bwd_closed_form(x, a, b, c, h0, dy, dh_final, chunk, mm, hl):
+    """``ssd_scan_bwd``'s closed form in f32 with its products as ``mm(eq,
+    u, v)`` and b and c, where they are read back whole, as ``hl(t)``."""
     F = torch.nn.functional
     B, S, H, P = x.shape
     N = b.shape[-1]
@@ -461,7 +494,7 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Ten
     h_start = torch.stack(starts, dim=1)                             # (B,G,H,P,N)
 
     # the reverse carry of the state's gradient
-    u = torch.einsum("bgthp,bgthn->bghpn", dyf * e_cum[..., None], cf)
+    u = mm("bgthp,bgthn->bghpn", dyf * e_cum[..., None], cf)
     dh = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device) if dh_final is None
           else dh_final.float())
     ends = [None] * G
@@ -473,27 +506,26 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Ten
     # within each chunk
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
     W = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(~tri, float("-inf")))
-    cb = torch.einsum("bgthn,bgshn->bgtsh", cf, bf)                  # c_t . b_s
-    e = torch.einsum("bgthp,bgshp->bgtsh", dyf, xf) * W              # (dy_t . x_s) W_ts
-    dx_state = torch.einsum("bghpn,bgshn->bgshp", dh_end, bf) * w_end[..., None]
-    db_state = torch.einsum("bghpn,bgshp->bgshn", dh_end, xf) * w_end[..., None]
-    dc_inter = torch.einsum("bghpn,bgthp->bgthn", h_start, dyf) * e_cum[..., None]
-    dx = torch.einsum("bgtsh,bgthp->bgshp", cb * W, dyf) + dx_state
-    db = torch.einsum("bgtsh,bgthn->bgshn", e, cf) + db_state
-    dc = torch.einsum("bgtsh,bgshn->bgthn", e, bf) + dc_inter
+    cb = mm("bgthn,bgshn->bgtsh", cf, bf)                            # c_t . b_s
+    e = mm("bgthp,bgshp->bgtsh", dyf, xf) * W                        # (dy_t . x_s) W_ts
+    dx_state = mm("bghpn,bgshn->bgshp", dh_end, bf) * w_end[..., None]
+    db_state = mm("bghpn,bgshp->bgshn", dh_end, xf) * w_end[..., None]
+    dc_inter = mm("bghpn,bgthp->bgthn", h_start, dyf) * e_cum[..., None]
+    dx = mm("bgtsh,bgthp->bgshp", cb * W, dyf) + dx_state
+    db = mm("bgtsh,bgthn->bgshn", e, cf) + db_state
+    dc = mm("bgtsh,bgshn->bgthn", e, bf) + dc_inter
     m = e * cb
-    dcum = m.sum(3) - m.sum(2) + (cf * dc_inter).sum(-1)             # (B,G,Q,H)
-    q = (bf * db_state).sum(-1)
+    dcum = m.sum(3) - m.sum(2) + (hl(cf) * dc_inter).sum(-1)         # (B,G,Q,H)
+    q = (hl(bf) * db_state).sum(-1)
     dla = (dcum.flip(2).cumsum(2).flip(2) + q.cumsum(2) - q
            + (torch.exp(total) * (dh_end * h_start).sum((-1, -2)))[:, :, None])
     dla = dla.reshape(B, -1, H)[:, :S]
     at = af[:, :S]
     da = dla / ac[:, :S] * torch.where(at > lim, 1.0, torch.where(at == lim, 0.5, 0.0))
 
-    def out(t, like):
-        return t.reshape(B, -1, H, t.shape[-1])[:, :S].to(like.dtype)
-    return (out(dx, x), da.to(a.dtype), out(db, b), out(dc, c),
-            None if h0 is None else dh.to(h0.dtype))
+    def out(t):
+        return t.reshape(B, -1, H, t.shape[-1])[:, :S]
+    return out(dx), da, out(db), out(dc), None if h0 is None else dh
 
 
 def dp_sweep(spb: torch.Tensor, Kv: torch.Tensor, Ks: float, srcs: torch.Tensor,

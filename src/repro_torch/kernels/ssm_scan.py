@@ -21,8 +21,9 @@ the trace that is recording (``cost.record``).
 The gradient: with grad mode on and an input requiring grad, a CUDA call runs
 under ``_SsdScanFunction``, which keeps the forward's workspace (each chunk's
 running log decays and start state) and whose backward launches
-``ssd_scan_bwd`` (``csrc/ssm_scan_bwd.cu``; plain version
-``ref.ssd_scan_bwd``, the closed form).
+``ssd_scan_bwd`` (``csrc/ssm_scan_bwd.cu``, for bf16 x and dy on the
+tensor cores ``csrc/ssm_scan_bwd_tc.cu``; plain version ``ref.ssd_scan_bwd``,
+the closed form).
 """
 
 from __future__ import annotations
@@ -216,18 +217,24 @@ class BwdPlan(NamedTuple):
     chunk: int   # Q
     chunks: int  # G
     tiles: int   # tiles of TILE rows per chunk
-    grid: tuple[int, int, int, int]  # blocks of (A' chunk sums, B' carry, C' tiles, D' da)
+    grid: tuple[int, int, int, int]  # blocks of (A' chunk sums, B' carry, C' pairs, D' da)
+    tc: bool     # the tensor-core passes (bf16 x and dy): C' a block per chunk
 
 
 @functools.lru_cache(maxsize=256)
-def ssd_bwd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> BwdPlan:
+def ssd_bwd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int,
+                 bf16: bool = False) -> BwdPlan:
     """The backward's four launches: a block per (batch, head, chunk) for
     the chunks' sums of exp(cum_t) dy_t (x) c_t, a thread per state entry for
-    the reverse carry, a block per (batch, head, chunk, tile) for dx, db, dc
-    and dcum, a block per (batch, head, chunk) for da."""
+    the reverse carry, then dx, db, dc and dcum: for bf16 x and dy (``bf16``)
+    on the tensor cores, a block per (batch, head, chunk) walking its tile
+    pairs (the library refuses a chunk whose block does not fit the card's
+    shared memory), for f32 on the CUDA cores, a block per (batch, head,
+    chunk, tile); and a block per (batch, head, chunk) for da."""
     Q = min(chunk, S)
     G, nt = -(-S // Q), -(-Q // TILE)
-    return BwdPlan(Q, G, nt, (B * H * G, -(-B * H * P * N // THREADS), B * H * G * nt, B * H * G))
+    return BwdPlan(Q, G, nt, (B * H * G, -(-B * H * P * N // THREADS),
+                              B * H * G * (1 if bf16 else nt), B * H * G), bf16)
 
 
 def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -249,10 +256,10 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Ten
     _check(x, a, b, c, h0, chunk, "ssd_scan_bwd")
     B, S, H, P = x.shape
     N = b.shape[-1]
-    plan = ssd_bwd_plan(B, S, H, P, N, chunk)
-    if dy.shape != x.shape or not dy.is_contiguous():
-        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous {tuple(x.shape)}, "
-                         f"got {tuple(dy.shape)}")
+    plan = ssd_bwd_plan(B, S, H, P, N, chunk, x.dtype == torch.bfloat16)
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous {tuple(x.shape)} {x.dtype}, "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
     if dh_final is not None and (dh_final.shape != (B, H, P, N) or not dh_final.is_contiguous()):
         raise ValueError(f"ssd_scan_bwd: dh_final must be a contiguous ({B}, {H}, {P}, {N})")
     if saved is None:
@@ -271,7 +278,17 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Ten
             B, S, H, P, N, chunk, *(t.element_size() for t in (x, a, b, c)),
             0 if h0 is None else h0.element_size(), 0 if dh_final is None else 4))
         return dx, da, db, dc, dh0
-    kernel = build.function("ssm_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
+    if plan.tc:
+        need = build.function("ssm_scan_bwd_tc", "ssd_scan_bwd_tc_bytes",
+                              (ctypes.c_int,) * 3)(P, N, plan.chunk)
+        most = build.function("ssm_scan_bwd_tc", "ssd_scan_bwd_tc_max_bytes", ())()
+        if need > most:
+            raise ValueError(f"ssd_scan_bwd: bf16 x at P {P}, N {N} and chunk {plan.chunk} "
+                             f"needs {need} bytes of shared memory a block, more than the "
+                             f"{most} the tensor-core passes have; take a shorter chunk")
+        kernel = build.function("ssm_scan_bwd_tc", "ssd_scan_bwd_tc", _BWD_ARGTYPES)
+    else:
+        kernel = build.function("ssm_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
     ptr = (lambda t: None if t is None else t.data_ptr())
     rc = kernel(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
                 ptr(dh_final), cum.data_ptr(), hs.data_ptr(),
@@ -285,8 +302,10 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Ten
     build.check(rc, "ssd_scan_bwd")
     ssd_scan_bwd.n_launches += 1  # one per call: A', B', C', D'
     ssd_scan_bwd.last_grid = plan.grid
+    ssd_scan_bwd.last_plan = plan
     return dx, da, db, dc, dh0
 
 
 ssd_scan_bwd.n_launches = 0
 ssd_scan_bwd.last_grid = None
+ssd_scan_bwd.last_plan = None

@@ -9,7 +9,9 @@ A matmul-class op is put to the innermost frame of ``repro_torch/models`` on
 its Python stack (a remat's recompute runs the model's code again, so it
 lands there too); an op of the backward pass, which has no such frame, to
 the frame that made the forward op it differentiates (autograd keeps the
-forward's stack in anomaly mode).  Both traces run on meta tensors as
+forward's stack in anomaly mode).  A kernel wrapper's work (its meta
+branch's ``cost.record``) counts under its site with the kernel's name
+beside it, ``models/x.py fn [kernel]``.  Both traces run on meta tensors as
 ``dryrun.trace`` runs them: rank 0's program on a fake group of the
 production mesh, and the unsharded step, at the cell's global batch.
 ``--layers`` and ``--seq`` cut the depth and the length; a cut to whole
@@ -59,7 +61,9 @@ def _where() -> tuple[str, int]:
 def by_site(cfg, shape, mesh_name: str | None
             ) -> tuple[collections.Counter, dict[str, set[int]]]:
     """Matmul FLOPs by site of one trace (rank 0's on ``mesh_name``, or the
-    whole step with None), and the lines seen within each site."""
+    whole step with None), and the lines seen within each site; a kernel's
+    work (``cost.record``) under its site with the kernel's name beside it,
+    ``models/x.py fn [kernel]``."""
     flops: collections.Counter = collections.Counter()
     lines: dict[str, set[int]] = collections.defaultdict(set)
 
@@ -78,6 +82,12 @@ def by_site(cfg, shape, mesh_name: str | None
                     return n
                 flop = counted
             return composite, kind, flop, alloc_only, n_ret
+
+        def record_kernel(self, kernel, work):
+            super().record_kernel(kernel, work)
+            site, line = _where()
+            flops[f"{site} [{kernel}]"] += int(work.flops)
+            lines[f"{site} [{kernel}]"].add(line)
 
     trace_cls = D.Trace
     D.Trace = SiteTrace

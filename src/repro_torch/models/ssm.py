@@ -10,7 +10,9 @@ f32 (``b * dt`` promotes).
 
 Under the active mesh, on DTensors: the in-projections are column-parallel
 on ``model`` (d_inner, and with it the heads, where ``model`` divides them),
-the scan runs on each rank's batch and heads (``ops.ssd_scan``), the gated
+the scan runs on each rank's batch and heads (``ops.ssd_scan``; where the
+heads share a factor with ``model`` and no state is kept, in the
+reference's head groups, its output then cut by features), the gated
 norm over the whole d_inner of each rank's rows, and the out-projection
 row-parallel with one all-reduce.
 """
@@ -73,9 +75,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
 
 
 def _ssm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tensor | None,
-              ssm_state: torch.Tensor | None, plain: bool
-              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Shared by prefill (states None) and decode (states carried)."""
+              ssm_state: torch.Tensor | None, plain: bool, with_state: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Shared by the forward (``with_state`` False: no scan state kept),
+    prefill (states None) and decode (states carried)."""
     B, S, _ = x.shape
     d_inner, nh, ph, n = _dims(cfg)
     w = {k: sharding.gathered(p[k]) for k in ("w_x", "w_z", "w_bc", "w_dt", "w_out")}
@@ -92,8 +95,7 @@ def _ssm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tens
     xh = sharding.heads_whole(xs, nh).reshape(B, S, nh, ph)
     b = b * dt_[..., None]                                          # dt-weighted input, f32
     y, ssm_state_new = ops.ssd_scan(xh, a, b, c, h0=ssm_state, chunk=cfg.ssm.chunk,
-                                    plain=plain)
-    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
+                                    plain=plain, with_state=with_state, skip=p["D"])
     y = y.reshape(B, S, d_inner)
     y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain) * F.silu(z)
     return sharding.batch_layout(y @ w["w_out"]), conv_state_new, ssm_state_new
@@ -101,7 +103,7 @@ def _ssm_core(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tens
 
 def ssm_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, plain: bool = False
               ) -> torch.Tensor:
-    return _ssm_core(p, cfg, x, None, None, plain)[0]
+    return _ssm_core(p, cfg, x, None, None, plain, with_state=False)[0]
 
 
 def ssm_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, *, plain: bool = False

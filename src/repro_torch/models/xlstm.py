@@ -21,7 +21,10 @@ axis is a multiple of the heads, each head on several model ranks by v's
 columns (the reference's layout: ``ops.mlstm_scan``); the sLSTM's time loop
 on each rank's batch rows, over ``model`` too where they divide
 (``sharding.local_call``); the norms through the kernel on each rank's
-rows.
+rows.  In the train step the mLSTM's d_inner stays cut on ``model`` from the
+up-projection's two halves through the conv, the SiLU, the output norm and
+its gate, as the reference's partitioner keeps it (``_cut_features``); the
+q/k/v and gate products take it whole, as the reference all-gathers it.
 """
 
 from __future__ import annotations
@@ -62,17 +65,65 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> di
     }
 
 
+def _cut_features(x: torch.Tensor, d_inner: int) -> bool:
+    """Whether the mLSTM keeps d_inner cut on ``model`` for this activation:
+    under autograd (the train step) on a mesh of more than one model rank
+    that divides d_inner.  The reference's compiled train_4k on (16, 16)
+    holds the up-projection's product at f32[65536,512] a rank, then each
+    half, the conv (f32[16,4099,256]) and the output norm (f32[16,4096,256])
+    at 256 of the 4096 features, all-gathering the conv's output only for
+    the q/k/v product.  Serving keeps its layout (a batch-1 decode's product
+    DTensor splits over data x model itself)."""
+    if not (sharding.is_dtensor(x) and torch.is_grad_enabled() and x.requires_grad):
+        return False
+    mesh, axes = sharding.active_mesh()
+    m = sharding.mesh_sizes(mesh)[axes.model]
+    return m > 1 and d_inner % m == 0
+
+
+def _up_halves(x: torch.Tensor, w_up: torch.Tensor, d_inner: int, cut: bool):
+    """(xs, z), the two d_inner halves of ``x @ w_up``, the product's
+    gradient in its own layout (``sharding.own_layout_grad``: the halves'
+    split takes the column-parallel output whole, and would hand back a
+    whole gradient).  ``cut``, where the product lies column-parallel on an
+    even model axis: each model rank's 1 / model of each half's features,
+    moved to it by one all-to-all over ``model`` (the reference's collective
+    permutes): rank r's 2 d_inner / model columns are two pieces of one
+    half, for ranks 2 (r mod model / 2) and the next."""
+    up = sharding.own_layout_grad(x @ w_up)
+    mesh, axes = sharding.active_mesh() if cut else (None, None)
+    m = sharding.mesh_sizes(mesh)[axes.model] if cut else 0
+    if not cut or m % 2 or sharding.model_placement(up) != Shard(2):
+        return up.chunk(2, dim=-1)
+    import torch.distributed._functional_collectives as fc
+    h, c, r = m // 2, d_inner // m, sharding.model_rank(mesh, axes)
+    to, frm = [0] * m, [0] * m
+    to[2 * (r % h)] = to[2 * (r % h) + 1] = 1       # its two pieces, in order
+    frm[r // 2] = frm[h + r // 2] = 1                # its xs piece, then its z piece
+    group = (mesh, mesh.mesh_dim_names.index(axes.model))
+
+    def exchange(u):
+        t = u.reshape(*u.shape[:2], 2, c).permute(2, 0, 1, 3).contiguous()
+        o = fc.all_to_all_single_autograd(t, frm, to, group)
+        return o[0], o[1]
+    pl = list(up.placements)
+    return sharding.local_call(exchange, (up,), (pl,), (pl, pl), mesh)
+
+
 def _mlstm_in(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tensor | None):
     """Up-projection, causal conv, SiLU, q/k/v and the f32 gates."""
     B, S, _ = x.shape
-    _, nh, ph = _mlstm_dims(cfg)
+    d_inner, nh, ph = _mlstm_dims(cfg)
     w = {k: sharding.gathered(p[k]) for k in ("w_up", "w_qkv", "w_gates")}
     # each product's gradient in its own layout: the chunks below take the
     # column-parallel outputs whole, and would hand back whole gradients
     lay = sharding.own_layout_grad
-    xs, z = lay(x @ w["w_up"]).chunk(2, dim=-1)
+    cut = _cut_features(x, d_inner)
+    xs, z = _up_halves(x, w["w_up"], d_inner, cut)
     xc, conv_state_new = _causal_conv(xs, p["conv"], conv_state)
     xc = F.silu(xc)
+    if cut:  # whole for the products, as the reference all-gathers it
+        xc = xc.redistribute(xc.device_mesh, sharding.whole_dims(xc, (2,)))
     q, k, v = (t.reshape(B, S, nh, ph) for t in lay(xc @ w["w_qkv"]).chunk(3, dim=-1))
     gates = lay(xc @ w["w_gates"]).float() + p["gate_bias"]
     i_gate, f_gate = gates.chunk(2, dim=-1)                                  # (B,S,nh)
@@ -83,7 +134,15 @@ def _mlstm_out(p: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
                plain: bool) -> torch.Tensor:
     B, S = y.shape[:2]
     y = y.reshape(B, S, -1)
-    y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain) * F.silu(z)
+    if _cut_features(y, y.shape[-1]) and sharding.model_placement(z) == Shard(2):
+        # the norm on each rank's features (its mean of squares summed over
+        # model), gated by its features of z: the reference's layout
+        y = y.redistribute(y.device_mesh, sharding.axis_placements(
+            y, sharding.data_placement(y), Shard(2)))
+        y = ops.rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain, keep_cut=True)
+    else:
+        y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps, plain=plain)
+    y = y * F.silu(z)
     w = sharding.gathered(p["w_out"])
     if (y.requires_grad and sharding.is_dtensor(w) and sharding.model_placement(w) == Shard(0)
             and sharding.model_placement(y) == Replicate()):

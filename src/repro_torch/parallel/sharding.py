@@ -595,6 +595,28 @@ def head_split(x: torch.Tensor, n_heads: int) -> int:
     return m // n_heads
 
 
+def head_groups(x: torch.Tensor, n_heads: int, width: int) -> int:
+    """Groups into which ``model`` cuts the ``n_heads`` heads of ``x`` (..,
+    n_heads, ..), whole on ``model``, where the heads divide neither the
+    model axis nor a multiple of it: k = gcd(n_heads, model), 1 < k <
+    model.  Model rank r runs group r // (model // k), its n_heads // k
+    heads whole, the group's ranks alike, as the reference's partitioner
+    lays such heads out (minicpm3's 40 attention heads on 16 ranks: 8
+    groups of 5, ranks 2g and 2g + 1 on group g; hymba's 50 SSM heads: 2
+    groups of 25, ranks 0-7 and 8-15; read from its compiled train_4k's
+    partition tables).  Each rank keeps its own 1 / model of the group's
+    flattened output, ``width`` features a head: 0 where that does not cut
+    evenly, where k is 1 or the model axis, or where x is not whole there."""
+    import math
+    from torch.distributed.tensor import Replicate
+    _, axes = active_mesh()
+    m = mesh_sizes(x.device_mesh)[axes.model]
+    k = math.gcd(n_heads, m)
+    if not 1 < k < m or (n_heads // k * width) % (m // k) or model_placement(x) != Replicate():
+        return 0
+    return k
+
+
 def batch_rows(x: torch.Tensor) -> list:
     """The placements of a loop over time that runs on each rank's batch
     rows, x (B, ...) its input: the batch on the data axes where x has it

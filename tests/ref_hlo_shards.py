@@ -3,7 +3,14 @@ compiled program: each ``dot`` of rank 0's partitioned HLO, its operands' and
 result's per-device shapes, grouped by the source line that made it.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/ref_hlo_shards.py \\
-        xlstm_1p3b train_4k single [--files chunked.py,xlstm.py] [--layers 8]
+        xlstm_1p3b train_4k single [--files chunked.py,xlstm.py] [--layers 8] \\
+        [--ops] [--tables]
+
+``--ops`` prints every op's result shape by source line instead of the
+dots (a norm's or a conv's width a rank); ``--tables`` prints the
+partition tables of the program (its ``s32[devices]`` constants: an offset
+a device, the device's slice of a dim, e.g. which model ranks share a head
+group), from a dump of the compiled module with its large constants.
 
 The cell is lowered and compiled as ``repro.launch.dryrun.run_cell`` does
 (the production mesh on 512 forced host devices, the cell's
@@ -18,8 +25,17 @@ and JAX, and takes minutes for a full-depth cell.
 import argparse
 import collections
 import dataclasses
+import os
+import pathlib
 import re
 import sys
+import tempfile
+
+if "--tables" in sys.argv:  # the compiled module dumped with its large constants
+    _DUMP = tempfile.mkdtemp(prefix="ref_hlo_")
+    os.environ["REPRO_EXTRA_XLA_FLAGS"] = (
+        f"--xla_dump_to={_DUMP} --xla_dump_large_constants=true "
+        + os.environ.get("REPRO_EXTRA_XLA_FLAGS", ""))
 
 from repro.launch import dryrun as D   # forces 512 host devices before jax starts
 
@@ -113,6 +129,38 @@ def dots(text: str, files: tuple[str, ...]) -> dict:
     return out
 
 
+def ops(text: str, files: tuple[str, ...]) -> dict:
+    """(source file, function, line) -> Counter of 'op result-shape' of every
+    instruction whose innermost frame in ``files`` is that line."""
+    tables = _tables(text)
+    out: dict = collections.defaultdict(collections.Counter)
+    for line in text.splitlines():
+        m = _INSTR.match(line)
+        fid = _FRAME_ID.search(m.group(4)) if m else None
+        if not fid:
+            continue
+        for file, fn, ln in _stack(tables, int(fid.group(1))):
+            name = file.rsplit("/", 1)[-1]
+            if not files or name in files:
+                out[(name, fn, ln)][f"{m.group(3)} {m.group(2)}"] += 1
+                break
+    return out
+
+
+def partition_tables(dump: str, n_devices: int) -> list[str]:
+    """The distinct ``s32[n_devices]`` constants of the dumped train step's
+    optimised module, each as its values (the first 32)."""
+    files = sorted(pathlib.Path(dump).glob("*jit_train_step*after_optimizations.txt"))
+    found = []
+    pat = re.compile(rf"s32\[{n_devices}\]\{{0\}} constant\(\{{([0-9, ]*)\}}\)")
+    for f in files:
+        for m in pat.finditer(f.read_text()):
+            vals = m.group(1)
+            if vals not in found:
+                found.append(vals)
+    return found
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("arch")
@@ -120,9 +168,21 @@ def main() -> None:
     ap.add_argument("mesh", choices=("single", "multi"))
     ap.add_argument("--files", default="", help="comma-separated source file names")
     ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--ops", action="store_true", help="every op's shape, not the dots")
+    ap.add_argument("--tables", action="store_true", help="the partition tables")
     args = ap.parse_args()
     text = compiled_text(args.arch, args.shape, args.mesh == "multi", args.layers)
     files = tuple(f for f in args.files.split(",") if f)
+    if args.tables:
+        for vals in partition_tables(_DUMP, 512 if args.mesh == "multi" else 256):
+            print("  ", ", ".join(vals.split(", ")[:32]), "..")
+        return
+    if args.ops:
+        for (src, fn, line), shapes in sorted(ops(text, files).items()):
+            print(f"{src}:{line} {fn}")
+            for s, n in shapes.most_common(12):
+                print(f"    {n:4d} x {s}")
+        return
     for (src, fn, line), shapes in sorted(dots(text, files).items()):
         print(f"{src}:{line} {fn}")
         for s, n in shapes.most_common():

@@ -575,6 +575,58 @@ def test_xlstm_train_step_runs_its_share_where_heads_do_not_divide_model(monkeyp
     assert live and not [s for s in live if s[0] in whole and s[1].endswith("_mlstm_in (backward)")]
 
 
+@pytest.mark.parametrize("arch,site,kernel,multiple", [
+    ("minicpm3_4b", "models/attention.py mla_apply", "flash_attention", 2),
+    ("hymba_1p5b", "models/ssm.py _ssm_core", "ssd_scan", 8)])
+def test_heads_that_divide_neither_model_nor_its_rows_run_in_the_references_groups(
+        arch, site, kernel, multiple):
+    """A train_4k-shaped step (batch 256 x 128 tokens, two layers) on a fake
+    (16, 16) group: minicpm3 at its 40 heads of (96, 64), hymba at its 50
+    SSM heads of 64 (d 1600).  The heads divide neither ``model``'s 16 nor,
+    at 40 x 96 > 2048, take ``_row_shard``'s rows, so rank 0 runs the
+    reference's head group (``sharding.head_groups``): minicpm3's attention
+    5 of the 40 heads of its data group's 16 sequences, 2 x its share
+    (the reference's per-rank ``f32[16,5,4096,4096]``), hymba's scan 25 of
+    50, 8 x (``f32[16,16,25,256,256]``), forward and backward kernels alike,
+    where every head on every model rank was 16 x."""
+    from repro_torch.launch import flops_by_site
+    base = TC.get_config(arch)
+    if arch == "minicpm3_4b":
+        cfg = dataclasses.replace(base.reduced(n_layers=2, d_model=256, n_heads=40, vocab=1024),
+                                  mla=base.mla)
+    else:
+        cfg = base.reduced(n_layers=2, d_model=1600, n_heads=25, n_kv=5, vocab=1024)
+    cfg = production_cfg(cfg)
+    shape = ShapeConfig("train_small", 128, 256, "train")
+    rank, _ = flops_by_site.by_site(cfg, shape, "single")
+    step, _ = flops_by_site.by_site(cfg, shape, None)
+    for key in (f"{site} [{kernel}]", f"{site} (backward) [{kernel}_bwd]"):
+        assert step[key] > 0 and 256 * rank[key] == multiple * step[key], (
+            key, 256 * rank[key] / step[key])
+
+
+def test_xlstm_train_step_keeps_the_mlstm_features_cut_on_model(monkeypatch):
+    """Reduced xlstm (one period, d 128, 4 heads: d_inner 256) at batch 256 x
+    64 tokens on a fake (16, 16) group, train: as the reference's compiled
+    train_4k keeps d_inner cut on ``model`` from the up-projection's halves
+    through the conv and the output norm (``f32[16,4099,256]``,
+    ``f32[16,4096,256]`` a rank at d_inner 4096), no storage live at rank 0's
+    peak is the up-projection's output at its whole 2 d_inner or the conv's
+    padded input at d_inner; the conv's input lies at the rank's 16 of the
+    256 features.  (The output norm's backward gathers its rows for a moment,
+    so whole rows may be live there: ``ops._CutFeaturesNorm``.)"""
+    cfg = production_cfg(TC.get_config("xlstm_1p3b").reduced(n_layers=8, d_model=128, n_heads=4,
+                                                              vocab=1024))
+    shape = ShapeConfig("train_small", 64, 256, "train")
+    monkeypatch.setattr(D, "Trace", _LiveSites)
+    D.trace(cfg, shape, shape.global_batch, mesh_name="single", mesh_device="cpu")
+    d_inner = 2 * cfg.d_model
+    live = _LiveSites.last.at_peak
+    assert live
+    assert not [s for s in live if s[0] in {(16, 64, 2 * d_inner), (16, 67, d_inner)}]
+    assert ((16, 67, d_inner // 16), "models/ssm.py _causal_conv") in live
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 def test_partition_flops_are_the_steps_where_every_sharded_dim_divides(shape, mesh):

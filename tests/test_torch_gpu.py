@@ -14,6 +14,7 @@ plain version bit for bit, and a batched solve the sequential one; the
 byte-moving transports echo tensors on the card byte for byte.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -726,6 +727,52 @@ def test_ssd_scan_bwd_kernel_production_dtype_mix(cuda, B, S, H):
         assert g.dtype == w.dtype and g.is_contiguous(), name
         assert (g.float() - w.float()).abs().max().item() <= 2e-2 * max(
             w.float().abs().max().item(), 1e-30), name
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 300, 3, 64, 16, 256), (1, 130, 2, 128, 64, 64),
+                                             (1, 70, 2, 100, 32, 64), (2, 96, 3, 16, 8, 32),
+                                             (2, 300, 3, 32, 16, 256)])
+def test_ssd_scan_bwd_bf16_kernel_matches_its_scheme(cuda, B, S, H, P, N, chunk):
+    """bf16 x and dy take the tensor-core passes (``ssd_bwd_plan(...,
+    bf16=True).tc``; P 32 padded to the instantiated 64): each gradient
+    within its one rounding to its dtype
+    (2^-8 of the value, plus 2^-12 of the largest for f32 summation order) of
+    ``ref.ssd_scan_bwd_bf16_scheme``, the same arithmetic in f32, and two
+    launches bitwise equal."""
+    from repro_torch.kernels import ssm_scan as ss
+    x, a, b, c, h0 = ssd_inputs(B, S, H, P, N)
+    x, c = x.bfloat16(), c.bfloat16()
+    dy, dh = normal(12, *x.shape, dtype=torch.bfloat16), normal(13, B, H, P, N)
+    got = ssd_bwd_call(x, a, b, c, h0, dy, dh, chunk)
+    assert ss.ssd_scan_bwd.last_plan.tc
+    again = ssd_bwd_call(x, a, b, c, h0, dy, dh, chunk)
+    want = ref.ssd_scan_bwd_bf16_scheme(x, a, b, c, h0, dy, dh, chunk=chunk)
+    for name, g, g2, w in zip(("dx", "da", "db", "dc", "dh0"), got, again, want):
+        assert torch.equal(g, g2), name
+        lim = 2.0 ** -8 * w.abs() + 2.0 ** -12 * w.abs().max()
+        assert bool(((g.float() - w).abs() <= lim).all()), name
+
+
+def test_ssd_scan_bwd_refuses_a_bf16_chunk_that_does_not_fit(cuda):
+    """The tensor-core library states its block's shared memory (hymba's
+    P 64, N 16 at chunk 256: 105,472 bytes, two blocks an SM); a bf16 call
+    whose block does not fit (P 128, N 64 at chunk 256) raises before any
+    launch, and runs at chunk 64."""
+    from repro_torch.kernels import build
+    nbytes = build.function("ssm_scan_bwd_tc", "ssd_scan_bwd_tc_bytes", (ctypes.c_int,) * 3)
+    most = build.function("ssm_scan_bwd_tc", "ssd_scan_bwd_tc_max_bytes", ())()
+    assert nbytes(64, 16, 256) == 105472 and 2 * (105472 + 1024) <= 233472
+    assert nbytes(128, 64, 256) > most >= nbytes(128, 64, 64)
+    x, a, b, c, h0 = ssd_inputs(1, 300, 2, 128, 64)
+    x, c = x.bfloat16(), c.bfloat16()
+    dy = normal(14, *x.shape, dtype=torch.bfloat16)
+    n0 = ssd_scan_bwd.n_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_bwd_call(x, a, b, c, h0, dy, None, 256)
+    assert ssd_scan_bwd.n_launches == n0
+    got = ssd_bwd_call(x, a, b, c, h0, dy, None, 64)
+    assert ssd_scan_bwd.n_launches == n0 + 1 and all(bool(torch.isfinite(g.float()).all())
+                                                     for g in got)
 
 
 def test_ssd_scan_function_launches_the_backward(cuda):

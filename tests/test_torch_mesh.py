@@ -58,7 +58,7 @@ from repro.parallel import sharding as sh
 
 inp = dict(np.load(sys.argv[1]))
 out = {}
-mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+mesh = Mesh(np.array(jax.devices()).reshape(*MESH_SHAPE), ("data", "model"))
 axes = sh.MeshAxes(data=("data",), model="model")
 
 # every constraint the reference applies, with each device's shard shape
@@ -96,10 +96,10 @@ def named(tree):
 def cache_pspecs(cache):   # the reference dry-run's (importing it forces 512 devices)
     def spec(s):
         out = [None] * s.ndim
-        if s.ndim > 1 and s.shape[1] % 2 == 0:
+        if s.ndim > 1 and s.shape[1] % MESH_SHAPE[0] == 0:
             out[1] = "data"
         for i in range(2, s.ndim):
-            if s.shape[i] % 2 == 0:
+            if s.shape[i] % MESH_SHAPE[1] == 0:
                 out[i] = "model"
                 break
         return P(*out)
@@ -172,14 +172,14 @@ def _flat_np(tree, path):
     return {path: np.asarray(tree)}
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """One run each of the reference (4 host devices) and the 4-rank gloo
-    world; their outputs by name."""
-    tmp = tmp_path_factory.mktemp("mesh")
+def _run_world(tmp, serve_cases: dict, train_cases: dict, mesh_shape: tuple, rank_case: str
+               ) -> dict:
+    """One run each of the reference (4 host devices on ``mesh_shape``) and
+    the 4-rank gloo world (``torch_ranks`` case ``rank_case``); their
+    outputs by name."""
     rng = np.random.default_rng(0)
     arrays = {}
-    for prefix, cases in (("", torch_ranks.MESH_CASES), ("train/", torch_ranks.TRAIN_CASES)):
+    for prefix, cases in (("", serve_cases), ("train/", train_cases)):
         for name, case in cases.items():
             cfg = torch_ranks.mesh_cfg(JC, case)
             tree = jax.tree.map(np.asarray, jax_init_params(jax.random.PRNGKey(0), cfg))
@@ -189,18 +189,34 @@ def world(tmp_path_factory):
             arrays[f"{prefix}{name}/next"] = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
     inputs = tmp / "inputs.npz"
     np.savez(inputs, **arrays)
-    script = (f"CASES = {torch_ranks.MESH_CASES!r}\nTRAIN = {torch_ranks.TRAIN_CASES!r}\n"
+    script = (f"CASES = {serve_cases!r}\nTRAIN = {train_cases!r}\n"
+              f"MESH_SHAPE = {tuple(mesh_shape)!r}\n"
               f"T, EXTRA = {torch_ranks.MESH_T}, {torch_ranks.MESH_EXTRA}\n" + JAX_SCRIPT)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     ref = subprocess.Popen([sys.executable, "-c", script, str(inputs), str(tmp / "ref.npz")],
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    ranks = torch_ranks.collect(torch_ranks.spawn("mesh", 4, inputs, tmp), tmp, "mesh",
+    ranks = torch_ranks.collect(torch_ranks.spawn(rank_case, 4, inputs, tmp), tmp, rank_case,
                                 timeout=600)
     _, err = ref.communicate(timeout=600)
     assert ref.returncode == 0, err[-3000:]
     with np.load(tmp / "ref.npz") as f:
         refs = dict(f)
     return {"ref": refs, "ranks": ranks}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """One run each of the reference (4 host devices) and the 4-rank gloo
+    world on the 2 x 2 mesh; their outputs by name."""
+    return _run_world(tmp_path_factory.mktemp("mesh"), torch_ranks.MESH_CASES,
+                      torch_ranks.TRAIN_CASES, (2, 2), "mesh")
+
+
+@pytest.fixture(scope="module")
+def group_world(tmp_path_factory):
+    """The head-group cases on the 1 x 4 mesh, reference and gloo world."""
+    return _run_world(tmp_path_factory.mktemp("groups"), torch_ranks.GROUP_CASES,
+                      torch_ranks.GROUP_TRAIN_CASES, torch_ranks.GROUP_MESH, "groups")
 
 
 def _within(got, want, tol=F32):
@@ -396,3 +412,88 @@ def test_mla_output_projection_takes_each_ranks_rows_of_wo(world, monkeypatch):
     step, _ = flops_by_site.by_site(cfg, shape, None)
     for site in ("models/attention.py _out", "models/attention.py _out (backward)"):
         assert step[site] > 0 and rank[site] * 4 == step[site], (site, rank[site], step[site])
+
+
+# ---------------------------------------------------------------------------
+# head groups: heads that divide neither ``model`` nor its rows, on a 1 x 4 mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", list(torch_ranks.GROUP_CASES))
+def test_head_group_prefill_decode_and_cache_match_the_reference(case, group_world):
+    """On the 1 x 4 mesh: prefill's and decode's logits and the cache after
+    them within f32 1e-4 of the reference's jitted run under the mesh, on
+    every rank (minicpm3's attention in 2 groups of 11 heads; hymba's scan
+    keeps its state, whole on ``model``)."""
+    cfg = torch_ranks.mesh_cfg(TC, torch_ranks.GROUP_CASES[case])
+    period = len(cfg.block_pattern)
+    for out in group_world["ranks"]:
+        for kind in ("prefill", "decode"):
+            _within(out[f"{case}/{kind}"], group_world["ref"][f"{case}/{kind}"])
+        keys = [k for k in out if k.startswith(f"{case}/cache/")]
+        assert keys
+        for key in keys:
+            l, leaf = key.split("/")[2:]
+            ref_key = f"{case}/cache/{int(l) % period}" + ("" if leaf == "latent" else f"/{leaf}")
+            _within(out[key], group_world["ref"][ref_key][int(l) // period])
+
+
+@pytest.mark.parametrize("case", list(torch_ranks.GROUP_TRAIN_CASES))
+def test_head_group_train_step_matches_value_and_grad(case, group_world):
+    """The train step with minicpm3's attention and hymba's scan in head
+    groups: the loss within 1e-5 and each gradient leaf within 1e-4 x its
+    max|g| of ``jax.value_and_grad`` under the 1 x 4 mesh, the gradients,
+    and after a train step the params and moments, in their placements."""
+    cfg = torch_ranks.mesh_cfg(TC, torch_ranks.GROUP_TRAIN_CASES[case])
+    period = len(cfg.block_pattern)
+    ref = group_world["ref"]
+    n = 0
+    for out in group_world["ranks"]:
+        assert abs(float(out[f"train/{case}/loss"]) - float(ref[f"train/{case}/loss"])) <= 1e-5
+        assert float(out[f"train/{case}/step_loss"]) == pytest.approx(
+            float(out[f"train/{case}/loss"]), abs=1e-6)
+        assert bool(out[f"train/{case}/step_placed"])
+        for key in (k for k in out if k.startswith(f"train/{case}/grad/")):
+            path = key.split("/")[3:]
+            if path[0] == "blocks":
+                l = int(path[1])
+                want = ref["/".join([f"train/{case}/grad", "blocks", str(l % period)] +
+                                    path[2:])][l // period]
+            else:
+                want = ref[key]
+            assert np.abs(out[key] - want).max() <= 1e-4 * max(np.abs(want).max(), 1e-30), key
+            assert bool(out[key.replace("/grad/", "/placed/")]), key
+            n += 1
+    assert n > 0
+
+
+@pytest.mark.parametrize("case", list(torch_ranks.GROUP_CASES) + [
+    "train/" + k for k in torch_ranks.GROUP_TRAIN_CASES])
+def test_head_group_ranks_local_shapes_at_the_sites_are_its_devices(case, group_world):
+    """At every constraint site of the 1 x 4 runs, rank r's local shape is
+    device r's shard at the reference's site of the same global shape."""
+    ref = {}
+    for s in group_world["ref"][f"{case}/sites"]:
+        dev, g, loc = str(s).split("|")
+        ref.setdefault(int(dev), set()).add((g, loc))
+    for rank, out in enumerate(group_world["ranks"]):
+        got = {tuple(str(s).split("|")[1:]) for s in out[f"{case}/sites"]}
+        assert got == ref[rank], (rank, sorted(got ^ ref[rank]))
+
+
+@pytest.mark.parametrize("case,site,kernel", [
+    ("minicpm3", "models/attention.py mla_apply", "flash_attention"),
+    ("hymba", "models/ssm.py _ssm_core", "ssd_scan")])
+def test_head_groups_put_each_rank_on_its_groups_heads(case, site, kernel, monkeypatch):
+    """The train step of each case traced as rank 0's program on a 4-rank
+    fake 1 x 4 group: its attention (minicpm3) or scan (hymba) kernel,
+    forward and backward, does half the step's work (its group's heads, 2 x
+    its quarter share: the reference's layout), not all of it."""
+    from repro_torch.launch import flops_by_site
+    monkeypatch.setitem(D.MESHES, "mesh1x4", ({"data": 1, "model": 4},
+                                              TS.MeshAxes(data=("data",))))
+    cfg = torch_ranks.mesh_cfg(TC, torch_ranks.GROUP_TRAIN_CASES[case])
+    shape = ShapeConfig("mesh_train", torch_ranks.MESH_T, torch_ranks.MESH_B, "train")
+    rank, _ = flops_by_site.by_site(cfg, shape, "mesh1x4")
+    step, _ = flops_by_site.by_site(cfg, shape, None)
+    for key in (f"{site} [{kernel}]", f"{site} (backward) [{kernel}_bwd]"):
+        assert step[key] > 0 and rank[key] * 2 == step[key], (key, rank[key], step[key])

@@ -155,6 +155,16 @@ def test_ab_flash_needs_the_card(tmp_path):
         ab_flash.main(["--other", str(other)])
 
 
+def test_ab_train_needs_the_card(tmp_path):
+    """``launch/ab_train.py`` times two checkouts' train steps on the card;
+    without one it raises before it starts a child."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the card-less behaviour")
+    from repro_torch.launch import ab_train
+    with pytest.raises(RuntimeError, match="cuda"):
+        ab_train.main(["--other", str(tmp_path)])
+
+
 def test_launcher_runs_on_cpu_when_asked():
     out = launch_serve.main(["--reduced", "--device", "cpu", "--batch", "2",
                              "--prompt-len", "4", "--steps", "3"])
@@ -413,7 +423,8 @@ def test_profile_groups_name_every_kernel():
     want = {"rmsnorm": "rmsnorm", "flash_attention": "flash_attention",
             "flash_attention_bwd": "flash_attention_bwd",
             "decode_attention": "decode_attention", "ssm_scan": "ssd_scan",
-            "ssm_scan_bwd": "ssd_scan_bwd", "dp_sweep": "dp_sweep"}
+            "ssm_scan_bwd": "ssd_scan_bwd", "ssm_scan_bwd_tc": "ssd_scan_bwd",
+            "dp_sweep": "dp_sweep"}
     backward = {"rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel"}  # rmsnorm.cu's backward pair
     assert set(found) == set(want) and backward <= set(found["rmsnorm"])
     for stem, names in found.items():

@@ -271,6 +271,142 @@ def test_tile_parallel_bwd_matches_plain(case, tile):
         assert rel(g.numpy(), w.numpy()) <= TOL["float32"], name
 
 
+def chunk_pairs_bwd(x, a, b, c, h0, dy, dh_final, *, chunk, tile=ss.TILE):
+    """csrc/ssm_scan_bwd.cu's tensor-core schedule (bf16 x and dy) in f32,
+    without the operand splits (``ref.ssd_scan_bwd_bf16_scheme`` carries
+    those): A' and B' as ``tile_parallel_bwd``; C' a block per chunk that
+    walks its lower-triangle ``tile``-row tile pairs (t tile i, s tile j),
+    i >= j, in the order j = 0.., i = j.., forming each pair's C.B^T, DY.X^T
+    and W once.  dx_s and db_s sum over the s tile's pairs in order and take
+    the injection terms at its last pair; dc_t starts from the inter-chunk
+    term at j = 0 and sums over the s tiles in order, final at the diagonal
+    pair (i = j), the t tile's last; dcum_t collects each pair's sums of M
+    over s (and c_t . the inter term), dcum_s loses the s tile's sums of M
+    over t at its last pair; D' as ``tile_parallel_bwd``."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    xf, af, bf, cf, dyf = (t.float() for t in (x, a, b, c, dy))
+    Q = min(chunk, S)
+    bounds = [(c0, min(c0 + Q, S)) for c0 in range(0, S, Q)]
+    lim = torch.tensor(1e-37)
+    cums = [torch.cumsum(torch.log(torch.maximum(af[:, c0:c1], lim)), dim=1)
+            for c0, c1 in bounds]                                           # (B,L,H)
+    h = torch.zeros(B, H, P, N) if h0 is None else h0.float()               # the forward's
+    starts = []
+    for (c0, c1), cum in zip(bounds, cums):
+        starts.append(h)
+        w = torch.exp(cum[:, -1:] - cum)
+        h = h * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bshp,bshn->bhpn", xf[:, c0:c1], bf[:, c0:c1] * w[..., None])
+    us = [torch.einsum("bthp,bthn->bhpn", dyf[:, c0:c1] * torch.exp(cum)[..., None],
+                       cf[:, c0:c1]) for (c0, c1), cum in zip(bounds, cums)]  # pass A'
+    dh = torch.zeros(B, H, P, N) if dh_final is None else dh_final.float()
+    dh_end = [None] * len(bounds)
+    for g in reversed(range(len(bounds))):                                   # pass B'
+        dh_end[g] = dh
+        dh = dh * torch.exp(cums[g][:, -1])[..., None, None] + us[g]
+    dx, db, dc = torch.zeros_like(xf), torch.zeros_like(bf), torch.zeros_like(cf)
+    da = torch.zeros_like(af)
+    for g, (c0, c1) in enumerate(bounds):                                    # pass C'
+        cum, L = cums[g], c1 - c0
+        tiles = [(r0, min(r0 + tile, L)) for r0 in range(0, L, tile)]
+        dcum, qs = torch.zeros(B, L, H), torch.zeros(B, L, H)
+        dcs = [None] * len(tiles)                  # each t tile's dc sums
+        for j, (s0, s1) in enumerate(tiles):       # s tiles outer
+            srows, sidx = slice(c0 + s0, c0 + s1), torch.arange(s0, s1)
+            dx_s, db_s, cs = (torch.zeros(B, s1 - s0, H, P), torch.zeros(B, s1 - s0, H, N),
+                              torch.zeros(B, s1 - s0, H))
+            for i in range(j, len(tiles)):         # t tiles at or after it, inner
+                t0, t1 = tiles[i]
+                trows, tidx = slice(c0 + t0, c0 + t1), torch.arange(t0, t1)
+                d = torch.einsum("bthp,bshp->btsh", dyf[:, trows], xf[:, srows])  # once a pair
+                cb = torch.einsum("bthn,bshn->btsh", cf[:, trows], bf[:, srows])
+                mask = (sidx[None, :] <= tidx[:, None])[None, :, :, None]
+                w = torch.exp((cum[:, t0:t1, None] - cum[:, None, s0:s1]).masked_fill(
+                    ~mask, float("-inf")))
+                e, f = d * w, cb * w
+                m = e * cb
+                dx_s += torch.einsum("btsh,bthp->bshp", f, dyf[:, trows])
+                db_s += torch.einsum("btsh,bthn->bshn", e, cf[:, trows])
+                cs += m.sum(1)
+                if j == 0:                         # dc from the inter-chunk term
+                    inter = torch.einsum("bhpn,bthp->bthn", starts[g], dyf[:, trows]
+                                         ) * torch.exp(cum[:, t0:t1])[..., None]
+                    dcs[i] = inter
+                    dcum[:, t0:t1] = (cf[:, trows] * inter).sum(-1)
+                dcs[i] = dcs[i] + torch.einsum("btsh,bshn->bthn", e, bf[:, srows])
+                dcum[:, t0:t1] += m.sum(2)
+                if i == j:                         # the diagonal pair: dc is final
+                    dc[:, trows] = dcs[i]
+            wend = torch.exp(cum[:, -1:] - cum[:, s0:s1])[..., None]
+            inj_x = torch.einsum("bhpn,bshn->bshp", dh_end[g], bf[:, srows]) * wend
+            inj_b = torch.einsum("bhpn,bshp->bshn", dh_end[g], xf[:, srows]) * wend
+            dx[:, srows], db[:, srows] = dx_s + inj_x, db_s + inj_b
+            dcum[:, s0:s1] -= cs
+            qs[:, s0:s1] = (bf[:, srows] * inj_b).sum(-1)
+        z = torch.exp(cum[:, -1]) * (dh_end[g] * starts[g]).sum((-1, -2))   # pass D'
+        dla = dcum.flip(1).cumsum(1).flip(1) + qs.cumsum(1) - qs + z[:, None]
+        at = af[:, c0:c1]
+        da[:, c0:c1] = dla / torch.maximum(at, lim) * torch.where(
+            at > lim, 1.0, torch.where(at == lim, 0.5, 0.0))
+    return (dx.to(x.dtype), da, db, dc.to(c.dtype),
+            None if h0 is None else dh)
+
+
+@pytest.mark.parametrize("tile", [64, 3], ids=["tile64", "tile3"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_chunk_pairs_bwd_matches_plain(case, tile):
+    """The tensor-core schedule (a block per chunk, each tile pair once) at
+    its 64-row tiles and at tiles of 3 (several pairs a chunk, the last tile
+    ragged), f32 within 5e-5 x max|g| of ``ref.ssd_scan_bwd``."""
+    x, a, b, c, h0, dy, dh = torch_args(draw(case, seed=3), True, "float32")
+    chunk = CASES[case][-1]
+    want = ref.ssd_scan_bwd(x, a, b, c, h0, dy, dh, chunk=chunk)
+    got = chunk_pairs_bwd(x, a, b, c, h0, dy, dh, chunk=chunk, tile=tile)
+    for name, g, w in zip(NAMES, got, want):
+        assert rel(g.numpy(), w.numpy()) <= TOL["float32"], name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["no_h0", "h0"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_scheme_matches_the_closed_form(case, with_h0, dtype):
+    """``ref.ssd_scan_bwd_bf16_scheme`` (the kernel's bf16 path: every
+    tensor-core product's f32 operand a bf16 high part plus its remainder)
+    against the closed form on the same values in f32, within the f32 5e-5
+    x max|g| a gradient: the split keeps ~16 bits, far below bf16's 8.  In
+    the bf16 mix (x, c and dy bf16) the closed form takes their f32 values.
+    The scheme returns f32, before the kernel's rounding to each input's
+    dtype."""
+    x, a, b, c, h0, dy, dh = torch_args(draw(case, seed=5), with_h0, dtype)
+    chunk = CASES[case][-1]
+    got = ref.ssd_scan_bwd_bf16_scheme(x, a, b, c, h0, dy, dh, chunk=chunk)
+    want = ref.ssd_scan_bwd(x.float(), a, b, c.float(), h0, dy.float(), dh, chunk=chunk)
+    assert all(g is None or g.dtype == torch.float32 for g in got)
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert rel(g.numpy(), w.numpy()) <= TOL["float32"], name
+
+
+@pytest.mark.parametrize("P,N,chunk", [(64, 16, 256), (16, 8, 32), (100, 32, 64), (128, 32, 256),
+                                       (64, 64, 256), (128, 64, 256), (128, 64, 64)])
+def test_backward_plan_takes_the_tensor_cores_for_bf16(P, N, chunk):
+    """``ssd_bwd_plan(..., bf16=True)``: C' a block per (batch, head, chunk)
+    on the tensor cores at every width (the library refuses a chunk whose
+    block does not fit the card's shared memory, ``test_torch_gpu``); f32 x
+    never takes the tensor cores: C' a block per (batch, head, chunk, tile).
+    The other three launches do not depend on the route."""
+    B, S, H = 2, 300, 3
+    tc, f32 = ss.ssd_bwd_plan(B, S, H, P, N, chunk, True), ss.ssd_bwd_plan(B, S, H, P, N, chunk)
+    G = -(-S // min(chunk, S))
+    assert tc.tc and not f32.tc
+    assert tc.grid[2] == B * H * G and f32.grid[2] == B * H * G * f32.tiles
+    assert tc.grid[0] == tc.grid[3] == B * H * G
+    assert (tc.grid[0], tc.grid[1], tc.grid[3]) == (f32.grid[0], f32.grid[1], f32.grid[3])
+
+
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 4096, 50, 64, 16, 256), (4, 1536, 50, 64, 16, 256),
                                              (2, 300, 3, 128, 64, 160), (1, 1, 2, 16, 8, 256)])
 def test_backward_plan_covers_every_chunk_tile_and_entry(B, S, H, P, N, chunk):

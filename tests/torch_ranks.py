@@ -84,6 +84,19 @@ TRAIN_CASES = {"internlm2": ("internlm2_1p8b", dict(n_layers=2, d_model=64), Non
                "xlstm": ("xlstm_1p3b", dict(n_layers=8, d_model=64), None),
                "xlstm_one_head": ("xlstm_1p3b", dict(n_layers=8, d_model=32, n_heads=1), None)}
 MESH_B, MESH_T, MESH_EXTRA = 4, 16, 4   # batch, prompt, cache slots past it
+# The head-group cases on a 1 x 4 (data, model) mesh, whose model axis
+# shares a factor of 2 with the heads (``sharding.head_groups``: 2 groups,
+# ranks 0-1 and 2-3): minicpm3's MLA at 22 heads of (96, 64) (22 x 96 > 2048,
+# so ``_row_shard`` does not take q's rows: the layout of its 40 heads on
+# 16 ranks) and hymba at d 192, 6 SSM heads of 64 and 3 attention heads of 64
+# (the kernels' head dim; the train step's scan in
+# groups of 3; prefill and decode keep the state, whole on model).
+GROUP_MESH = (1, 4)
+GROUP_CASES = {"minicpm3": ("minicpm3_4b", dict(n_layers=2, d_model=64, n_heads=22,
+                                                mla=dict(qk_nope_head_dim=64, qk_rope_head_dim=32,
+                                                         v_head_dim=64)), None),
+               "hymba": ("hymba_1p5b", dict(n_layers=2, d_model=192, n_heads=3), None)}
+GROUP_TRAIN_CASES = GROUP_CASES
 # the cases whose collectives the gloo run counts beside the dry-run's trace
 COUNTED = ("internlm2", "row_shard", "hymba")
 
@@ -361,69 +374,89 @@ def case_mesh(rank: int, world: int, inp: dict) -> dict:
     out: dict = {}
     sharding.set_active_mesh(mesh, sharding.MeshAxes())
     try:
-        for name, case in MESH_CASES.items():
-            cfg = mesh_cfg(C, case)
-            params = from_jax_params(unflatten(inp, f"{name}/params"), cfg, device="cpu")
-            dp = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
-            batch = sharding.place_batch({"tokens": torch.from_numpy(inp[f"{name}/tokens"])},
-                                         mesh)
-            nxt = sharding.place_batch({"t": torch.from_numpy(inp[f"{name}/next"])}, mesh)["t"]
-            sharding.SITES = []
-            with torch.no_grad():
-                logits, cache = transformer.prefill(dp, cfg, batch, max_len=MESH_T + MESH_EXTRA)
-                out[f"{name}/prefill"] = logits.full_tensor().numpy()
-                placed = [{k: tuple(map(str, v.placements)) for k, v in c.items()} for c in cache]
-                dl, cache = transformer.decode_step(dp, cfg, nxt, cache, MESH_T)
-                out[f"{name}/decode"] = dl.full_tensor().numpy()
-                for l, c in enumerate(cache):
-                    for k, v in c.items():
-                        assert tuple(map(str, v.placements)) == placed[l][k], (name, l, k)
-                        out[f"{name}/cache/{l}/{k}"] = v.full_tensor().numpy()
-                        out[f"{name}/cache_local/{l}/{k}"] = np.array(v.to_local().shape)
-            out[f"{name}/sites"] = np.array(sorted({f"{s}|{g}|{loc}"
-                                                   for s, g, loc in sharding.SITES}))
-            sharding.SITES = None
-            if name in COUNTED:
-                for kind in ("prefill", "decode"):
-                    out[f"{name}/coll/{kind}"] = _counted(cfg, params, kind, mesh)
-
-        for name, case in TRAIN_CASES.items():
-            cfg = mesh_cfg(C, case)
-            params = from_jax_params(unflatten(inp, f"train/{name}/params"), cfg, device="cpu")
-            dp = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
-            leaves = adamw.tree_leaves(dp)
-            for t in leaves:
-                t.requires_grad_(True)
-            sharding.SITES = []
-            loss, _ = transformer.loss_fn(dp, cfg, sharding.place_batch(
-                {"tokens": torch.from_numpy(inp[f"train/{name}/tokens"])}, mesh), remat=True)
-            grads = torch.autograd.grad(loss, leaves)
-            for t in leaves:
-                t.requires_grad_(False)
-            out[f"train/{name}/sites"] = np.array(sorted({f"{s}|{g}|{loc}"
-                                                         for s, g, loc in sharding.SITES}))
-            sharding.SITES = None
-            out[f"train/{name}/loss"] = loss.full_tensor().detach().numpy()
-            for (path, p), (_, g) in zip(flat(dp), flat(adamw.tree_unflatten(dp, list(grads)))):
-                g = sharding.like(g, p)
-                out[f"train/{name}/placed/{path}"] = np.array(
-                    tuple(g.placements) == tuple(p.placements))
-                out[f"train/{name}/grad/{path}"] = g.full_tensor().numpy()
-            # the train step: params and AdamW's moments keep their placements
-            opt = steps.init_opt_state(dp, steps.TrainConfig())
-            new, opt, met = steps.make_train_step(cfg, steps.TrainConfig())(
-                dp, opt, sharding.place_batch(
-                    {"tokens": torch.from_numpy(inp[f"train/{name}/tokens"])}, mesh))
-            out[f"train/{name}/step_loss"] = met["loss"].full_tensor().numpy()
-            out[f"train/{name}/step_placed"] = np.array(all(
-                tuple(a.placements) == tuple(b.placements) == tuple(c.placements)
-                for a, b, c in zip(adamw.tree_leaves(new), adamw.tree_leaves(opt["m"]),
-                                   adamw.tree_leaves(opt["v"]))))
+        _sharded_steps(mesh, MESH_CASES, TRAIN_CASES, inp, out)
         _moe_expert_parallel_dtensor(mesh, out)
     finally:
         sharding.SITES = None
         sharding.set_active_mesh(None)
     return out
+
+
+def case_groups(rank: int, world: int, inp: dict) -> dict:
+    """1 x 4 (data, model), the head-group cases: as ``case_mesh``."""
+    mesh = init_device_mesh("cpu", GROUP_MESH, mesh_dim_names=("data", "model"))
+    out: dict = {}
+    sharding.set_active_mesh(mesh, sharding.MeshAxes())
+    try:
+        _sharded_steps(mesh, GROUP_CASES, GROUP_TRAIN_CASES, inp, out)
+    finally:
+        sharding.SITES = None
+        sharding.set_active_mesh(None)
+    return out
+
+
+def _sharded_steps(mesh, serve_cases: dict, train_cases: dict, inp: dict, out: dict) -> None:
+    """Each serving case's prefill, decode, cache and constraint sites, and
+    each train case's loss, gradients, sites and a train step's placements,
+    on ``mesh``."""
+    for name, case in serve_cases.items():
+        cfg = mesh_cfg(C, case)
+        params = from_jax_params(unflatten(inp, f"{name}/params"), cfg, device="cpu")
+        dp = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
+        batch = sharding.place_batch({"tokens": torch.from_numpy(inp[f"{name}/tokens"])},
+                                     mesh)
+        nxt = sharding.place_batch({"t": torch.from_numpy(inp[f"{name}/next"])}, mesh)["t"]
+        sharding.SITES = []
+        with torch.no_grad():
+            logits, cache = transformer.prefill(dp, cfg, batch, max_len=MESH_T + MESH_EXTRA)
+            out[f"{name}/prefill"] = logits.full_tensor().numpy()
+            placed = [{k: tuple(map(str, v.placements)) for k, v in c.items()} for c in cache]
+            dl, cache = transformer.decode_step(dp, cfg, nxt, cache, MESH_T)
+            out[f"{name}/decode"] = dl.full_tensor().numpy()
+            for l, c in enumerate(cache):
+                for k, v in c.items():
+                    assert tuple(map(str, v.placements)) == placed[l][k], (name, l, k)
+                    out[f"{name}/cache/{l}/{k}"] = v.full_tensor().numpy()
+                    out[f"{name}/cache_local/{l}/{k}"] = np.array(v.to_local().shape)
+        out[f"{name}/sites"] = np.array(sorted({f"{s}|{g}|{loc}"
+                                               for s, g, loc in sharding.SITES}))
+        sharding.SITES = None
+        if name in COUNTED and serve_cases is MESH_CASES:
+            for kind in ("prefill", "decode"):
+                out[f"{name}/coll/{kind}"] = _counted(cfg, params, kind, mesh)
+
+    for name, case in train_cases.items():
+        cfg = mesh_cfg(C, case)
+        params = from_jax_params(unflatten(inp, f"train/{name}/params"), cfg, device="cpu")
+        dp = sharding.shard_params(params, mesh, sharding.param_pspecs(params, mesh))
+        leaves = adamw.tree_leaves(dp)
+        for t in leaves:
+            t.requires_grad_(True)
+        sharding.SITES = []
+        loss, _ = transformer.loss_fn(dp, cfg, sharding.place_batch(
+            {"tokens": torch.from_numpy(inp[f"train/{name}/tokens"])}, mesh), remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        out[f"train/{name}/sites"] = np.array(sorted({f"{s}|{g}|{loc}"
+                                                     for s, g, loc in sharding.SITES}))
+        sharding.SITES = None
+        out[f"train/{name}/loss"] = loss.full_tensor().detach().numpy()
+        for (path, p), (_, g) in zip(flat(dp), flat(adamw.tree_unflatten(dp, list(grads)))):
+            g = sharding.like(g, p)
+            out[f"train/{name}/placed/{path}"] = np.array(
+                tuple(g.placements) == tuple(p.placements))
+            out[f"train/{name}/grad/{path}"] = g.full_tensor().numpy()
+        # the train step: params and AdamW's moments keep their placements
+        opt = steps.init_opt_state(dp, steps.TrainConfig())
+        new, opt, met = steps.make_train_step(cfg, steps.TrainConfig())(
+            dp, opt, sharding.place_batch(
+                {"tokens": torch.from_numpy(inp[f"train/{name}/tokens"])}, mesh))
+        out[f"train/{name}/step_loss"] = met["loss"].full_tensor().numpy()
+        out[f"train/{name}/step_placed"] = np.array(all(
+            tuple(a.placements) == tuple(b.placements) == tuple(c.placements)
+            for a, b, c in zip(adamw.tree_leaves(new), adamw.tree_leaves(opt["m"]),
+                               adamw.tree_leaves(opt["v"]))))
 
 
 # The DTensor expert path's cases: (experts, batch, sequence); 4 experts lie
@@ -542,7 +575,7 @@ def collect(procs: list, tmp: pathlib.Path, case: str, timeout: float = 240) -> 
 
 
 CASES = {"parallel": case_parallel, "engine_ckpt": case_engine_ckpt, "mesh": case_mesh,
-         "pipeline4": case_pipeline4, "pipeline2": case_pipeline2}
+         "groups": case_groups, "pipeline4": case_pipeline4, "pipeline2": case_pipeline2}
 
 
 def main() -> int:
