@@ -60,7 +60,12 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                and da, db, dh0 at 5e-5; two launches bitwise equal; and at
                hymba's train shape (batch 2 x 4096, 50 heads of 64, N 16,
                chunk 256) and serving prefill shape with times, the device
-               us of its four CUDA kernels, the grid and the bound.
+               us of its four CUDA kernels, the grid and the bound.  The
+               SSD decode step at a rank's P of 4 (hymba decode_32k's rank
+               0 on (16, 16): 8 sequences, every head); the f32 kernels'
+               head dim 16 (the examples' reduced internlm2): flash
+               attention forward and backward at quickstart's train shape,
+               decode at serve_pipeline's last step.
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
                with the launch counts set to 0 just before and asserted
@@ -119,7 +124,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                on the card (``launch/mesh.py::fake_mesh``), rank 0's program
                of internlm2-1.8B prefill_32k (batch 32), decode_32k (batch
                128) and train_4k (batch 256, 16 sequences of 4,096 a rank:
-               the loss on the rank's slice of the vocab, one AdamW step) on
+               the loss on the rank's slice of the vocab, one AdamW step)
+               and of hymba-1.5B prefill_32k (its scan in the reference's
+               head groups, the state handed to the cache by P) and
+               decode_32k (the scan on every head at the rank's 4 of P) on
                the (16, 16) mesh at its local shapes: launches equal
                the dry-run's rank-0 trace, peak device memory its
                ``peak_memory_in_bytes`` within 2 % + 64 MiB; the
@@ -163,6 +171,17 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                tokens under CUT_GATES (the f32 floor with the scan in
                chunks of half the length and its closed-form backward,
                ``SsdClosedForm``).
+  6d. examples — the reference's three remaining examples through the
+               port's entry points, each printing its own lines:
+               ``launch/quickstart.py`` (30 losses against the same run on
+               the CPU from the same params within F32_GATE, the resume
+               taking 0 steps), ``launch/train_100m.py --full`` (the ~100M
+               decoder in bf16, 300 steps with one injected failure and
+               restart, the loss falling; the step walls, checkpoint saves,
+               the idle share) and ``launch/serve_pipeline.py`` at one
+               H100's group sizes (the placement's lines, the generated
+               tokens equal to the CPU's from the same params, the
+               straggler-aware nodes); launches exact, counted from 0.
   7. dryrun  — the port's dry-run (``repro_torch.launch.dryrun``) and the
                card.  For h2o-danube3-4B, hymba-1.5B and xlstm-1.3B at
                long_500k (decode at position 524,287, the whole cell: batch
@@ -371,6 +390,28 @@ TRAIN_HYBRID_LAUNCHES = {
     "ssd_scan": TRAIN_HYBRID["steps"] * 2 * 32,
     "ssd_scan_bwd": TRAIN_HYBRID["steps"] * 32,
     "decode_attention": 0, "dp_sweep": 0}
+# The reference's examples as the port's entry points (``launch/quickstart.py``,
+# ``train_100m.py``, ``serve_pipeline.py``).  quickstart: internlm2 cut to 2
+# layers of d 64 over 4 heads of 16 (f32), batch 8 x 64, 30 steps.
+# train_100m --full: 12 layers of d 768 (12/4 heads of 64, bf16 compute),
+# batch 8 x 512, 300 steps with a failure injected at step 120; the restart
+# resumes from step 99's checkpoint (one every 50 steps), so 120 + 200 steps
+# run.  serve_pipeline: the 2-layer model, batch 4, a prompt of 16 and 8
+# generated tokens in 64 slots.
+EXAMPLES = dict(B=8, S=64, steps=30, prompt=16, gen=8, max_len=64,
+                full=dict(layers=12, steps=300, fail=120, resume=100))
+
+
+def train_launches(steps: int, layers: int) -> dict:
+    """The kernel launches of ``steps`` train steps of an attention model of
+    ``layers`` layers under remat: each layer's two norms and its attention
+    twice (the forward, the recompute), the final norm once, and one
+    backward launch of each."""
+    return {"rmsnorm": steps * (2 * 2 * layers + 1), "rmsnorm_bwd": steps * (2 * layers + 1),
+            "flash_attention": steps * 2 * layers, "flash_attention_bwd": steps * layers,
+            "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, "dp_sweep": 0}
+
+
 # The attention models' two-layer cuts at full width (PERIOD_GATES, one
 # sequence of the train shape; danube's past its 4096 window), each path's
 # loss and gradient against plain f32 with remat off.  The loss is held
@@ -1120,7 +1161,7 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str, dv: int | No
     of a (.., hd + dv) product, as the model's re-expanded latent), in
     ``dtype_name``."""
     from repro_torch.kernels import cost, ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import MIN_SPLIT, decode_attention
     F = torch.nn.functional
     dt = getattr(torch, dtype_name)
     dv = hd if dv is None else dv
@@ -1151,7 +1192,9 @@ def decode_record(torch, randn, B, smax, L, hq, hkv, hd, what: str, dv: int | No
     grid = bh * splits
     print(f"[kernels] decode_attention grid at {what}: B*Hkv*splits = {bh}*{splits} = "
           f"{grid} blocks on {n_sm} SMs (as launched)", flush=True)
-    need(grid > n_sm, f"decode_attention {what}: grid {grid} does not exceed {n_sm} SMs")
+    # the grid fills the SMs unless the valid slots split no further
+    need(grid > n_sm or splits == max(1, L // MIN_SPLIT),
+         f"decode_attention {what}: grid {grid} does not exceed {n_sm} SMs")
     work = cost.decode_attention(B, hq, hkv, hd, dv, L, es)
     rec = dict(
         name="decode_attention", max_abs_err=err, grid=grid,
@@ -1598,6 +1641,24 @@ def kernel_phase(torch, gen) -> dict:
     recs["ssd_scan_bwd"] = [
         ssd_bwd_record(torch, randn, th["B"], th["S"], 50, 64, 16, 256, "hymba train"),
         ssd_bwd_record(torch, randn, hy["B"], hy["S"], 50, 64, 16, 256, "hymba prefill shape")]
+    # hymba decode_32k's state update on rank 0 of (16, 16): every head on
+    # the rank's 4 of P (the cache leaf's layout), its 8 sequences
+    recs["ssd_scan"].append(ssd_record(torch, randn, 8, 1, 50, 4, 16, 256, True,
+                                       "hymba decode_32k rank 0, P 4 of 64"))
+    # The examples' reduced internlm2 (d 64 over 4 heads of 16, f32): the
+    # f32 kernels' head dim 16, forward and backward at quickstart's train
+    # shape (batch 8 x 64) and decode at serve_pipeline's last step (prompt
+    # 16 + 8 steps in 64 slots).
+    ex = EXAMPLES
+    recs["flash_attention"].append(flash_record(
+        torch, randn, ex["B"], ex["S"], 4, 4, 16, None, "quickstart train f32",
+        dtype_name="float32"))
+    recs["flash_attention_bwd"].append(flash_bwd_record(
+        torch, randn, ex["B"], ex["S"], 4, 4, 16, None, "quickstart train f32",
+        dtype_name="float32"))
+    recs["decode_attention"].append(decode_record(
+        torch, randn, 4, ex["max_len"], ex["prompt"] + ex["gen"], 4, 4, 16,
+        "serve_pipeline last step f32", dtype_name="float32"))
     torch.cuda.synchronize()
     return recs
 
@@ -3302,18 +3363,22 @@ def placement_phase(torch) -> tuple[dict, list]:
 
 # The swarm serving runtime (runtime/swarm.py): benchmarks/bench_swarm.py's
 # CHURN (S1: 10 UAVs in two RPG groups, churn mtbf 60 s / mttr 20 s,
-# bottleneck queues) and OVERLOAD (S6: one group, 360 ticks, 20 epochs, 4.5
-# arrivals/s held 240 ticks, over 1e5 frames), the S7 swarm's N (1024 UAVs,
-# 64 hotspots, 4 epochs, default budget k 32, per-hop queues), and
-# tests/test_swarm.py's SMALL with faster churn for executed mode.
+# bottleneck queues) and OVERLOAD (S6: one group, 4.5 arrivals/s held 240
+# ticks, cut from 360 ticks to 180: 10 epochs, the streams still past what
+# the group serves), the S7 swarm's N (1024 UAVs,
+# 64 hotspots, default budget k 32, per-hop queues) cut to 30 ticks (2
+# epochs, the second re-solving 344 active streams), and tests/test_swarm.py's
+# SMALL with faster churn for executed mode, cut to 40 ticks (3 epochs, 113
+# frames served at seed 3, three churn rejoins warming the engine): the
+# script's depth, which its time limit bounds.
 SWARM_CHURN = dict(arrival_rate_hz=0.3, mtbf_s=60.0, mttr_s=20.0, queue_model="bottleneck")
-SWARM_OVERLOAD = dict(n_groups=1, duration_ticks=360, epoch_ticks=18, arrival_rate_hz=4.5,
+SWARM_OVERLOAD = dict(n_groups=1, duration_ticks=180, epoch_ticks=18, arrival_rate_hz=4.5,
                       hold_ticks_mean=240.0, mem_mb_hotspot_group=4096.0,
                       mem_mb_other_groups=4096.0, comp_cap_flops=1e18, gflops=5e9,
                       deadline_s=2.0, mtbf_s=float("inf"), queue_model="bottleneck")
-SWARM_N1024 = dict(n_uavs=1024, hotspots=64, duration_ticks=60, epoch_ticks=15,
+SWARM_N1024 = dict(n_uavs=1024, hotspots=64, duration_ticks=30, epoch_ticks=15,
                    arrival_rate_hz=34.0, hold_ticks_mean=30.0)
-SWARM_EXEC = dict(duration_ticks=60, arrival_rate_hz=0.3, mtbf_s=40.0, mttr_s=10.0)
+SWARM_EXEC = dict(duration_ticks=40, arrival_rate_hz=0.3, mtbf_s=40.0, mttr_s=10.0)
 # SimResult fields that are host walls, and the counter of sweep launches at
 # a shape new to the process, which a sequential run cannot have.
 SWARM_WALL_METRICS = ("solver.total_solve_s", "solver.jit_compiles")
@@ -3567,35 +3632,29 @@ def same_executed(a, b, what: str, links: bool = True) -> None:
         need(same, f"{what}: field {f.name} differs")
 
 
-def ship_table(torch, tp, what: str) -> None:
-    """Start ``tp`` (timed: the workers' startup), ship 4 KB once to each
-    worker, then f32 tensors on the card of each SHIP_BYTES size; print the
-    median wall and rate by size and the workers' recv/echo shares of all
-    the ship walls."""
-    t0 = time.perf_counter()
-    tp.start()
-    startup = time.perf_counter() - t0
+def ship_table(torch, tp, startup: float, what: str) -> None:
+    """On ``tp``, started in ``startup`` s (the workers' startup): ship 4 KB
+    once to each worker, then f32 tensors on the card of each SHIP_BYTES
+    size; print the median wall and rate by size and the workers' recv/echo
+    shares of all the transport's ship walls."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    try:
-        for w in range(tp.n_workers):          # each connection's first ship, off the table
-            tp.ship(0, w, torch.zeros(1024, device="cuda"))
-        for nb in SHIP_BYTES:
-            x = torch.randn(nb // 4, generator=gen, device="cuda")
-            walls = []
-            for i in range(SHIP_REPS):
-                res = tp.ship(0, 1 + i % tp.n_workers, x)
-                need(res.array.device == x.device and torch.equal(res.array, x),
-                     f"{what}: a {nb} B ship came back different")
-                walls.append(res.wall_s)
-            med = statistics.median(walls)
-            rows.append(f"{nb} B {med * 1e3:.3f} ms ({nb / med / 1e6:.0f} MB/s)")
-        ws = tp.worker_stats.values()
-        wall = sum(ls.wall_s for ls in tp.link_stats.values())
-        recv, echo = sum(w.recv_s for w in ws), sum(w.echo_s for w in ws)
-        backends = f", backends {tp.worker_backends} {tp.worker_devices}" if tp.device else ""
-    finally:
-        tp.close()
+    for w in range(tp.n_workers):          # each connection's first ship, off the table
+        tp.ship(0, w, torch.zeros(1024, device="cuda"))
+    for nb in SHIP_BYTES:
+        x = torch.randn(nb // 4, generator=gen, device="cuda")
+        walls = []
+        for i in range(SHIP_REPS):
+            res = tp.ship(0, 1 + i % tp.n_workers, x)
+            need(res.array.device == x.device and torch.equal(res.array, x),
+                 f"{what}: a {nb} B ship came back different")
+            walls.append(res.wall_s)
+        med = statistics.median(walls)
+        rows.append(f"{nb} B {med * 1e3:.3f} ms ({nb / med / 1e6:.0f} MB/s)")
+    ws = tp.worker_stats.values()
+    wall = sum(ls.wall_s for ls in tp.link_stats.values())
+    recv, echo = sum(w.recv_s for w in ws), sum(w.echo_s for w in ws)
+    backends = f", backends {tp.worker_backends} {tp.worker_devices}" if tp.device else ""
     print(f"[transport] {what}: {tp.n_workers} workers (pids {tp.worker_pids}, parent "
           f"{os.getpid()}{backends}) started in {startup:.3f} s; ship wall median of "
           f"{SHIP_REPS} by payload (card -> host -> worker -> host -> card): {', '.join(rows)}; "
@@ -3714,14 +3773,23 @@ def transport_phase(torch, build_s: float) -> dict:
     finally:
         TT.make_transport = real
 
-    # placed LeNet through both transports, bitwise equal to inproc
+    # placed LeNet through both transports, bitwise equal to inproc; then,
+    # on the same workers, ship walls by payload, worker shares and startup
     run = placed_setup(torch, "lenet")
     ref = run["engine"].run(run["graph"], run["frames"])
     for name in TRANSPORT_RUNS:
-        with real(name, n_workers=2, device="cuda") as tp:
+        tp = real(name, n_workers=2, device="cuda")
+        t0 = time.perf_counter()
+        tp.start()
+        startup = time.perf_counter() - t0
+        try:
             eng = X.ExecutionEngine(run["layers"](run["params"]), transport=tp, device="cuda")
             rep = eng.run(run["graph"], run["frames"])
             bw = {k: round(v.bytes_per_s / 1e6, 1) for k, v in sorted(tp.link_stats.items())}
+            ship_table(torch, tp, startup, "loopback (plain workers)" if name == "loopback"
+                       else "multiproc (torch workers on the card)")
+        finally:
+            tp.close()
         need(sorted(rep.outputs) == sorted(ref.outputs)
              and all(np.array_equal(rep.outputs[r], ref.outputs[r]) for r in ref.outputs),
              f"placed lenet over {name}: outputs differ from inproc")
@@ -3742,10 +3810,6 @@ def transport_phase(torch, build_s: float) -> dict:
          and "worker backends: ['cuda', 'cuda']" in r.stdout,
          f"transport CLI failed (rc {r.returncode}): {r.stderr[-2000:]}")
 
-    # figures: ship walls by payload, worker shares and startup
-    ship_table(torch, real("loopback", n_workers=2), "loopback (plain workers)")
-    ship_table(torch, real("multiproc", n_workers=2, device="cuda"),
-               "multiproc (torch workers on the card)")
 
     # the warm-start layer in a fresh process
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--warm-child"], cwd=ROOT,
@@ -4031,7 +4095,135 @@ def parallel_phase(torch) -> dict:
 # world-one mesh, and (b)'s production cells on a fake (16, 16) group.
 MESH = dict(archs=("internlm2_1p8b", "hymba_1p5b"), steps=16,
             cells=(("internlm2_1p8b", "prefill_32k"), ("internlm2_1p8b", "decode_32k"),
-                   ("internlm2_1p8b", "train_4k")))
+                   ("internlm2_1p8b", "train_4k"), ("hymba_1p5b", "prefill_32k"),
+                   ("hymba_1p5b", "decode_32k")))
+
+
+def examples_phase(torch) -> dict:
+    """The reference's three remaining examples through the port's entry
+    points on the card, each printing its own lines.  quickstart: its 30
+    losses against the same run on the CPU from the same initial params
+    (made on the CPU from seed 0) within F32_GATE relative, the loss
+    falling, the resume taking 0 steps, the launches exact.  train_100m
+    --full: 300 steps and one restart, the loss falling, the launches exact
+    (EXAMPLES' 320 steps run), the finishing attempt's step walls (median,
+    spread), the checkpoint saves' walls, the card's busy share from
+    ``nvidia-smi`` over the run and the idle share of one more step under
+    the profiler.  serve_pipeline at one H100's group sizes: the placement's
+    lines, the generated tokens equal to ``Server.generate`` on the CPU from
+    the same params, the straggler-aware nodes avoiding group 5, the
+    launches exact.  Returns the examples' launches."""
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import _batch_at
+    from repro_torch.launch import quickstart, serve_pipeline, train_100m
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, tree_map
+    from repro_torch.runtime import ServeConfig, Server, TrainConfig, make_train_step
+
+    card = card_line()
+    ex = EXAMPLES
+    launches = {name: 0 for name in all_kernels()}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def on_card(params):
+        return tree_map(lambda t: t.to("cuda"), params)
+
+    # quickstart
+    t0 = time.perf_counter()
+    p_cpu = init_params(SEED, quickstart.config(), device="cpu")
+    cpu = quickstart.main(["--device", "cpu"], params=p_cpu)
+    cpu_s = time.perf_counter() - t0
+    out, counts, wall = counted(torch, lambda: quickstart.main([], params=on_card(p_cpu)))
+    add(counts)
+    got, want = np.asarray(out["losses"]), np.asarray(cpu["losses"])
+    gap = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"[examples] quickstart on the card: {len(got)} steps in {wall:.1f} s (steps "
+          f"{statistics.median(out['walls']) * 1e3:.2f} ms median), losses within {gap:.3e} "
+          f"relative of the CPU run's from the same params (gate {F32_GATE}; the CPU run "
+          f"{cpu_s:.1f} s), resume {out['resumed_steps']} new steps; launches {counts} "
+          f"[{card}]", flush=True)
+    need(gap <= F32_GATE, f"quickstart: losses {gap:.3e} from the CPU run's")
+    need(len(got) == ex["steps"] and got[-1] < got[0] and out["resumed_steps"] == 0,
+         f"quickstart: {len(got)} steps, loss {got[0]} -> {got[-1]}, resumed "
+         f"{out['resumed_steps']}")
+    need(counts == train_launches(ex["steps"], 2), f"quickstart: launches {counts}")
+
+    # train_100m --full
+    fl = ex["full"]
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        out, counts, wall = counted(torch, lambda: train_100m.main(["--full"]))
+    finally:
+        smi.terminate()
+        util = [float(x) for x in smi.communicate(timeout=30)[0].split()
+                if x.replace(".", "", 1).isdigit()]
+    add(counts)
+    run = fl["fail"] + fl["steps"] - fl["resume"]
+    walls = sorted(out["walls"])
+    q = lambda f: walls[min(int(f * len(walls)), len(walls) - 1)]  # noqa: E731
+    cfg, steps, batch, seq = train_100m.config(True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=steps))
+    step = make_train_step(cfg, tcfg)
+    b = {"tokens": torch.from_numpy(_batch_at(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                                         global_batch=batch), 0, 0, 1)
+                                    ["tokens"]).cuda()}
+    params, opt = out["params"], out["opt_state"]
+    step(params, opt, b)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt, b)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    _, groups, kcounts = profile_step(torch, lambda: step(params, opt, b))
+    dev_us = sum(groups.values())
+    print(f"[examples] train_100m --full on the card: {out['n_params'] / 1e6:.1f} M params, "
+          f"{cfg.n_layers} layers, batch {batch} x {seq}, {out['last_step'] + 1} steps, "
+          f"{out['restarts']} restart (failure at step {out['fail_step']}; {run} steps run), "
+          f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, {wall:.1f} s in all; the "
+          f"finishing attempt's {len(walls)} step walls: median {statistics.median(walls) * 1e3:.3f} "
+          f"ms, p10 {q(0.1) * 1e3:.3f}, p90 {q(0.9) * 1e3:.3f}, min {walls[0] * 1e3:.3f}, max "
+          f"{walls[-1] * 1e3:.3f}; checkpoint saves {[round(w * 1e3, 1) for w in out['ckpt_walls']]} "
+          f"ms; launches {counts} ({run} x {train_launches(1, cfg.n_layers)}) [{card}]",
+          flush=True)
+    print(f"[examples] train_100m: nvidia-smi utilization.gpu over the run, {len(util)} samples, "
+          + (f"mean {statistics.mean(util):.1f} %: device idle share "
+             f"{1 - statistics.mean(util) / 100:.3f}" if util else "not measured")
+          + f"; one more step {bare * 1e3:.3f} ms unprofiled, kernels {dev_us / 1e3:.3f} ms: "
+          f"device idle share {1 - dev_us / (bare * 1e6):.3f}"
+          + "".join(f"; {g} {us / 1e3:.3f} ms ({kcounts[g]} kernels)"
+                    for g, us in sorted(groups.items(), key=lambda kv: -kv[1])) + f" [{card}]",
+          flush=True)
+    need(out["last_step"] + 1 == fl["steps"] and out["restarts"] == 1,
+         f"train_100m: {out['last_step'] + 1} steps, {out['restarts']} restarts")
+    need(all(np.isfinite(out["losses"])) and out["losses"][-1] < out["losses"][0],
+         f"train_100m: loss {out['losses'][0]} -> {out['losses'][-1]}")
+    need(counts == train_launches(run, fl["layers"]), f"train_100m: launches {counts}")
+    del out, params, opt, step, b
+    torch.cuda.empty_cache()
+
+    # serve_pipeline at one H100's group sizes
+    cfg = serve_pipeline.config()
+    p_cpu = init_params(SEED, cfg, device="cpu")
+    out, counts, wall = counted(torch, lambda: serve_pipeline.main([], params=on_card(p_cpu)))
+    add(counts)
+    cpu_tokens = Server(cfg, p_cpu, ServeConfig(max_len=ex["max_len"], batch_size=4),
+                        device="cpu").generate(serve_pipeline.prompts(cfg.vocab), steps=ex["gen"])
+    same = np.array_equal(out["tokens"], cpu_tokens)
+    want = {"rmsnorm": (2 * 2 + 1) * (1 + ex["gen"]), "flash_attention": 2,
+            "decode_attention": 2 * ex["gen"]}
+    print(f"[examples] serve_pipeline on the card: {wall:.1f} s in all; admitted "
+          f"{out['admitted']}/6, routes {out['routes']}; tokens {out['tokens'].shape} equal to "
+          f"the CPU's from the same params {same}; straggler-aware nodes {out['nodes']}; "
+          f"launches {counts} [{card}]", flush=True)
+    need(same, "serve_pipeline: the card's tokens differ from the CPU's")
+    need(out["nodes"] and 5 not in out["nodes"], f"serve_pipeline: nodes {out['nodes']}")
+    need({k: v for k, v in counts.items() if v} == want, f"serve_pipeline: launches {counts}")
+    return launches
 
 
 def mesh_phase(torch) -> dict:
@@ -4330,6 +4522,9 @@ def main() -> int:
     by_path["train hybrid"] = train_hybrid_phase(torch)
     torch.cuda.empty_cache()
     phase_done("train hybrid")
+    by_path["examples"] = examples_phase(torch)
+    torch.cuda.empty_cache()
+    phase_done("examples")
     by_path["dryrun"], held = dryrun_phase(torch)
     for rec in held:  # the kernels at the dry-run cells' shapes
         recs[rec["name"]].append(rec)

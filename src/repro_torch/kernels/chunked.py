@@ -74,7 +74,7 @@ def ssd_scan_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch
 
 
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
-                  f_gate: torch.Tensor, *, chunk: int = 256
+                  f_gate: torch.Tensor, *, chunk: int = 256, gather=None
                   ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Chunked mLSTM forward (prefill and training).
 
@@ -86,8 +86,16 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: tor
     max(max_t i_t, 0); the denominator is clamped at exp(-m).  Returns y
     (B,S,H,P) in q's dtype and (C (B,H,P_v,P_k), n (B,H,P), m (B,H)) in f32,
     C and n scaled by exp(-m) (the sequential form's invariant; C is in the
-    scan's (v, k) layout, which decode transposes)."""
+    scan's (v, k) layout, which decode transposes).
+
+    ``gather``, where q, k and v hold one slice of their head's P (a
+    sharded train step's cell, ``ops._mlstm_head_split``), makes a slice of
+    q or k whole, (.., c) -> (.., P): b is formed on k's slice, then b and q
+    are gathered for the scans, and y and C come out at v's slice."""
     B, S, H, P = q.shape
+    if gather is not None:
+        q = gather(q)
+        P = q.shape[-1]
     scale = P ** -0.5
     logf = F.logsigmoid(f_gate.float())                                       # <= 0
     li = i_gate.float()
@@ -95,6 +103,8 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: tor
     i_act = torch.exp(li - m)                                                 # (B,S,H)
     a = torch.exp(logf)                                                       # decay
     b = k.float() * scale * i_act[..., None]
+    if gather is not None:
+        b = gather(b)
     num, C = ssd_scan_chunked(v, a, b, q, chunk=chunk)                        # (B,S,H,P)
     ones = torch.ones((B, S, H, 1), dtype=torch.float32, device=q.device)
     den, n = ssd_scan_chunked(ones, a, b, q, chunk=chunk)                     # (B,S,H,1)

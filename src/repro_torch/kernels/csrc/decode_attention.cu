@@ -413,7 +413,8 @@ int dispatch_g(int g, const void* q, const void* kc, const void* vc, const int* 
 #undef DECODE_LAUNCH
 }
 
-// (DK, DV): (32,32), (64,64), (128,128), (120,120), (96,96) or MLA's (96,64).
+// (DK, DV): (32,32), (64,64), (128,128), (120,120), (96,96) or MLA's (96,64),
+// and in f32 only (16,16): the reduced configs' heads.
 template <typename T>
 int dispatch_d(int DK, int DV, int g, const void* q, const void* kc, const void* vc,
                const int* lens, int len_all, void* o, float* part, float* ml_out, int B,
@@ -428,6 +429,9 @@ int dispatch_d(int DK, int DV, int g, const void* q, const void* kc, const void*
   if (DK == 120 && DV == 120) return DECODE_DISPATCH(120, 120);
   if (DK == 96 && DV == 96) return DECODE_DISPATCH(96, 96);
   if (DK == 96 && DV == 64) return DECODE_DISPATCH(96, 64);
+  if constexpr (sizeof(T) == 4) {
+    if (DK == 16 && DV == 16) return DECODE_DISPATCH(16, 16);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 #undef DECODE_DISPATCH
 }

@@ -516,7 +516,8 @@ int launch_d(const Params& p, int dtype, cudaStream_t s) {
 
 // dtype: 0 = float32, 1 = bfloat16.  The output is contiguous (B,Sq,Hq,DV);
 // `lse`, where non-null, is f32 (B,Hq,Sq) contiguous.
-// (DK, DV) is one of (32,32), (64,64), (128,128), (120,120), (96,96) and (96,64).
+// (DK, DV) is one of (32,32), (64,64), (128,128), (120,120), (96,96) and (96,64),
+// and in f32 (16,16).
 // bf16 operands are read by 16-byte copies: their base pointers must be
 // 16-byte aligned and their (b, s, h) strides multiples of 8 elements.
 // Returns a cudaError_t.
@@ -547,6 +548,8 @@ extern "C" int flash_attention_fwd(
       case 128: return launch_d<128, 128>(p, dtype, s);
       case 120: return launch_d<120, 120>(p, dtype, s);
       case 96: return launch_d<96, 96>(p, dtype, s);
+      case 16:  // the reduced configs' heads, f32 only
+        return dtype == 0 ? f32::launch<16, 16>(p, s) : static_cast<int>(cudaErrorInvalidValue);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -1137,7 +1137,8 @@ int launch_d(const Params& p, int dtype, cudaStream_t s) {
 // dq, dk, dv contiguous in the inputs' shapes and dtype.  Launches, in order
 // on `stream`, (c) then (b) in bf16 and (a), (b), (c) in f32; dsum is D,
 // the f32 workspace they share.  (DK, DV) is one of (32,32), (64,64),
-// (128,128), (120,120), (96,96) and (96,64).  Returns a cudaError_t.
+// (128,128), (120,120), (96,96) and (96,64), and in f32 (16,16).  Returns a
+// cudaError_t.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const float* lse,
     const void* dO, void* dq, void* dk, void* dv, float* dsum,
@@ -1174,6 +1175,8 @@ extern "C" int flash_attention_bwd(
       case 128: return launch_d<128, 128>(p, dtype, s);
       case 120: return launch_d<120, 120>(p, dtype, s);
       case 96: return launch_d<96, 96>(p, dtype, s);
+      case 16:  // the reduced configs' heads, f32 only
+        return dtype == 0 ? f32::launch<16, 16>(p, s) : static_cast<int>(cudaErrorInvalidValue);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -36,6 +36,8 @@ from .ref import decode_attention as plain
 # (K head dim, V head dim) pairs (csrc: dispatch_d): the GQA models' (120:
 # h2o-danube3, 96: phi3-vision) and MLA's.
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (120, 120), (96, 96), (96, 64))
+# and in f32 only: the reduced configs' heads of 16
+F32_HEAD_DIMS = ((16, 16),)
 MAX_GROUP = 8      # query heads per KV head (csrc: kMaxGroup)
 GROUPS = (1, 2, 4, 5, 8)  # csrc: dispatch_g's instantiations; g is rounded up to one
 MAX_HELD = 96      # floats of q and acc a lane may hold (csrc: kMaxHeld)
@@ -118,8 +120,10 @@ def head_dims(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
                          f"cache {tuple(k_cache.shape)}")
     DV = v_cache.shape[-1]
-    if (DK, DV) not in HEAD_DIMS or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention: head dims (k {DK}, v {DV}) (in {HEAD_DIMS}) or "
+    f32_only = q.dtype == torch.float32 and (DK, DV) in F32_HEAD_DIMS
+    if ((DK, DV) not in HEAD_DIMS and not f32_only) or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention: head dims (k {DK}, v {DV}) (in {HEAD_DIMS}; "
+                         f"in f32 also {F32_HEAD_DIMS}) or "
                          f"group {Hq // Hkv} exceeds the kernel's {MAX_GROUP} query heads "
                          "per KV head")
     return DK, DV

@@ -45,6 +45,10 @@ from .ref import attention_bwd as plain_bwd
 # flash_attention_fwd's switch): the GQA models' (120: h2o-danube3, whose
 # bf16 tiles are padded to 128 in shared memory; 96: phi3-vision) and MLA's.
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (120, 120), (96, 96), (96, 64))
+# Pairs the f32 kernels alone are instantiated for, forward and backward:
+# the reduced configs' heads of 16 (the reference's examples train and serve
+# internlm2 cut to d 64 over 4 heads in f32).
+F32_HEAD_DIMS = ((16, 16),)
 # q, k, v, o, lse (null: none), B, Sq, Skv, Hq, Hkv, DK, DV, (b, s, h) strides
 # of q, k and v, scale, causal, window, kv_offset, dtype, stream
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 9
@@ -65,9 +69,10 @@ def head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, i
     _, Skv, Hkv, Dk = k.shape
     if k.shape[0] != B or Dk != DK or Hkv == 0 or Hq % Hkv or Skv == 0:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
-    if (DK, v.shape[-1]) not in HEAD_DIMS:
+    if (DK, v.shape[-1]) not in HEAD_DIMS and not (
+            q.dtype == torch.float32 and (DK, v.shape[-1]) in F32_HEAD_DIMS):
         raise ValueError(f"flash_attention: head dims (k {DK}, v {v.shape[-1]}) not in "
-                         f"{HEAD_DIMS}")
+                         f"{HEAD_DIMS} (nor, in f32, {F32_HEAD_DIMS})")
     return DK, v.shape[-1]
 
 

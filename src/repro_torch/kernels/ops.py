@@ -123,20 +123,25 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """The chunked SSD scan: y (B, S, H, P), plus ``x skip`` (``skip`` (H,),
     each head's skip weight, in y's dtype) where given, and, ``with_state``,
     the final state (B, H, P, N) (else None).  Under a mesh, on each rank's
-    batch and heads; a call that keeps no state from no h0 (the train
-    step's) whose heads share a factor with ``model`` runs in the
-    reference's head groups (``sharding.head_groups``), the skip term on each
-    rank's own piece, y returned as (B, S, H * P) with its features on
-    ``model``.  A call that keeps the state (prefill's and decode's, a cache
-    leaf laid out by heads or P) runs whole on ``model`` where the heads do
-    not divide it: a group's state would be a split of one mesh axis over
-    two of its dims."""
+    batch and heads; a call from no h0 whose heads share a factor with
+    ``model`` (``sharding.head_groups``) runs in the reference's head
+    groups, the skip term on each rank's own piece, y returned as (B, S,
+    H * P) with its features on ``model``: the train step's, and prefill's,
+    whose final state is then handed to the cache leaf's layout, P on
+    ``model`` (``_ssd_head_groups_state``).  A call from an h0 whose P lies
+    on ``model`` (decode's, the cache leaf so laid out) runs every head on
+    the rank's slice of P (``_ssd_by_p``): y[..., p] and h[..., p, :]
+    depend on x[..., p] alone."""
     fn = ssd_scan_chunked if plain else _ssd_scan
     if sharding.is_dtensor(x):
-        groups = (0 if with_state or h0 is not None
-                  else sharding.head_groups(x, x.shape[2], x.shape[3]))
-        if groups:
+        if h0 is not None and sharding.model_placement(h0) == Shard(2):
+            return _ssd_by_p(fn, x, a, b, c, h0, skip, chunk, with_state)
+        groups = 0 if h0 is not None else sharding.head_groups(x, x.shape[2], x.shape[3])
+        if groups and not with_state:
             return _ssd_head_groups(fn, x, a, b, c, skip, groups, chunk), None
+        m = sharding.mesh_sizes(x.device_mesh)[sharding.active_mesh()[1].model]
+        if groups and x.shape[3] % m == 0:  # the state by P, as its cache leaf lies
+            return _ssd_head_groups_state(fn, x, a, b, c, skip, groups, chunk)
         # x (B, S, H, P), a (B, S, H), b, c (B, S, H, N), h0 (B, H, P, N)
         seq, st = sharding.scan_placements(x)
         y, h = sharding.local_call(lambda *t: fn(*t, chunk=chunk), (x, a, b, c, h0),
@@ -207,29 +212,57 @@ def _mlstm_head_split(q, k, v, i_gate, f_gate, chunk):
     """q, k, v (B, S, H, P), gates (B, S, H), whole on ``model``: model rank
     r computes head r // w on columns (r % w) P / w .. of v, w =
     ``sharding.head_split`` ranks a head; y (B, S, H * P) with its features
-    on ``model`` (rank r's slice of the flattened heads is its own piece)."""
-    from torch.distributed.tensor import Replicate, Shard
+    on ``model`` (rank r's slice of the flattened heads is its own piece).
+    q and k lie as v does, each rank holding its P / w columns of its head
+    (xlstm-1.3B's train_4k on (16, 16): (B_r, S, 1, 256) of 1024, the
+    reference's layout), and are gathered whole over the head's w ranks
+    where the cell contracts over them (``_head_columns``), as the
+    reference's compiled cell all-gathers its b and c over each head's
+    ranks (``chunked.py:73``, ``:92``); their gradients come back as the
+    head's partial sums, reduced over its ranks in rank order."""
     B, S, H, P = q.shape
-    _, axes = sharding.active_mesh()
+    mesh, axes = sharding.active_mesh()
     ways = sharding.head_split(q, H)
     dat = sharding.data_placement(q)
     whole = sharding.axis_placements(q, dat, Replicate())
     feat = sharding.axis_placements(q, dat, Shard(2))
     rank = sharding.model_rank(q.device_mesh, axes)
+    m = sharding.mesh_sizes(mesh)[axes.model]
+    group = (mesh, mesh.mesh_dim_names.index(axes.model))
 
     def fn(q, k, v, i, f):
         h = rank // ways
         one = slice(h, h + 1)
-        y, _ = mlstm_chunked(q[:, :, one], k[:, :, one], v.reshape(*v.shape[:2], 1, P // ways),
-                             i[:, :, one], f[:, :, one], chunk=chunk)
+
+        def cut(t):
+            return t.reshape(*t.shape[:2], 1, P // ways)
+        y, _ = mlstm_chunked(cut(q), cut(k), cut(v), i[:, :, one], f[:, :, one], chunk=chunk,
+                             gather=lambda t: _head_columns(t, ways, rank, m, group))
         return y.reshape(*v.shape)
-    return sharding.local_call(fn, (q, k, v.reshape(B, S, H * P), i_gate, f_gate),
-                               (whole, whole, feat, whole, whole), feat, q.device_mesh)
+    return sharding.local_call(fn, tuple(t.reshape(B, S, H * P) for t in (q, k, v))
+                               + (i_gate, f_gate), (feat, feat, feat, whole, whole), feat,
+                               q.device_mesh)
 
 
-def _head_group_call(fn, ins: tuple, n_heads: int, width: int, groups: int):
+def _head_columns(t, ways: int, rank: int, m: int, group):
+    """t (.., c), model rank ``rank``'s slice of its head's last dim ->
+    (.., ways * c), the head's ``ways`` ranks' slices in rank order: one
+    all-to-all over ``model``, each rank sending its slice to its head's
+    ranks only.  The backward sends each rank the others' gradients of its
+    slice and sums the ``ways`` of them in rank order."""
+    import torch.distributed._functional_collectives as fc
+    first = rank // ways * ways
+    peers = [1 if first <= j < first + ways else 0 for j in range(m)]
+    out = t.unsqueeze(0).expand(ways, *t.shape).contiguous()
+    got = fc.all_to_all_single_autograd(out, peers, peers, group)      # (ways, .., c)
+    return got.movedim(0, -2).reshape(*t.shape[:-1], ways * t.shape[-1])
+
+
+def _head_group_call(fn, ins: tuple, n_heads: int, width: int, groups: int,
+                     replicated: int = 0):
     """``fn`` on model rank r's head group of ``ins`` (each (B, S, H_i, ..),
-    whole on ``model``, its heads cut into ``groups`` equal groups), group
+    whole on ``model``, its heads cut into ``groups`` equal groups; the last
+    ``replicated`` of them (1, 1, H_i) weights, whole on every rank), group
     r // w of the w = model // groups ranks a group; fn returns (B, S, H_0 /
     groups, width) for its group's ``n_heads / groups`` heads, and the rank
     keeps its piece, 1 / w of them flattened: (B, S, n_heads * width) with
@@ -247,7 +280,8 @@ def _head_group_call(fn, ins: tuple, n_heads: int, width: int, groups: int):
         y = fn(*(t[:, :, grp * (t.shape[2] // groups):(grp + 1) * (t.shape[2] // groups)]
                  for t in ts))
         return y.reshape(*y.shape[:2], -1)[..., piece * cols:(piece + 1) * cols]
-    return sharding.local_call(one, ins, (whole,) * len(ins), feat, mesh)
+    pls = (whole,) * (len(ins) - replicated) + (sharding.replicated(ins[0]),) * replicated
+    return sharding.local_call(one, ins, pls, feat, mesh)
 
 
 def _ssd_head_groups(fn, x, a, b, c, skip, groups, chunk):
@@ -258,7 +292,71 @@ def _ssd_head_groups(fn, x, a, b, c, skip, groups, chunk):
         y = fn(x, a, b, c, chunk=chunk)[0]
         return y + x * sk[0][..., None].to(y.dtype) if sk else y
     ins = (x, a, b, c) + (() if skip is None else (skip[None, None, :],))
-    return _head_group_call(one, ins, x.shape[2], x.shape[3], groups)
+    return _head_group_call(one, ins, x.shape[2], x.shape[3], groups,
+                            replicated=int(skip is not None))
+
+
+def _ssd_head_groups_state(fn, x, a, b, c, skip, groups, chunk):
+    """The SSD scan of x (B, S, H, P), a (B, S, H), b, c (B, S, H, N), whole on
+    ``model``, from no state, in head groups, keeping the final state:
+    y as ``_ssd_head_groups`` gives it, and the state (B, H, P, N) laid out
+    as the cache leaf lies (``sharding.cache_leaf_spec``: P on ``model``,
+    rank j its P / model columns of every head).  Model rank r = g w + i
+    (group g of k, piece i of the w = model / k ranks a group) holds its
+    group's whole state; one all-to-all over ``model`` hands rank j's
+    columns of group g from rank g w + j mod w, so each rank sends k
+    pieces and receives one a group, in the groups' order (prefill_32k on
+    (16, 16): 2 groups of 25 heads, the state (B_r, 25, 64, 16) a rank,
+    then (B_r, 50, 4, 16) in the cache)."""
+    import torch.distributed._functional_collectives as fc
+    mesh, axes = sharding.active_mesh()
+    m = sharding.mesh_sizes(mesh)[axes.model]
+    ways = m // groups
+    B, S, H, P = x.shape
+    hg, cp = H // groups, P // m
+    rank = sharding.model_rank(mesh, axes)
+    grp, piece = divmod(rank, ways)
+    cols = hg * P // ways
+    peers = [1 if j % ways == piece else 0 for j in range(m)]   # sent to and received from
+    group = (mesh, mesh.mesh_dim_names.index(axes.model))
+    dat = sharding.data_placement(x)
+    whole = sharding.axis_placements(x, dat, Replicate())
+    feat = sharding.axis_placements(x, dat, Shard(2))   # y's features; the state's P
+
+    def one(x, a, b, c, *sk):
+        own = slice(grp * hg, (grp + 1) * hg)
+        xs = x[:, :, own]
+        y, h = fn(xs, a[:, :, own], b[:, :, own], c[:, :, own], chunk=chunk)
+        if sk:
+            y = y + xs * sk[0][..., own, None].to(y.dtype)
+        y = y.reshape(*y.shape[:2], -1)[..., piece * cols:(piece + 1) * cols]
+        out = torch.stack([h[:, :, j * cp:(j + 1) * cp] for j in range(m) if peers[j]])
+        got = fc.wait_tensor(fc.all_to_all_single(out, peers, peers, group))
+        return y, got.transpose(0, 1).reshape(h.shape[0], H, cp, h.shape[3])
+    ins = (x, a, b, c) + (() if skip is None else (skip[None, None, :],))
+    pls = (whole,) * 4 + (() if skip is None else (sharding.replicated(x),))
+    return sharding.local_call(one, ins, pls, (feat, feat), mesh)
+
+
+def _ssd_by_p(fn, x, a, b, c, h0, skip, chunk, with_state):
+    """The SSD scan from h0 (B, H, P, N) whose P lies on ``model`` (the cache
+    leaf's layout): every head on the rank's slice of P, x cut the same way,
+    a, b and c whole (decode_32k on (16, 16): the state update at (B_r, 50,
+    4, 16) a rank).  The scan is exact column by column.  y is returned
+    whole on ``model``, its P gathered for the (B, S, H * P) view that
+    follows; the state stays in h0's layout."""
+    dat = sharding.data_placement(h0)
+    whole = sharding.axis_placements(x, dat, Replicate())
+    xp = sharding.axis_placements(x, dat, Shard(3))
+    st = list(h0.placements)
+
+    def one(x, a, b, c, h, *sk):
+        y, h = fn(x, a, b, c, h, chunk=chunk)
+        return (y + x * sk[0][..., None].to(y.dtype) if sk else y), h
+    ins = (x, a, b, c, h0) + (() if skip is None else (skip[None, None, :],))
+    pls = (xp, whole, whole, whole, st) + (() if skip is None else (sharding.replicated(x),))
+    y, h = sharding.local_call(one, ins, pls, (xp, st), x.device_mesh)
+    return y.redistribute(y.device_mesh, whole), h if with_state else None
 
 
 def _sharded_attention(fn, q, k, v, *, causal, window, scale, kv_offset):

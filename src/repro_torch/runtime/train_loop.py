@@ -29,6 +29,7 @@ from ..configs.base import ModelConfig
 from ..data import DataConfig, DataLoader
 from ..device import resolve_device
 from ..models import transformer
+from ..optim import tree_map
 from . import steps as steps_mod
 
 
@@ -68,9 +69,13 @@ def run(cfg: ModelConfig, tcfg: steps_mod.TrainConfig, lcfg: LoopConfig,
         on_straggler: Callable[[int], None] | None = None,
         params: Any = None, device: str | torch.device = "cuda") -> dict:
     """Train with auto-resume on ``device``.  Returns summary metrics, the
-    per-step walls among them.  ``fail_at(step)`` lets tests inject a crash;
-    ``run_with_restarts`` restarts the job as a cluster scheduler would.
-    ``params=None`` initialises from ``seed`` on ``device``."""
+    per-step walls and each checkpoint save's wall (the snapshot to the
+    host, after the previous write) among them.  ``fail_at(step)`` lets
+    tests inject a crash; ``run_with_restarts`` restarts the job as a
+    cluster scheduler would.  ``params=None`` initialises from ``seed`` on
+    ``device``; given ``params`` are copied, never trained in place, so a
+    restart before the first checkpoint starts from them again (the
+    reference's arrays are immutable)."""
     dev = resolve_device(device)
     mgr = CheckpointManager(lcfg.ckpt_dir, keep=lcfg.keep)
     ckpt = AsyncCheckpointer(mgr)
@@ -78,6 +83,8 @@ def run(cfg: ModelConfig, tcfg: steps_mod.TrainConfig, lcfg: LoopConfig,
 
     if params is None:
         params = transformer.init_params(seed, cfg, device=dev)
+    else:
+        params = tree_map(torch.clone, params)
     opt_state = steps_mod.init_opt_state(params, tcfg)
     start_step = 0
 
@@ -90,7 +97,13 @@ def run(cfg: ModelConfig, tcfg: steps_mod.TrainConfig, lcfg: LoopConfig,
     detector = StragglerDetector(lcfg)
     losses: list[float] = []
     walls: list[float] = []
+    saves: list[float] = []
     step = start_step
+
+    def save(step: int, extra: dict) -> None:
+        t0 = time.perf_counter()
+        ckpt.save(step, (params, opt_state), extra=extra)
+        saves.append(time.perf_counter() - t0)
     try:
         for step in range(start_step, lcfg.total_steps):
             batch = next(loader)
@@ -106,16 +119,13 @@ def run(cfg: ModelConfig, tcfg: steps_mod.TrainConfig, lcfg: LoopConfig,
                 on_straggler(step)
             losses.append(float(metrics["loss"]))
             if (step + 1) % lcfg.ckpt_every == 0:
-                ckpt.save(step, (params, opt_state),
-                          extra={"next_step": step + 1,
-                                 "loss": losses[-1]})
-        ckpt.save(lcfg.total_steps - 1, (params, opt_state),
-                  extra={"next_step": lcfg.total_steps,
-                         "loss": losses[-1] if losses else float("nan")})
+                save(step, {"next_step": step + 1, "loss": losses[-1]})
+        save(lcfg.total_steps - 1, {"next_step": lcfg.total_steps,
+                                    "loss": losses[-1] if losses else float("nan")})
     finally:
         ckpt.wait()
         loader.close()
-    return {"losses": losses, "walls": walls, "last_step": step,
+    return {"losses": losses, "walls": walls, "ckpt_walls": saves, "last_step": step,
             "straggler_events": detector.events,
             "params": params, "opt_state": opt_state}
 

@@ -12,9 +12,10 @@ partition tables of the program (its ``s32[devices]`` constants: an offset
 a device, the device's slice of a dim, e.g. which model ranks share a head
 group), from a dump of the compiled module with its large constants.
 
-The cell is lowered and compiled as ``repro.launch.dryrun.run_cell`` does
-(the production mesh on 512 forced host devices, the cell's
-``in_shardings``); ``--layers`` cuts the depth (the widths, the mesh and the
+The cell (a train, prefill or decode shape) is lowered and compiled as
+``repro.launch.dryrun.run_cell`` does (the production mesh on 512 forced
+host devices, the cell's ``in_shardings``, and a decode step's cache
+``out_shardings``); ``--layers`` cuts the depth (the widths, the mesh and the
 layout stay).  What a rank computes of a product is read from its shard
 shapes: a head dim whole on every rank of ``model`` where the port's
 dry-run finds a site at 16 x its share, or cut 16 ways.  A helper for the
@@ -91,13 +92,23 @@ def compiled_text(arch: str, shape_name: str, multi_pod: bool, layers: int | Non
     sh.set_active_mesh(mesh, mesh_axes(mesh))
     specs = D.input_specs(cfg, shape)
     shards = D.shardings_for(cfg, shape, mesh, specs)
-    if shape.kind != "train":
-        raise SystemExit("train cells only")
-    jitted = jax.jit(steps.make_train_step(cfg, steps.TrainConfig()),
-                     in_shardings=(shards["params"], shards["opt_state"], shards["batch"]),
-                     out_shardings=(shards["params"], shards["opt_state"], None),
-                     donate_argnums=(0, 1))
-    return jitted.lower(specs["params"], specs["opt_state"], specs["batch"]).compile().as_text()
+    if shape.kind == "train":
+        jitted = jax.jit(steps.make_train_step(cfg, steps.TrainConfig()),
+                         in_shardings=(shards["params"], shards["opt_state"], shards["batch"]),
+                         out_shardings=(shards["params"], shards["opt_state"], None),
+                         donate_argnums=(0, 1))
+        args = (specs["params"], specs["opt_state"], specs["batch"])
+    elif shape.kind == "prefill":
+        jitted = jax.jit(steps.make_prefill_step(cfg),
+                         in_shardings=(shards["params"], shards["batch"]))
+        args = (specs["params"], specs["batch"])
+    else:
+        jitted = jax.jit(steps.make_decode_step(cfg),
+                         in_shardings=(shards["params"], shards["tokens"], shards["cache"],
+                                       shards["pos"]),
+                         out_shardings=(None, shards["cache"]), donate_argnums=(2,))
+        args = (specs["params"], specs["tokens"], specs["cache"], specs["pos"])
+    return jitted.lower(*args).compile().as_text()
 
 
 def dots(text: str, files: tuple[str, ...]) -> dict:
@@ -148,9 +159,9 @@ def ops(text: str, files: tuple[str, ...]) -> dict:
 
 
 def partition_tables(dump: str, n_devices: int) -> list[str]:
-    """The distinct ``s32[n_devices]`` constants of the dumped train step's
+    """The distinct ``s32[n_devices]`` constants of the dumped step's
     optimised module, each as its values (the first 32)."""
-    files = sorted(pathlib.Path(dump).glob("*jit_train_step*after_optimizations.txt"))
+    files = sorted(pathlib.Path(dump).glob("*jit_*_step*after_optimizations.txt"))
     found = []
     pat = re.compile(rf"s32\[{n_devices}\]\{{0\}} constant\(\{{([0-9, ]*)\}}\)")
     for f in files:

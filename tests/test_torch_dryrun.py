@@ -605,6 +605,89 @@ def test_heads_that_divide_neither_model_nor_its_rows_run_in_the_references_grou
             key, 256 * rank[key] / step[key])
 
 
+def _scan_spy(monkeypatch) -> list:
+    """Each SSD kernel call's (x, h0, final state) local shapes, h0 None
+    where the call starts from no state."""
+    from repro_torch.kernels import ops
+    calls, real = [], ops._ssd_scan
+
+    def spy(x, a, b, c, h0=None, **kw):
+        y, h = real(x, a, b, c, h0, **kw)
+        calls.append((tuple(x.shape), None if h0 is None else tuple(h0.shape), tuple(h.shape)))
+        return y, h
+    monkeypatch.setattr(ops, "_ssd_scan", spy)
+    return calls
+
+
+def _placed_caches(monkeypatch) -> list:
+    """Rank 0's local shape and bytes of each cache leaf ``place_cache``
+    lays out, by layer and name."""
+    placed, real = [], TS.place_cache
+
+    def spy(cache, *a, **k):
+        out = real(cache, *a, **k)
+        placed.append([{n: (tuple(t.to_local().shape), t.to_local().nbytes)
+                        for n, t in layer.items()} for layer in out])
+        return out
+    monkeypatch.setattr(TS, "place_cache", spy)
+    return placed
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+def test_hymba_stateful_scans_run_in_the_references_layout(shape_name, monkeypatch,
+                                                           reference_layout):
+    """hymba-1.5B cut to 2 layers on a fake (16, 16) group, rank 0's program.
+    prefill_32k (32 sequences, 2 a rank): the scan runs the reference's head
+    group, x (2, 32768, 25, 64) and its final state (2, 25, 64, 16) a rank,
+    as its compiled prefill (``chunked.py:68-92``, 25 of the 50 heads, P
+    and N whole), and the state lies in the cache as the cache leaf does,
+    (2, 50, 4, 16): every head, P on ``model``.  decode_32k (128, 8 a rank):
+    the state update runs every head on the rank's 4 of P, x (8, 1, 50, 4),
+    the state (8, 50, 4, 16) in and out, the reference's compiled decode's
+    ``f32[8,50,4,16]`` (``chunked.py:82``) and its cache leaf byte for byte."""
+    cfg = dataclasses.replace(production_cfg(TC.get_config("hymba_1p5b")), n_layers=2)
+    shape = TC.SHAPES[shape_name]
+    calls = _scan_spy(monkeypatch)
+    placed = _placed_caches(monkeypatch)
+    D.trace(cfg, shape, shape.global_batch, mesh_name="single", mesh_device="cpu")
+    assert len(calls) == 2
+    if shape_name == "prefill_32k":
+        assert set(calls) == {((2, 32768, 25, 64), None, (2, 25, 64, 16))}
+        (layers,) = placed
+        assert [layer["ssm"] for layer in layers] == [((2, 50, 4, 16), 2 * 50 * 4 * 16 * 4)] * 2
+    else:
+        assert set(calls) == {((8, 1, 50, 4), (8, 50, 4, 16), (8, 50, 4, 16))}
+        shp, es = reference_layout["hymba_1p5b__decode_32k__single"]["cache/0/ssm"]
+        assert shp[1:] == [8, 50, 4, 16] and es == 4
+
+
+def test_xlstm_train_step_cuts_the_mlstm_cells_q_and_k(monkeypatch):
+    """xlstm-1.3B's widths cut to one period (8 layers) at 128 tokens, its
+    train_4k batch (256) on a fake (16, 16) group: rank 0's mLSTM cell
+    takes q and k at (16, S, 1, 256), its 256 of the head's 1024 columns, as
+    v, the reference's ``f32[16,4096,1,256]`` a rank, and gathers them whole
+    only where it contracts over them (b and q at (16, S, 1, 1024),
+    ``chunked.py:73``, ``:92``)."""
+    from repro_torch.kernels import chunked, ops
+    cfg = dataclasses.replace(production_cfg(TC.get_config("xlstm_1p3b")), n_layers=8)
+    shape = ShapeConfig("train_small", 128, 256, "train")
+    seen, gathered, real = [], [], chunked.mlstm_chunked
+
+    def spy(q, k, v, i, f, **kw):
+        seen.append(tuple(tuple(t.shape) for t in (q, k, v)))
+        g = kw.get("gather")
+
+        def whole(t):
+            out = g(t)
+            gathered.append(tuple(out.shape))
+            return out
+        return real(q, k, v, i, f, **{**kw, "gather": whole if g else None})
+    monkeypatch.setattr(ops, "mlstm_chunked", spy)
+    D.trace(cfg, shape, shape.global_batch, mesh_name="single", mesh_device="cpu")
+    assert seen and set(seen) == {((16, 128, 1, 256),) * 3}
+    assert set(gathered) == {(16, 128, 1, 1024)}
+
+
 def test_xlstm_train_step_keeps_the_mlstm_features_cut_on_model(monkeypatch):
     """Reduced xlstm (one period, d 128, 4 heads: d_inner 256) at batch 256 x
     64 tokens on a fake (16, 16) group, train: as the reference's compiled

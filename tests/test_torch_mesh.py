@@ -422,8 +422,9 @@ def test_mla_output_projection_takes_each_ranks_rows_of_wo(world, monkeypatch):
 def test_head_group_prefill_decode_and_cache_match_the_reference(case, group_world):
     """On the 1 x 4 mesh: prefill's and decode's logits and the cache after
     them within f32 1e-4 of the reference's jitted run under the mesh, on
-    every rank (minicpm3's attention in 2 groups of 11 heads; hymba's scan
-    keeps its state, whole on ``model``)."""
+    every rank (minicpm3's attention in 2 groups of 11 heads; hymba's
+    prefill scan in 2 groups of 3 heads, its state handed to the cache by P,
+    and its decode scan on every head at the rank's slice of P)."""
     cfg = torch_ranks.mesh_cfg(TC, torch_ranks.GROUP_CASES[case])
     period = len(cfg.block_pattern)
     for out in group_world["ranks"]:
@@ -435,6 +436,22 @@ def test_head_group_prefill_decode_and_cache_match_the_reference(case, group_wor
             l, leaf = key.split("/")[2:]
             ref_key = f"{case}/cache/{int(l) % period}" + ("" if leaf == "latent" else f"/{leaf}")
             _within(out[key], group_world["ref"][ref_key][int(l) // period])
+
+
+def test_head_group_scans_run_the_references_per_rank_shapes(group_world):
+    """hymba's 6 SSM heads of 64 (N 8) on the 1 x 4 mesh, batch 4 x 16: each
+    rank's prefill scan runs its group's 3 heads whole, from no state to
+    its group's final state (4, 3, 64, 8), which lies in the cache by P,
+    16 a rank, every head (the cache checks above hold its values); each
+    rank's decode scan runs all 6 heads on its 16 of P, the state (4, 6,
+    16, 8) in and out: the reference's compiled prefill_32k and decode_32k
+    on (16, 16) cut the same way."""
+    for out in group_world["ranks"]:
+        assert set(out["hymba/scan/prefill"]) == {"(4, 16, 3, 64)|None|(4, 3, 64, 8)"}
+        assert set(out["hymba/scan/decode"]) == {"(4, 1, 6, 16)|(4, 6, 16, 8)|(4, 6, 16, 8)"}
+        assert len(out["hymba/scan/prefill"]) == len(out["hymba/scan/decode"]) == 2
+        for l in range(2):
+            assert tuple(out[f"hymba/cache_local/{l}/ssm"]) == (4, 6, 16, 8)
 
 
 @pytest.mark.parametrize("case", list(torch_ranks.GROUP_TRAIN_CASES))

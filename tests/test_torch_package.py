@@ -60,7 +60,9 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.checkpointing, repro_torch.runtime.steps, "
             "repro_torch.runtime.train_loop, repro_torch.runtime.elastic, "
             "repro_torch.launch.train, repro_torch.parallel, repro_torch.parallel.collectives, "
-            "repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.kernels.cost\n"
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.kernels.cost, "
+            "repro_torch.launch.quickstart, repro_torch.launch.train_100m, "
+            "repro_torch.launch.serve_pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -270,6 +272,18 @@ def test_training_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         launch_train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
     assert not list(tmp_path.iterdir())  # nothing written before the refusal
+
+
+def test_example_entry_points_default_to_the_card():
+    """The reference examples' entry points (quickstart, train_100m,
+    serve_pipeline) run on the card unless asked for the CPU, and raise
+    where there is none, before they train, place or write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the card-less behaviour")
+    from repro_torch.launch import quickstart, serve_pipeline, train_100m
+    for main in (quickstart.main, train_100m.main, serve_pipeline.main):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main([])
 
 
 def test_kernels_refuse_gradients_they_cannot_carry():

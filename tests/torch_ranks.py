@@ -89,8 +89,9 @@ MESH_B, MESH_T, MESH_EXTRA = 4, 16, 4   # batch, prompt, cache slots past it
 # ranks 0-1 and 2-3): minicpm3's MLA at 22 heads of (96, 64) (22 x 96 > 2048,
 # so ``_row_shard`` does not take q's rows: the layout of its 40 heads on
 # 16 ranks) and hymba at d 192, 6 SSM heads of 64 and 3 attention heads of 64
-# (the kernels' head dim; the train step's scan in
-# groups of 3; prefill and decode keep the state, whole on model).
+# (the kernels' head dim; the train step's and prefill's scan in groups of
+# 3, prefill's state then laid out as its cache leaf, P on model; decode's
+# on every head at the rank's 16 of P).
 GROUP_MESH = (1, 4)
 GROUP_CASES = {"minicpm3": ("minicpm3_4b", dict(n_layers=2, d_model=64, n_heads=22,
                                                 mla=dict(qk_nope_head_dim=64, qk_rope_head_dim=32,
@@ -395,10 +396,27 @@ def case_groups(rank: int, world: int, inp: dict) -> dict:
     return out
 
 
+def _scan_calls() -> tuple[list, object]:
+    """(a list that each SSD kernel call on this rank appends its local
+    shapes to, "x|h0|state" with h0 None from no state; the kernel wrapper
+    to put back): ``ops._ssd_scan`` replaced by a spy."""
+    from repro_torch.kernels import ops
+    calls, real = [], ops._ssd_scan
+
+    def spy(x, a, b, c, h0=None, **kw):
+        y, h = real(x, a, b, c, h0, **kw)
+        calls.append(f"{tuple(x.shape)}|{None if h0 is None else tuple(h0.shape)}|"
+                     f"{tuple(h.shape)}")
+        return y, h
+    ops._ssd_scan = spy
+    return calls, real
+
+
 def _sharded_steps(mesh, serve_cases: dict, train_cases: dict, inp: dict, out: dict) -> None:
-    """Each serving case's prefill, decode, cache and constraint sites, and
-    each train case's loss, gradients, sites and a train step's placements,
-    on ``mesh``."""
+    """Each serving case's prefill, decode, cache and constraint sites (and
+    each SSD kernel call's local shapes), and each train case's loss,
+    gradients, sites and a train step's placements, on ``mesh``."""
+    from repro_torch.kernels import ops
     for name, case in serve_cases.items():
         cfg = mesh_cfg(C, case)
         params = from_jax_params(unflatten(inp, f"{name}/params"), cfg, device="cpu")
@@ -408,10 +426,18 @@ def _sharded_steps(mesh, serve_cases: dict, train_cases: dict, inp: dict, out: d
         nxt = sharding.place_batch({"t": torch.from_numpy(inp[f"{name}/next"])}, mesh)["t"]
         sharding.SITES = []
         with torch.no_grad():
-            logits, cache = transformer.prefill(dp, cfg, batch, max_len=MESH_T + MESH_EXTRA)
-            out[f"{name}/prefill"] = logits.full_tensor().numpy()
-            placed = [{k: tuple(map(str, v.placements)) for k, v in c.items()} for c in cache]
-            dl, cache = transformer.decode_step(dp, cfg, nxt, cache, MESH_T)
+            calls, real = _scan_calls()
+            try:
+                logits, cache = transformer.prefill(dp, cfg, batch, max_len=MESH_T + MESH_EXTRA)
+                out[f"{name}/scan/prefill"] = np.array(calls[:] or [""])
+                calls.clear()
+                out[f"{name}/prefill"] = logits.full_tensor().numpy()
+                placed = [{k: tuple(map(str, v.placements)) for k, v in c.items()}
+                          for c in cache]
+                dl, cache = transformer.decode_step(dp, cfg, nxt, cache, MESH_T)
+                out[f"{name}/scan/decode"] = np.array(calls[:] or [""])
+            finally:
+                ops._ssd_scan = real
             out[f"{name}/decode"] = dl.full_tensor().numpy()
             for l, c in enumerate(cache):
                 for k, v in c.items():
