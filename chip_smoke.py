@@ -127,12 +127,18 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                the loss on the rank's slice of the vocab, one AdamW step)
                and of hymba-1.5B prefill_32k (its scan in the reference's
                head groups, the state handed to the cache by P) and
-               decode_32k (the scan on every head at the rank's 4 of P) on
+               decode_32k (the scan on every head at the rank's 4 of P),
+               and of minicpm3-4B decode_32k (MLA: each rank expanding its
+               2,048 slots of the latent cache at all 40 heads, the ranks'
+               outputs merged) on
                the (16, 16) mesh at its local shapes: launches equal
                the dry-run's rank-0 trace, peak device memory its
                ``peak_memory_in_bytes`` within 2 % + 64 MiB; the
                compute-only wall is printed (the fake group moves no bytes,
-               so no value is held).
+               so no value is held).  Then rank 0's trace of xlstm's train
+               step cut to 8 layers and 512 tokens on a CUDA-typed fake
+               group against a CPU-typed one's under the card's all-to-all
+               (``dryrun._card_alltoall``): the same collectives, op for op.
   6. train   — xlstm-1.3B at full width: one pattern period's (8 layers)
                loss and gradient against plain f32, each path at 1.25 x a
                floor path's distance (``PERIOD_GATES``: the kernel path in
@@ -141,7 +147,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
                against a closed-form backward), and the period's forward
                and backward by kernel group under the profiler; then, with
                every launch count set to 0, the main path: full depth,
-               bf16, remat, three AdamW steps (exact forward and backward
+               bf16, remat, two AdamW steps (exact forward and backward
                rmsnorm launches, finite losses, the step walls, the device's
                idle share from ``nvidia-smi``'s utilization, peak memory);
                the reduced loop
@@ -355,8 +361,9 @@ for _path in PATHS.values():
 # forward runs each pattern group's 16 norms (norm1 in 8 layers, the inner
 # norm of 7 mLSTM and 1 sLSTM) and the final norm; the backward recomputes
 # the 6 groups (16 forward launches each again) and takes one backward
-# launch a norm.
-TRAIN = dict(B=2, S=1024, steps=3)
+# launch a norm.  Two steps: the launches are exact per step, and the
+# second step's wall is the warm one (each takes ~20-30 s, sLSTM-loop bound).
+TRAIN = dict(B=2, S=1024, steps=2)
 TRAIN_LAUNCHES = {"rmsnorm": TRAIN["steps"] * (2 * 6 * 16 + 1),
                   "rmsnorm_bwd": TRAIN["steps"] * (6 * 16 + 1), "flash_attention": 0,
                   "flash_attention_bwd": 0, "decode_attention": 0, "ssd_scan": 0,
@@ -569,7 +576,9 @@ def device_us(fns, calls: int = 30) -> dict:
     work counts.  The profiler on the card's machine has returned profiles
     with a few launches lost or left over from the profile before, which a
     mean over ``calls`` would misstate (those are printed), and profiles
-    with no device rows, which are taken again, at most twice more."""
+    with no device rows, which are taken again, at most twice more; after
+    three such, the calls are timed with CUDA events instead (launch gaps
+    included), under one key that says so."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -595,7 +604,16 @@ def device_us(fns, calls: int = 30) -> dict:
             return {k: statistics.median(v) * max(1, round(len(v) / calls))
                     for k, v in launches.items()}
         print(f"[profiler] no device time recorded (attempt {attempt + 1} of 3)", flush=True)
-    raise SmokeError("torch.profiler recorded no device time")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    us = start.elapsed_time(end) * 1e3 / calls
+    print(f"[profiler] no device time in three profiles: {us:.2f} us a call by CUDA events "
+          f"over {calls} calls, launch gaps included", flush=True)
+    return {"all kernels, CUDA events": us}
 
 
 def close(got, want, dtype_name: str, what: str, tol: float | None = None) -> float:
@@ -4096,7 +4114,7 @@ def parallel_phase(torch) -> dict:
 MESH = dict(archs=("internlm2_1p8b", "hymba_1p5b"), steps=16,
             cells=(("internlm2_1p8b", "prefill_32k"), ("internlm2_1p8b", "decode_32k"),
                    ("internlm2_1p8b", "train_4k"), ("hymba_1p5b", "prefill_32k"),
-                   ("hymba_1p5b", "decode_32k")))
+                   ("hymba_1p5b", "decode_32k"), ("minicpm3_4b", "decode_32k")))
 
 
 def examples_phase(torch) -> dict:
@@ -4238,6 +4256,7 @@ def mesh_phase(torch) -> dict:
     from repro_torch.data import DataConfig
     from repro_torch.data.pipeline import _batch_at
     from repro_torch.device import expandable_segments
+    from repro_torch.kernels import cost
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.models import init_params, transformer
@@ -4445,6 +4464,32 @@ def mesh_phase(torch) -> dict:
             torch.cuda.empty_cache()
     finally:
         expandable_segments(False)
+
+    # the dry-run counts a Shard -> Shard redistribution as the card runs it
+    # (one all-to-all) on a CPU-typed mesh too: rank 0's trace of a cut
+    # xlstm train step on a CUDA-typed fake group against the CPU-typed
+    # one's, collective for collective
+    cfg = dataclasses.replace(C.production_cfg(C.get_config("xlstm_1p3b")), n_layers=8)
+    shape = SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    logs = {"cuda": dryrun.trace(cfg, shape, shape.global_batch, 512, mesh_name="single",
+                                 mesh_device="cuda")["coll_log"]}
+    with dryrun._card_alltoall():
+        logs["card"] = dryrun.trace(cfg, shape, shape.global_batch, 512, mesh_name="single",
+                                    mesh_device="cpu")["coll_log"]
+    logs["gloo"] = dryrun.trace(cfg, shape, shape.global_batch, 512, mesh_name="single",
+                                mesh_device="cpu")["coll_log"]
+    weighted = {k: sum(cost.TRAFFIC_W[op] * b for op, b in log) for k, log in logs.items()}
+    a2a = {k: sum(op == "all-to-all" for op, _ in log) for k, log in logs.items()}
+    print(f"[mesh] xlstm train_4k cut to 8 layers and 512 tokens, rank 0 of (16, 16): the "
+          f"CUDA-typed trace's {len(logs['cuda'])} collectives ({a2a['cuda']} all-to-all, "
+          f"{weighted['cuda']:.4e} B weighted) equal the CPU-typed trace's with the card's "
+          f"all-to-all op for op: {logs['cuda'] == logs['card']} ({a2a['card']} all-to-all, "
+          f"{weighted['card']:.4e} B); gloo's program {a2a['gloo']} all-to-all, "
+          f"{weighted['gloo']:.4e} B; the traces {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    need(logs["cuda"] == logs["card"], "mesh: the CPU-typed trace's collectives differ from "
+         "the card's")
     return launches
 
 

@@ -140,13 +140,15 @@ _COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
                 "_reduce_scatter_base_": "reduce-scatter", "all_to_all_single": "all-to-all",
                 "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
                 "broadcast_": "collective-permute", "send": "collective-permute",
-                "recv_": "collective-permute"}
+                "recv_": "collective-permute",
+                # DTensor's Shard(i) -> Shard(j) on one mesh dim (NCCL's all-to-all)
+                "shard_dim_alltoall": "all-to-all"}
 
 
 def collective(func) -> str | None:
     """The reference's name of an aten collective op, or None."""
     ns = func.namespace
-    if ns not in ("_c10d_functional", "c10d"):
+    if ns not in ("_c10d_functional", "c10d", "_dtensor"):
         return None
     return _COLLECTIVES.get(func._opname)
 

@@ -17,7 +17,8 @@ group's heads, its piece of their flattened output), else replicated on
 ``model``;
 decode attention on its kv heads, or, over a cache sharded by sequence, on
 its slice of the slots, the ranks' outputs merged by their row max and sum
-(decode context parallelism); the scans on their batch and heads (a train
+(decode context parallelism; MLA's latent cache so, each rank expanding its
+own slots); the scans on their batch and heads (a train
 step's mLSTM cell, whose heads ``model`` does not divide, a head on several
 model ranks by v's columns; a call of the SSD scan that keeps no state in
 head groups, as attention).  Each wrapper sees plain tensors only.
@@ -55,6 +56,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if sharding.is_dtensor(q):
         return _sharded_decode(fn, q, k_cache, v_cache, cache_len, window=window, scale=scale)
     return fn(q, k_cache, v_cache, cache_len, window=window, scale=scale)
+
+
+def latent_decode_attention(q: torch.Tensor, latent: torch.Tensor, w: torch.Tensor,
+                            cache_len: torch.Tensor | int, expand, *, scale: float | None = None,
+                            plain: bool = False) -> torch.Tensor:
+    """Decode attention of q (B, Hq, D) over the k (B, Smax, Hq, D) and v
+    (B, Smax, Hq, Dv) that ``expand(latent, w)`` makes from a latent cache
+    (B, Smax, c) and a weight: MLA's, ``wkv_b`` not absorbed into q.  Under
+    a mesh whose ``model`` axis holds the latent's slots, each rank expands
+    its own slots with w whole and attends over them, the ranks' outputs
+    merged (``_own_slots``), as the reference's compiled decode does: no k
+    or v crosses a link.  Elsewhere k and v are expanded, then attended as
+    ``decode_attention`` lays them out."""
+    if sharding.is_dtensor(latent) and _slots_on_model(latent):
+        fn = ref.decode_attention if plain else _decode_attention
+        return _own_slots(fn, q, (latent, sharding.whole(w)),
+                          (list(latent.placements), sharding.replicated(w)), cache_len, expand,
+                          window=None, scale=scale)
+    k, v = expand(latent, w)
+    return decode_attention(q, k, v, cache_len, scale=scale, plain=plain)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
@@ -389,15 +410,21 @@ def _sharded_attention(fn, q, k, v, *, causal, window, scale, kv_offset):
               and Sq > 2 * window)
     if not banded:
         q5 = ref._row_shard(q5, Hkv, g, seq_dim=1)
-        if sharding.model_placement(q5) == Shard(1):  # rows on model: k and v whole on every rank
-            rows = list(q5.placements)
-            whole = sharding.replicated(q5)
+        if sharding.model_placement(q5) == Shard(1):
+            # rows on model, k and v whole there: each rank at its data rank's
+            # own sequences, q (which the row shard leaves whole over the
+            # data axes, as the reference's) among them, so k and v are
+            # gathered over model only
+            own = sharding.data_placement(k)
+            rows = sharding.axis_placements(q5, own, Shard(1))
+            kvp = sharding.axis_placements(k, own, Replicate())
 
             def by_rows(q5, k, v):
                 b, s, h, gl, d = q5.shape
                 off = kv_offset + sharding.model_rank(mesh) * s
                 return fn(q5.reshape(b, s, h * gl, d), k, v, kv_offset=off, **kw)
-            return sharding.local_call(by_rows, (q5, k, v), (rows, whole, whole), rows, mesh)
+            return sharding.local_call(by_rows, (sharding.narrowed(q5, rows), k, v),
+                                       (rows, kvp, kvp), rows, mesh)
         groups = sharding.head_groups(q, Hkv, g * v.shape[-1])
         if groups:  # each rank its kv head group's, the reference's layout
             return _head_group_call(lambda *t: fn(*t, kv_offset=kv_offset, **kw), (q, k, v),
@@ -412,24 +439,42 @@ def _sharded_decode(fn, q, k_cache, v_cache, cache_len, *, window, scale):
     ``sharding.cache_leaf_spec`` gives: kv heads on ``model`` (each rank its
     heads), the slots on ``model`` (each rank its slice, merged), or
     neither.  -> (B, Hq, Dv)."""
-    mesh, axes = sharding.active_mesh()
-    msize = sharding.mesh_sizes(mesh)[axes.model]
+    mesh = k_cache.device_mesh
     dat, cm = sharding.data_placement(k_cache), sharding.model_placement(k_cache)
     kw = dict(window=window, scale=scale)
     cpl = list(k_cache.placements)
-    if cm == Shard(1) and msize > 1:
-        qpl = sharding.axis_placements(q, dat, Replicate())
-        group = (mesh, mesh.mesh_dim_names.index(axes.model))
-
-        def ctx(q, kc, vc):
-            sl = kc.shape[1]
-            n = min(max(int(cache_len) - sharding.model_rank(mesh) * sl, 0), sl)
-            o, m, l = fn(q, kc, vc, n, return_ml=True, **kw)
-            return merge_partials(o, m, l, group)
-        return sharding.local_call(ctx, (q, k_cache, v_cache), (qpl, cpl, cpl), qpl, mesh)
+    if _slots_on_model(k_cache):
+        return _own_slots(fn, q, (k_cache, v_cache), (cpl, cpl), cache_len, lambda kc, vc: (kc, vc),
+                          **kw)
     qpl = sharding.axis_placements(q, dat, Shard(1) if cm == Shard(2) else Replicate())
     return sharding.local_call(lambda *t: fn(*t, cache_len, **kw), (q, k_cache, v_cache),
                                (qpl, cpl, cpl), qpl, mesh)
+
+
+def _slots_on_model(cache: torch.Tensor) -> bool:
+    """Whether a DTensor cache (B, Smax, ..) holds its slots on a ``model``
+    axis of more than one rank (decode context parallelism)."""
+    mesh, axes = sharding.active_mesh()
+    return (sharding.model_placement(cache) == Shard(1)
+            and sharding.mesh_sizes(mesh)[axes.model] > 1)
+
+
+def _own_slots(fn, q, ins: tuple, pls: tuple, cache_len, kv, *, window, scale):
+    """Decode attention of q (B, Hq, D), whole on ``model``, over caches
+    whose slots lie on ``model``: each rank makes its k and v from its own
+    slots (``kv`` of its local ``ins``, laid out by ``pls``), attends over
+    those of them below ``cache_len``, and the ranks' outputs are merged by
+    their row max and sum (``merge_partials``).  -> (B, Hq, Dv)."""
+    mesh, axes = sharding.active_mesh()
+    qpl = sharding.axis_placements(q, sharding.data_placement(ins[0]), Replicate())
+    group = (mesh, mesh.mesh_dim_names.index(axes.model))
+
+    def ctx(q, *local):
+        sl = local[0].shape[1]
+        n = min(max(int(cache_len) - sharding.model_rank(mesh) * sl, 0), sl)
+        o, m, l = fn(q, *kv(*local), n, return_ml=True, window=window, scale=scale)
+        return merge_partials(o, m, l, group)
+    return sharding.local_call(ctx, (q,) + ins, (qpl,) + pls, qpl, mesh)
 
 
 def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, group) -> torch.Tensor:

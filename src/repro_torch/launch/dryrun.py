@@ -47,7 +47,12 @@ two-group compiles; this trace runs every layer, so its counts are whole
 and no probe is needed.  The trace's mesh is a CUDA one where torch is
 built with CUDA (the card's program), else a CPU one: DTensor picks some
 collectives by the mesh's device type, and its program differs between
-torch versions, so a record names the torch that traced it.
+torch versions, so a record names the torch that traced it.  One of them
+is counted as the card's in either case: a Shard(i) -> Shard(j)
+redistribution, which DTensor sends through NCCL's all-to-all on a CUDA
+mesh but runs as gloo's all-gather and chunk on a CPU one, is traced on
+the CPU-typed mesh as the card runs it (``_card_alltoall``), one
+all-to-all of the rank's local bytes.
 Prefill and decode are traced under
 ``torch.inference_mode()``, as ``Server`` runs them, and train through
 ``steps.make_train_step``, the backward kernels' meta branches recording
@@ -67,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import pathlib
@@ -566,6 +572,28 @@ def _step(cfg: ModelConfig, shape: ShapeConfig, specs: dict) -> Any:
                                            specs["pos"])
 
 
+@contextlib.contextmanager
+def _card_alltoall():
+    """DTensor's Shard(i) -> Shard(j) redistribution through its all-to-all
+    op (``_dtensor.shard_dim_alltoall``, which the trace counts as one
+    all-to-all) on a mesh of any device type: on a CPU-typed mesh DTensor
+    would run gloo's fallback, an all-gather of ``model`` x the bytes and a
+    chunk, which the card's program does not."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+
+    def card(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, funcol._resolve_group_name((mesh, mesh_dim)))
+
+    gloo = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = card
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = gloo
+
+
 def trace(cfg: ModelConfig, shape: ShapeConfig, batch: int, seq: int | None = None,
           params: dict | None = None, mesh_name: str | None = None,
           mesh_device: str | None = None) -> dict:
@@ -576,8 +604,9 @@ def trace(cfg: ModelConfig, shape: ShapeConfig, batch: int, seq: int | None = No
     ``in_shardings`` (``sharded_inputs``): every count is rank 0's.  The
     mesh is of ``mesh_device``'s type (its shards are meta tensors either
     way): DTensor picks some collectives by it, so ``cuda`` traces the
-    card's program and ``cpu`` a gloo world's; by default ``cuda`` where this
-    torch is built with CUDA, else ``cpu``."""
+    card's program and ``cpu`` a gloo world's.  By default the card's
+    program: on a ``cuda`` mesh where this torch is built with CUDA, else on
+    a ``cpu`` one with the card's all-to-all (``_card_alltoall``)."""
     specs = input_specs(cfg, shape, batch, seq, params)
     if mesh_name is None:
         mode = Trace(specs)
@@ -587,9 +616,12 @@ def trace(cfg: ModelConfig, shape: ShapeConfig, batch: int, seq: int | None = No
         del out, specs
         return res
     sizes, axes = MESHES[mesh_name]
+    card = contextlib.nullcontext()
     if mesh_device is None:
         mesh_device = "cuda" if torch.backends.cuda.is_built() else "cpu"
-    with mesh_mod.fake_mesh(tuple(sizes.values()), tuple(sizes), mesh_device) as mesh:
+        if mesh_device == "cpu":
+            card = _card_alltoall()
+    with mesh_mod.fake_mesh(tuple(sizes.values()), tuple(sizes), mesh_device) as mesh, card:
         sharding.set_active_mesh(mesh, axes)
         try:
             # a serving step's inputs are made in inference mode, where it

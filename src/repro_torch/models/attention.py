@@ -230,16 +230,19 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: torch.Tensor, 
     current cache length.  Writes the new latent into slot ``pos`` in place,
     then re-expands k and v from the whole latent cache, as the reference
     does (``wkv_b`` is not absorbed into q), and attends over its first
-    pos + 1 slots.  Returns y."""
+    pos + 1 slots (``ops.latent_decode_attention``: under a mesh that holds
+    the slots on ``model``, each rank its own).  Returns y."""
     m = cfg.mla
     B = x.shape[0]
     positions = torch.arange(pos, pos + 1, device=x.device)
     q, _, _, latent = _mla_q_latent(p, cfg, x, positions, plain)
     write_slot(cache, latent[:, 0], pos)
-    c_kv, k_rope = torch.split(cache, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
-    k_all, v_all = _expand_kv(p, cfg, c_kv, k_rope)
-    y = ops.decode_attention(q[:, 0], k_all, v_all, pos + 1, scale=_mla_scale(cfg),
-                             plain=plain)
+
+    def expand(lat: torch.Tensor, w: torch.Tensor):
+        c_kv, k_rope = torch.split(lat, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+        return _expand_kv({"wkv_b": w}, cfg, c_kv, k_rope)
+    y = ops.latent_decode_attention(q[:, 0], cache, p["wkv_b"], pos + 1, expand,
+                                    scale=_mla_scale(cfg), plain=plain)
     return _out(p, y.reshape(B, 1, cfg.n_heads * m.v_head_dim), cfg.n_heads)
 
 

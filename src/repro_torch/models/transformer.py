@@ -149,9 +149,40 @@ def _embed_in(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums a repeated token's rows in
     # a fixed order on both devices (indexing's scatter-add does not on the
     # CPU), so a resumed training run repeats the uninterrupted one exactly
-    x = batch["embeds"] if "embeds" in batch else F.embedding(
-        batch["tokens"], sharding.whole(params["embed"]["table"]))
+    if "embeds" in batch:
+        x = batch["embeds"]
+    elif sharding.is_dtensor(params["embed"]["table"]):
+        x = _embed_sharded(batch["tokens"], params["embed"]["table"])
+    else:
+        x = F.embedding(batch["tokens"], params["embed"]["table"])
     return x.to(dtype_of(cfg.compute_dtype))
+
+
+def _embed_sharded(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The lookup under a mesh, as the reference's partitioner runs it where
+    the table (V, d) lies with its vocab on ``model``: the table gathered
+    over the data axes only, each rank looking its tokens up in its own
+    vocab slice (the other tokens' rows zero), the rows summed over
+    ``model`` (one all-reduce of (B, S, d), each row one rank's and exact).
+    The table's gradient stays on each rank's slice.  A table whose vocab
+    does not lie on ``model`` is gathered whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if sharding.model_placement(table) != Shard(0):
+        return F.embedding(tokens, sharding.whole(table))
+    mesh = table.device_mesh
+    own = sharding.data_placement(tokens)
+    rank = sharding.model_rank(mesh)
+
+    def lookup(tok: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+        idx = tok - rank * tab.shape[0]
+        inside = (idx >= 0) & (idx < tab.shape[0])
+        rows = F.embedding(torch.where(inside, idx, 0), tab)
+        return torch.where(inside[..., None], rows, 0)
+    x = sharding.local_call(lookup, (tokens, table),
+                            (sharding.axis_placements(tokens, own, Replicate()),
+                             sharding.axis_placements(table, Replicate(), Shard(0))),
+                            sharding.axis_placements(tokens, own, Partial()), mesh)
+    return x.redistribute(mesh, sharding.axis_placements(tokens, own, Replicate()))
 
 
 def _lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor, plain: bool,

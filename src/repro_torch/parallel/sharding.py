@@ -469,6 +469,29 @@ def own_layout_grad(x: torch.Tensor) -> torch.Tensor:
     return _OwnLayoutGrad.apply(x) if is_dtensor(x) else x
 
 
+class _NarrowedGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, placements):
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def narrowed(x: torch.Tensor, placements: list) -> torch.Tensor:
+    """DTensor ``x`` redistributed to ``placements`` that only cut what x
+    holds whole (a Replicate made a Shard: each rank slices its part, no
+    collective), its gradient handed back as it comes, in those placements,
+    for the node that made x to redistribute from there.  Redistributed
+    back to x's layout, the gradient would be gathered only to be moved
+    again at once: the row shard's q, whose batch the reference's
+    constraint replicates over the data axes and its attention slices
+    again, would gather its gradient over ``data``, then over ``model`` at
+    the global batch.  A plain tensor as it is."""
+    return _NarrowedGrad.apply(x, placements) if is_dtensor(x) else x
+
+
 def mean(x: torch.Tensor) -> torch.Tensor:
     """``x.mean()``; a DTensor's as each rank's mean of its shard weighted by
     its share of the elements (exactly 1 in a world of one), reduced to a

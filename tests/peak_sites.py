@@ -116,7 +116,7 @@ def main(argv=None) -> None:
         shape = dataclasses.replace(shape, seq_len=args.seq)
     D.Trace = LiveSites
     with torch.autograd.detect_anomaly(check_nan=False):
-        res = D.trace(cfg, shape, shape.global_batch, mesh_name=args.mesh, mesh_device="cpu")
+        res = D.trace(cfg, shape, shape.global_batch, mesh_name=args.mesh)
     by, n = collections.Counter(), collections.Counter()
     shapes: dict = collections.defaultdict(collections.Counter)
     for shp, dt, site, nb in LiveSites.last.at_peak:

@@ -715,18 +715,29 @@ def test_xlstm_train_step_keeps_the_mlstm_features_cut_on_model(monkeypatch):
 def test_partition_flops_are_the_steps_where_every_sharded_dim_divides(shape, mesh):
     """internlm2-1.8B's published cells, whose batch, rows, widths and vocab
     all divide the production mesh: the FLOPs of rank 0's program times the
-    chips equal the whole step's within 1 %, and its argument bytes are the
-    layout's (the reference's, 15,224,832 and 1,625,575,460 bytes a device
-    on (16, 16)).  Prefill on (2, 16, 16) does more: its 8 kv heads divide
+    chips equal the whole step's within 1 %, attention apart, and its
+    argument bytes are the layout's (the reference's, 15,224,832 and
+    1,625,575,460 bytes a device on (16, 16)).  Prefill's 8 kv heads divide
     neither model axis nor their group of 2, so ``_row_shard`` puts q's rows
-    on ``model`` with the batch whole on every data rank, as the reference's
-    constraint does, and rank 0 attends all 32 sequences' first 2,048 rows
-    (1.5 x the step's FLOPs over 512 chips)."""
+    on ``model``, and each rank attends its data rank's own sequences at its
+    rows, k and v gathered over ``model`` only: rank 0 the causal
+    attention's cheapest rows, the first 2,048, of its 2 (1 on (2, 16, 16))
+    of the 32 sequences, exactly ``cost.flash_attention``'s work there."""
     rec = D.run_cell("internlm2_1p8b", shape, mesh == "multi", save=False, verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
-    total = rec["flops_per_partition"] * rec["chips"]
-    over = 1.6 if (shape, mesh) == ("prefill_32k", "multi") else 1.01
-    assert rec["work"]["flops"] <= total <= over * rec["work"]["flops"]
+    by, step_by = rec["partition"]["flops_by"], rec["work"]["flops_by"]
+    rest = sum(v for k, v in by.items() if k != "flash_attention") * rec["chips"]
+    step_rest = sum(v for k, v in step_by.items() if k != "flash_attention")
+    assert step_rest <= rest <= 1.01 * step_rest
+    if shape == "prefill_32k":
+        cfg = production_cfg(TC.get_config("internlm2_1p8b"))
+        sizes, axes = D.MESHES[mesh]
+        S, m = TC.SHAPES[shape].seq_len, sizes[axes.model]
+        own = TC.SHAPES[shape].global_batch * m // rec["chips"]
+        attn = cost.flash_attention(own, S // m, S, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.hd, 2)
+        assert by["flash_attention"] == cfg.n_layers * attn.flops
+    else:
+        assert "flash_attention" not in by
     assert rec["memory"]["argument_size_in_bytes"] == rec["layout"]["argument_size_in_bytes"]
     if mesh == "single":
         assert rec["memory"]["argument_size_in_bytes"] == {
