@@ -20,8 +20,9 @@ its slice of the slots, the ranks' outputs merged by their row max and sum
 (decode context parallelism; MLA's latent cache so, each rank expanding its
 own slots); the scans on their batch and heads (a train
 step's mLSTM cell, whose heads ``model`` does not divide, a head on several
-model ranks by v's columns; a call of the SSD scan that keeps no state in
-head groups, as attention).  Each wrapper sees plain tensors only.
+model ranks by v's columns; decode's mLSTM cell on the rank's k rows of the
+state, where the cache holds them; a call of the SSD scan that keeps no
+state in head groups, as attention).  Each wrapper sees plain tensors only.
 """
 
 from __future__ import annotations
@@ -213,7 +214,12 @@ def mlstm_recurrent(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: t
                     f_gate: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor
                     ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """The sequential mLSTM cell (``ref.mlstm_scan``, decode's form; no
-    kernel on any device), on each rank's batch and heads under a mesh."""
+    kernel on any device), on each rank's batch and heads under a mesh; where
+    the state's k rows lie on ``model`` (the cache leaf's layout where the
+    heads do not divide the model axis), on each rank's rows of every head
+    (``_mlstm_by_rows``)."""
+    if sharding.is_dtensor(q) and _rows_on_model(c0, n0, m0):
+        return _mlstm_by_rows(q, k, v, i_gate, f_gate, c0, n0, m0)
     if sharding.is_dtensor(q):
         seq, st = sharding.scan_placements(q)
 
@@ -228,6 +234,47 @@ def mlstm_recurrent(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: t
 
 
 # --- the sharded forms ----------------------------------------------------------
+
+def _rows_on_model(c0, n0, m0) -> bool:
+    """Whether an mLSTM state (C (B, H, P, P), n (B, H, P), m (B, H)) lies
+    with k's rows on a ``model`` axis of more than one rank: C's and n's dim
+    2 there, m whole there."""
+    if not all(sharding.is_dtensor(t) for t in (c0, n0, m0)):
+        return False
+    mesh, axes = sharding.active_mesh()
+    return (sharding.mesh_sizes(mesh)[axes.model] > 1 and sharding.model_placement(c0) == Shard(2)
+            and sharding.model_placement(n0) == Shard(2)
+            and sharding.model_placement(m0) == Replicate())
+
+
+def _mlstm_by_rows(q, k, v, i_gate, f_gate, c0, n0, m0):
+    """The sequential mLSTM cell on a state whose k rows lie on ``model``
+    (``_rows_on_model``): each rank updates its rows of every head's C and n
+    where the cache holds them (C[h, r, :] <- f C + i k[r] v^T, from the
+    step's whole q, k, v and gates), m whole on every rank; the partial sums
+    C^T q and n^T q over its rows are added over ``model`` in one f32
+    all-reduce of (B, H, P + 1) a step, then normalised.  No collective
+    moves C (xlstm-1.3B's long_500k on (16, 16): 64 of 1024 rows a rank,
+    where gathering the state moved (1, 4, 1024, 1024) f32 a layer; the
+    reference gathers one head's).  y comes back whole on ``model``; C, n
+    and m in the cache's layout."""
+    import torch.distributed._functional_collectives as fc
+    mesh, axes = sharding.active_mesh()
+    dat = sharding.data_placement(c0)
+    whole = sharding.axis_placements(q, dat, Replicate())
+    st = [list(t.placements) for t in (c0, n0, m0)]
+    group = (mesh, mesh.mesh_dim_names.index(axes.model))
+    r = sharding.model_rank(mesh, axes)
+
+    def fn(q, k, v, i, f, c, n, m):
+        rows = slice(r * c.shape[2], (r + 1) * c.shape[2])
+        y, (c, n, m) = ref.mlstm_scan(q, k, v, i, f, c, n, m, rows=rows,
+                                      psum=lambda t: fc.all_reduce(t, "sum", group))
+        return y, c, n, m
+    y, C, n, mm = sharding.local_call(fn, (q, k, v, i_gate, f_gate, c0, n0, m0),
+                                      (whole,) * 5 + tuple(st), (whole, *st), mesh)
+    return y, (C, n, mm)
+
 
 def _mlstm_head_split(q, k, v, i_gate, f_gate, chunk):
     """q, k, v (B, S, H, P), gates (B, S, H), whole on ``model``: model rank

@@ -309,7 +309,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
                f_gate: torch.Tensor, c0: torch.Tensor | None = None,
-               n0: torch.Tensor | None = None, m0: torch.Tensor | None = None
+               n0: torch.Tensor | None = None, m0: torch.Tensor | None = None, *,
+               rows: slice | None = None, psum=None
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """The mLSTM (xLSTM matrix-memory cell), sequential and stabilised.
 
@@ -318,7 +319,13 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.
     y = C^T q / max(|n^T q|, exp(-m)), with the m-state log-stabiliser of
     the xLSTM paper (m0 defaults to -inf, as in the reference).  Returns y
     (B, S, H, P) in q's dtype and the final (C (B,H,P,P), n (B,H,P),
-    m (B,H)) in f32."""
+    m (B,H)) in f32.
+
+    ``rows``: c0 (B, H, R, P) and n0 (B, H, R) hold only those rows of k
+    (a rank's slice under a mesh), which the step updates as the whole
+    state's; C^T q and n^T q are then partial sums over k, which ``psum``
+    (their (B, H, P + 1) concatenation -> its sum over the ranks) completes
+    before the normaliser."""
     B, S, H, P = q.shape
     qf, kf, vf, i_f, f_f = (t.float() for t in (q, k, v, i_gate, f_gate))
     scale = P ** -0.5
@@ -335,12 +342,18 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.
         i_act = torch.exp(it - m_new)
         f_act = torch.exp(logf + m - m_new)
         kt = kt * scale
+        if rows is not None:
+            kt, qt = kt[..., rows], qt[..., rows]
         C = C * f_act[..., None, None] + i_act[..., None, None] * (
             kt[..., :, None] * vt[..., None, :])
         n = n * f_act[..., None] + i_act[..., None] * kt
         num = torch.einsum("bhpk,bhp->bhk", C, qt)
+        dot = torch.einsum("bhp,bhp->bh", n, qt)
+        if psum is not None:
+            both = psum(torch.cat([num, dot[..., None]], dim=-1))
+            num, dot = both[..., :P], both[..., P]
         # clamp at exp(-m): 1.0 in the unstabilised ("true") space
-        den = torch.maximum(torch.einsum("bhp,bhp->bh", n, qt).abs(), torch.exp(-m_new))
+        den = torch.maximum(dot.abs(), torch.exp(-m_new))
         ys.append(num / den[..., None])
         m = m_new
     return torch.stack(ys, dim=1).to(q.dtype), (C, n, m)

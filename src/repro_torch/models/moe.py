@@ -29,13 +29,18 @@ lays its (E, cap, d) buffers out at the reference's two constraint sites,
 before and after the experts: ``("model", "data", None)`` where E divides
 ``model`` (each rank its experts and its share of their slots), else
 ``(None, "data_model", None)`` (each rank its share of every expert's
-slots), the expert weights gathered over the data axes only.  ``einsum``
+slots), the expert weights gathered over the data axes only.  Where E lies
+on ``model`` and moving the buffer costs fewer bytes than the weights (a
+decode's few slots an expert), no expert weight moves: each rank runs the
+products on its own slice of d (:func:`_expert_ffn_by_d`).  ``einsum``
 takes the whole weights.  The expert-parallel path takes each rank's token
 rows and its own experts' weights, gathered over the data axes as the
 reference's ``shard_map`` body gathers them, and gives back its rows of y.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -138,17 +143,79 @@ def _moe_dtensor(p: dict, cfg: ModelConfig, x: torch.Tensor):
     if m.impl in ("scatter", "shard_map"):
         ep_ok = m.num_experts % mesh_sizes(mesh)[axes.model] == 0
         buf = ("model", "data", None) if ep_ok else (None, "data_model", None)
-        pe = {k: sharding.gathered(p[k]) for k in ("w_in", "w_gate", "w_out")}
 
         def ffn(xe: torch.Tensor) -> torch.Tensor:
             xe = sharding.site(sharding.replicated_like(xe, x), buf, "moe_buffer")
-            ye = sharding.site(_expert_ffn(pe, xe), buf, "moe_buffer")
+            cut = _d_cut(p, xe, axes) if ep_ok else ()
+            if cut:
+                ye = _expert_ffn_by_d(p, xe, cut)
+            else:
+                ye = _expert_ffn({k: sharding.gathered(p[k]) for k in ("w_in", "w_gate", "w_out")},
+                                 xe)
+            ye = sharding.site(ye, buf, "moe_buffer")
             return sharding.whole(ye).to_local()
         y, aux = _moe_scatter({"router": sharding.whole(p["router"]).to_local()}, cfg, x2, ffn)
     else:
         y, aux = _moe_einsum({k: sharding.whole(v).to_local() for k, v in p.items()}, cfg, x2)
     y = sharding.batch_layout(sharding.replicated_like(y.reshape(B, S, d), x))
     return y, sharding.replicated_like(aux, x)
+
+
+def _d_cut(p: dict, xe: torch.Tensor, axes) -> tuple[str, ...]:
+    """The data axes over which every expert weight's d lies cut (``w_in``'s
+    and ``w_gate``'s dim 1, ``w_out``'s dim 2), where they hold more than
+    one rank and the expert buffer xe (E, cap, d) moves fewer bytes than the
+    weights would: its products then run on each rank's slice of d
+    (``_expert_ffn_by_d``), moving xe's slots (gathered where they lie on
+    the data axes), the f32 partial products (an all-reduce, counted twice)
+    and the output's slices, cap (2 d s + 16 f) bytes an expert against the
+    three weights' 3 d f s (s the weights' bytes an element; llama4's
+    decode: cap 1 against 8192 x 5120).  Empty elsewhere."""
+    from torch.distributed.tensor import Shard
+    w_in, w_gate, w_out = (p[k] for k in ("w_in", "w_gate", "w_out"))
+    if not all(sharding.is_dtensor(w) for w in (w_in, w_gate, w_out)):
+        return ()
+    mesh = xe.device_mesh
+    names = mesh.mesh_dim_names
+
+    def on(w: torch.Tensor, dim: int) -> tuple[str, ...]:
+        return tuple(n for n, pl in zip(names, w.placements) if n in axes.dp and pl == Shard(dim))
+    cut = on(w_in, 1)
+    _, cap, d = xe.shape
+    f, s = w_in.shape[2], w_in.element_size()
+    if (not cut or on(w_gate, 1) != cut or on(w_out, 2) != cut
+            or math.prod(mesh_sizes(mesh)[n] for n in cut) == 1
+            or cap * (2 * d * s + 16 * f) >= 3 * d * f * s):
+        return ()
+    return cut
+
+
+def _expert_ffn_by_d(p: dict, xe: torch.Tensor, cut: tuple[str, ...]) -> torch.Tensor:
+    """xe (E, C, d), its experts on ``model`` -> (E, C, d), whole over the
+    data axes ``cut`` (``_d_cut``): each expert's SwiGLU with no expert
+    weight moved.  xe is taken whole over ``cut`` (its slots gathered where
+    they lie there).  The rank contracts its slice of xe's d with its own
+    rows of ``w_in`` and ``w_gate``; the partial products are summed over
+    ``cut`` in f32 (one all-reduce, both together) and rounded to the
+    compute dtype once, as the reference's compiled decode all-reduces its
+    (8, 1, 8192) partial products.  h times the rank's own columns of
+    ``w_out`` gives its slice of the output's d, gathered over ``cut`` (one
+    all-gather of (E, C, d / ranks)) where the reference gathers ``w_out``
+    whole.  The backward gives each weight shard its own gradient and every
+    rank xe's whole gradient."""
+    xe = sharding.gathered(xe)
+    group, _, _ = collectives.axis_group(xe.device_mesh, cut)
+    ws = (p["w_in"], p["w_gate"], p["w_out"])
+
+    def ffn(xe, w_in, w_gate, w_out):
+        xs = collectives.own_part(xe, 2, group).float()
+        up = torch.stack([torch.bmm(xs, w.float()) for w in (w_in, w_gate)])
+        a, g = collectives.all_reduce(up, group).to(xe.dtype).unbind(0)
+        # h is whole on every rank and meets each rank's own columns of w_out
+        h = collectives.fan_out(F.silu(g) * a, group)
+        return collectives.all_gather(torch.bmm(h, w_out), 2, group)
+    pls = tuple(list(t.placements) for t in (xe,) + ws)
+    return sharding.local_call(ffn, (xe,) + ws, pls, pls[0], xe.device_mesh)
 
 
 def _moe_einsum(p: dict, cfg: ModelConfig, x2: torch.Tensor):

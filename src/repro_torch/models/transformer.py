@@ -178,7 +178,7 @@ def _embed_sharded(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         inside = (idx >= 0) & (idx < tab.shape[0])
         rows = F.embedding(torch.where(inside, idx, 0), tab)
         return torch.where(inside[..., None], rows, 0)
-    x = sharding.local_call(lookup, (tokens, table),
+    x = sharding.local_call(lookup, (tokens, sharding.gathered(table)),
                             (sharding.axis_placements(tokens, own, Replicate()),
                              sharding.axis_placements(table, Replicate(), Shard(0))),
                             sharding.axis_placements(tokens, own, Partial()), mesh)

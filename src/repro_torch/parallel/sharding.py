@@ -41,7 +41,9 @@ on DTensors only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import re
 from collections.abc import Mapping
 from typing import Any
@@ -390,9 +392,73 @@ def site(x: torch.Tensor, names: tuple[str | None, ...], name: str) -> torch.Ten
     return x
 
 
-def _replicate_axes(x, names: set[str]):
+@contextlib.contextmanager
+def _axis_by_axis():
+    """DTensor's redistributions one mesh axis at a time: a torch that
+    merges consecutive collectives over a flattened mesh (where one exists)
+    is told not to, so a sum keeps the per-axis order."""
+    from torch.distributed.tensor import _redistribute as r
+    flag = getattr(r, "_DISABLE_REDISTRIBUTE_TRANSFORM_OPTIMIZATION", None)
+    if flag is None:
+        yield
+        return
+    r._DISABLE_REDISTRIBUTE_TRANSFORM_OPTIMIZATION = True
+    try:
+        yield
+    finally:
+        r._DISABLE_REDISTRIBUTE_TRANSFORM_OPTIMIZATION = flag
+
+
+class _FlatGather(torch.autograd.Function):
+    """DTensor x, one dim of which lies cut over several mesh axes, gathered
+    over them by one all-gather over their flattened group; its gradient
+    handed back by DTensor's redistribution to x's placements, axis by axis
+    (a pending sum reduce-scattered over each axis in turn), as the
+    two-step gather's backward runs it, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, dim, names, want):
+        import torch.distributed._functional_collectives as fc
+        from torch.distributed.tensor import DTensor
+        from . import collectives
+        mesh = x.device_mesh
+        ctx.placements = x.placements
+        group, _, _ = collectives.axis_group(mesh, names)
+        whole = fc.wait_tensor(fc.all_gather_tensor(x.to_local().contiguous(), dim, group))
+        return DTensor.from_local(whole, mesh, want, run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        with _axis_by_axis():
+            return g.redistribute(g.device_mesh, ctx.placements), None, None, None
+
+
+def _gather_flat(x, names: set[str]):
+    """x with a dim that lies cut over two or more of the mesh axes
+    ``names`` (a weight's d over (pod, data), FSDP's cut on the multi-pod
+    mesh) gathered there by one all-gather over their flattened group, where
+    DTensor would gather over each axis in turn (the pod's half, then the
+    whole: 1.5 x the bytes, two collectives); anything else as it is."""
+    from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
+    cut = [(n, p) for n, p in zip(mesh.mesh_dim_names, x.placements)
+           if n in names and type(p) is Shard]
+    if len(cut) < 2 or len({p.dim for _, p in cut}) > 1:
+        return x
+    dim = cut[0][1].dim
+    if x.shape[dim] % math.prod(mesh_sizes(mesh)[n] for n, _ in cut):
+        return x
+    cut_names = tuple(n for n, _ in cut)
+    want = [Replicate() if n in cut_names else p
+            for n, p in zip(mesh.mesh_dim_names, x.placements)]
+    return _FlatGather.apply(x, dim, cut_names, want)
+
+
+def _replicate_axes(x, names: set[str]):
     from torch.distributed.tensor import Replicate
+    x = _gather_flat(x, names)
+    mesh = x.device_mesh
     want = [Replicate() if n in names else p
             for n, p in zip(mesh.mesh_dim_names, x.placements)]
     return x if tuple(want) == tuple(x.placements) else x.redistribute(mesh, want)
@@ -400,8 +466,9 @@ def _replicate_axes(x, names: set[str]):
 
 def gathered(w: torch.Tensor) -> torch.Tensor:
     """A weight at its compute placement: a DTensor gathered over the data
-    axes (FSDP's all-gather before the product), its ``model`` placement
-    kept (column- or row-parallel); a plain tensor as it is."""
+    axes (FSDP's all-gather before the product; one over the flattened
+    (pod, data) group where both cut one dim), its ``model`` placement kept
+    (column- or row-parallel); a plain tensor as it is."""
     if not is_dtensor(w):
         return w
     _, axes = active_mesh()

@@ -748,17 +748,23 @@ def test_partition_flops_are_the_steps_where_every_sharded_dim_divides(shape, me
                                                   ("llama4_maverick_400b", 0)])
 def test_moe_decode_gathers_no_expert_weight_it_does_not_use(arch, whole_per_layer):
     """Rank 0's program of a published MoE's decode_32k on (16, 16) (the
-    scatter path: 4,096 tokens, under the expert path's threshold): the
-    experts are gathered over the data axes only, once a layer.  granite's
-    40 experts do not divide ``model``, so each of its three expert weights
-    comes whole to every rank, as in the reference; llama4's 128 lie 8 to a
-    column, and none comes whole."""
+    scatter path: 4,096 tokens, under the expert path's threshold), every
+    all-gather of an expert weight or of any piece its layout makes (its
+    model column's experts, its data rank's slice of d, or both) counted.
+    granite's 40 experts do not
+    divide ``model``, so each of its three expert weights comes whole to
+    every rank, as in the reference, and no other piece moves; llama4's 128
+    lie 8 to a column, each rank's d slice of them contracted where it lies
+    (the partial products summed over ``data``, the output's d slices
+    gathered), so no piece of an expert weight moves at all."""
     cfg = production_cfg(TC.get_config(arch))
     shape = TC.SHAPES["decode_32k"]
     whole = cfg.moe.num_experts * cfg.d_model * cfg.d_ff * 2
+    cols = (1, 16) if cfg.moe.num_experts % 16 == 0 else (1,)   # experts on model
+    pieces = {whole // (m * d) for m in cols for d in (1, 16)}
     res = D.trace(cfg, shape, shape.global_batch, mesh_name="single")
-    gathers = [b for op, b in res["coll_log"] if op == "all-gather"]
-    assert gathers.count(whole) == whole_per_layer * cfg.n_layers
+    gathers = [b for op, b in res["coll_log"] if op == "all-gather" and b in pieces]
+    assert gathers == [whole] * (whole_per_layer * cfg.n_layers)
 
 
 def test_xlstm_length_solve_equals_a_full_trace():

@@ -8,9 +8,10 @@ multiplied), every ``conditional`` branch and called computation, and
 refuses a loop with no known trip count; it is held here on hand-written
 HLO, then run on reduced cells of the reference in a JAX subprocess on 512
 forced host devices.  The port's dry-run trace of the same cells on a fake
-(16, 16) group (rank 0's program, the card's collectives: a Shard -> Shard
-redistribution as one all-to-all) moves no more than the limits below, and
-no cell all-gathers the whole embedding table.
+group of the cell's production mesh (rank 0's program, the card's
+collectives: a Shard -> Shard redistribution as one all-to-all) moves no
+more than the limits below, and no cell all-gathers the whole embedding
+table.
 """
 
 import contextlib
@@ -130,21 +131,33 @@ ENTRY %main (a: f32[4]) -> f32[4] {
 }
 """
 
-# reduced cells on (16, 16), each with the port's limit against the
-# reference's whole count: internlm2 (8 kv heads on 16 model ranks, so its
-# attention runs by rows, ``ref._row_shard``) and minicpm3's MLA decode
-LAYERS = 2
+# cells cut in depth, each with the port's limit against the reference's
+# whole count, on (16, 16) ("single") unless the key names "multi", (2, 16,
+# 16): internlm2 (8 kv heads on 16 model ranks, so its attention runs by
+# rows, ``ref._row_shard``), minicpm3's MLA decode, llama4's decode (its
+# experts' products on each rank's slice of d) and xlstm's long_500k (the
+# mLSTM's decode on each rank's k rows of the state), at 2 layers, xlstm at
+# one pattern period
+LAYERS = {"xlstm_1p3b": 8}
 LIMITS = {"internlm2_1p8b/decode_32k": 1.0, "internlm2_1p8b/prefill_32k": 1.25,
-          "internlm2_1p8b/train_4k": 1.25, "minicpm3_4b/decode_32k": 1.25}
+          "internlm2_1p8b/train_4k": 1.25, "minicpm3_4b/decode_32k": 1.25,
+          "llama4_maverick_400b/decode_32k": 1.25, "llama4_maverick_400b/decode_32k/multi": 1.25,
+          "xlstm_1p3b/long_500k": 1.25, "xlstm_1p3b/long_500k/multi": 1.25}
+
+
+def _cell(key: str) -> tuple[str, str, str, int]:
+    """A ``LIMITS`` key's (arch, shape, mesh, layers)."""
+    arch, shape, *mesh = key.split("/")
+    return arch, shape, mesh[0] if mesh else "single", LAYERS.get(arch, 2)
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The reference's whole counts: of the hand-written texts, and of the
-    reduced cells compiled on the single production mesh."""
+    cells cut in depth compiled on their production mesh."""
     tmp = tmp_path_factory.mktemp("links")
     job = {"texts": {"nested": NESTED, "branches": BRANCHES, "unknown": UNKNOWN},
-           "cells": [f"{cell}/single/{LAYERS}" for cell in LIMITS]}
+           "cells": ["/".join(map(str, _cell(key))) for key in LIMITS]}
     (tmp / "job.json").write_text(json.dumps(job))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
@@ -201,6 +214,37 @@ def test_shard_to_shard_redistribution_is_one_all_to_all_of_the_local_bytes():
     assert logs[False] == [("all-gather", 4 * 8 * 12 * 4)]
 
 
+def test_a_weight_cut_over_pod_and_data_is_gathered_in_one_all_gather():
+    """On a (2, 4, 2) fake (pod, data, model) mesh, ``sharding.gathered`` of
+    a weight (32, 24) whose rows lie on (pod, data) and columns on model is
+    traced as one all-gather over the flattened (pod, data) group, of the
+    rank's whole rows of its columns (32 x 12 f32); DTensor's own
+    redistribution gathers over data, then pod (the pod's half, then the
+    whole: 1.5 x the bytes)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.parallel import sharding
+    logs = {}
+    for kind in ("gathered", "redistribute"):
+        with M.fake_mesh((2, 4, 2), ("pod", "data", "model"), "cpu") as mesh:
+            sharding.set_active_mesh(mesh, sharding.MeshAxes(data=("pod", "data")))
+            try:
+                local = torch.empty(4, 12, device="meta")
+                w = DTensor.from_local(local, mesh, [Shard(0), Shard(0), Shard(1)],
+                                       run_check=False, shape=(32, 24), stride=(24, 1))
+                mode = D.Trace(w)
+                with mode:
+                    g = (sharding.gathered(w) if kind == "gathered" else
+                         w.redistribute(mesh, [Replicate(), Replicate(), Shard(1)]))
+            finally:
+                sharding.set_active_mesh(None)
+            assert tuple(g.to_local().shape) == (32, 12)
+            assert tuple(g.placements) == (Replicate(), Replicate(), Shard(1))
+            logs[kind] = mode.coll_log
+    assert logs["gathered"] == [("all-gather", 32 * 12 * 4)]
+    assert logs["redistribute"] == [("all-gather", 16 * 12 * 4), ("all-gather", 32 * 12 * 4)]
+
+
 def _cfg(arch: str, layers: int):
     cfg = production_cfg(TC.get_config(arch))
     return dataclasses.replace(cfg, n_layers=layers)
@@ -227,17 +271,18 @@ def test_no_decode_gathers_the_whole_embedding_table(arch):
 @pytest.mark.parametrize("cell", list(LIMITS))
 def test_reduced_cell_moves_no_more_than_the_references_whole_count(cell, reference):
     """The port's weighted link bytes a device of rank 0's program on a fake
-    (16, 16) group, at ``LAYERS`` layers, within ``LIMITS`` x the
-    reference's whole count of the same cell; no collective moves the whole
-    embedding table, and none the global batch's k (the row-sharded
-    attention gathers k and v over ``model`` only, at the data rank's own
-    sequences)."""
-    arch, shape_name = cell.split("/")
-    cfg, shape = _cfg(arch, LAYERS), SHAPES[shape_name]
-    res = D.trace(cfg, shape, shape.global_batch, mesh_name="single")
+    group of the cell's production mesh, cut in depth (``_cell``), within
+    ``LIMITS`` x the reference's whole count of the same cell; no collective
+    moves the whole embedding table, and none the global batch's k (the
+    row-sharded attention gathers k and v over ``model`` only, at the data
+    rank's own sequences)."""
+    arch, shape_name, mesh, layers = _cell(cell)
+    cfg, shape = _cfg(arch, layers), SHAPES[shape_name]
+    res = D.trace(cfg, shape, shape.global_batch, mesh_name=mesh)
     port = cost.collectives_record(res["collectives"],
                                    res["collectives"]["count"])["weighted_link_traffic"]
-    ref_whole = reference["cells"][f"{cell}/single/{LAYERS}"]["weighted_link_traffic"]
+    ref_whole = reference["cells"][f"{arch}/{shape_name}/{mesh}/{layers}"][
+        "weighted_link_traffic"]
     assert 0 < port <= LIMITS[cell] * ref_whole, (cell, port, ref_whole)
     assert _table_gathers(cfg, res) == []
     k_global = shape.global_batch * shape.seq_len * cfg.n_kv * cfg.hd * 2

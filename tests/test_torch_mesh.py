@@ -387,6 +387,44 @@ def test_gloo_collectives_equal_the_fake_groups_trace(case, kind, world, fake_tr
         v for k, v in res["collectives"].items() if k != "count")
 
 
+def test_decode_moves_no_expert_weight_and_no_mlstm_state(world):
+    """The gloo run's decode steps: granite at E 4 (its experts on model,
+    d cut over data, cap 2 slots an expert, which lie over data) runs its
+    experts' products on each rank's half of d: each MoE layer all-reduces
+    its (2, 2, 2, 128) f32 partial products, and no collective moves an
+    expert weight or a piece of one (the only all-gathers of such a size
+    are the embedding table's and the head's vocab slices, 65,536 B as a
+    (64, 128) piece is); the one-head xLSTM's cache holds C and
+    n by their k rows on model, each rank's (2, 1, 32, 64) and (2, 1, 32)
+    updated where they lie, so no collective moves C (an all-gather of its
+    size is a vocab slice's): each mLSTM layer adds its partial
+    C^T q and n^T q over model in one all-reduce of (2, 1, 65) f32.  The
+    values are held to the reference above."""
+    cfg = torch_ranks.mesh_cfg(TC, torch_ranks.MESH_CASES["granite_e4"])
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    pieces = {E * d * f * 4 // n for n in (1, 2, 4)}
+    vocab = [cfg.vocab_padded * d * 4 // 2] * 2          # the table's and the head's slices
+    cap = int(torch_ranks.MESH_B * cfg.moe.top_k * cfg.moe.capacity_factor / E)
+    xcfg = torch_ranks.mesh_cfg(TC, torch_ranks.MESH_CASES["xlstm_one_head"])
+    n_mlstm = xcfg.block_pattern.count("mlstm") * xcfg.n_layers // len(xcfg.block_pattern)
+    xvocab = [xcfg.vocab_padded * xcfg.d_model * 4 // 2] * 2
+    for out in world["ranks"]:
+        log = [(op, int(b)) for op, b in (str(s).split(":") for s in
+                                          out["granite_e4/coll/decode"])]
+        assert log.count(("all-reduce", 2 * E // 2 * cap * f * 4)) == cfg.n_layers
+        assert [b for op, b in log if op == "all-gather" and b in pieces] == [
+            b for b in vocab if b in pieces]
+        log = [(op, int(b)) for op, b in (str(s).split(":") for s in
+                                          out["xlstm_one_head/coll/decode"])]
+        assert log.count(("all-reduce", 2 * 65 * 4)) == n_mlstm
+        state = 2 * 64 * 64 * 4                          # C of the rank's batch
+        assert log.count(("all-gather", state)) == xvocab.count(state)
+        for l, kind in enumerate(xcfg.block_pattern * (xcfg.n_layers // len(xcfg.block_pattern))):
+            if kind == "mlstm":
+                assert tuple(out[f"xlstm_one_head/cache_local/{l}/C"]) == (2, 1, 32, 64)
+                assert tuple(out[f"xlstm_one_head/cache_local/{l}/n"]) == (2, 1, 32)
+
+
 def test_mla_output_projection_takes_each_ranks_rows_of_wo(world, monkeypatch):
     """minicpm3 reduced to 23 heads of (96, 64), which the 2 x 2 mesh's
     ``model`` axis does not divide and whose rows ``_row_shard`` does not
@@ -514,3 +552,67 @@ def test_head_groups_put_each_rank_on_its_groups_heads(case, site, kernel, monke
     step, _ = flops_by_site.by_site(cfg, shape, None)
     for key in (f"{site} [{kernel}]", f"{site} (backward) [{kernel}_bwd]"):
         assert step[key] > 0 and rank[key] * 2 == step[key], (key, rank[key], step[key])
+
+
+# ---------------------------------------------------------------------------
+# the multi-pod mesh's data axes: a 2 x 2 x 1 (pod, data, model) world
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pod_world(tmp_path_factory):
+    """The 4-rank gloo world of ``torch_ranks.case_pods``, from seeded numpy
+    inputs: a (8, 6) weight cut by rows over (pod, data) and the (16, 8)
+    rows it multiplies; a reduced llama4's MoE weights and its inputs."""
+    tmp = tmp_path_factory.mktemp("pods")
+    rng = np.random.default_rng(3)
+    cfg = torch_ranks.pod_moe_cfg()
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    arrays = {"pods/w": rng.standard_normal((8, 6), np.float32),
+              "pods/x": rng.standard_normal((16, 8), np.float32),
+              "pods/moe/router": rng.standard_normal((d, e), np.float32) * np.float32(d ** -0.5),
+              "pods/moe/w_in": rng.standard_normal((e, d, f), np.float32) * np.float32(d ** -0.5),
+              "pods/moe/w_gate": rng.standard_normal((e, d, f), np.float32) * np.float32(d ** -0.5),
+              "pods/moe/w_out": rng.standard_normal((e, f, d), np.float32) * np.float32(f ** -0.5)}
+    for name, (B, S) in torch_ranks.POD_MOE_CASES.items():
+        arrays[f"pods/moe/{name}/x"] = rng.standard_normal((B, S, d), np.float32)
+    inputs = tmp / "inputs.npz"
+    np.savez(inputs, **arrays)
+    return torch_ranks.collect(torch_ranks.spawn("pods", 4, inputs, tmp), tmp, "pods")
+
+
+def test_a_weight_cut_over_pod_and_data_is_gathered_in_one_collective(pod_world):
+    """``sharding.gathered`` on a weight whose rows lie on (pod, data): one
+    all-gather of the whole 192 bytes over the flattened group, where
+    DTensor gathers over data, then pod (the pod's half, 96 bytes, then the
+    whole); the value and the weight's gradient (a pending sum over both
+    axes, reduce-scattered axis by axis) equal the two-step form's bit for
+    bit on every rank."""
+    for out in pod_world:
+        assert [str(s) for s in out["pods/one/log"]] == ["all-gather:192"]
+        assert [str(s) for s in out["pods/two/log"]] == ["all-gather:96", "all-gather:192"]
+        for key in ("value", "grad"):
+            assert np.array_equal(out[f"pods/one/{key}"], out[f"pods/two/{key}"]), key
+
+
+@pytest.mark.parametrize("case", list(torch_ranks.POD_MOE_CASES))
+def test_moe_experts_run_on_each_ranks_slice_of_d(case, pod_world):
+    """A reduced llama4's MoE (8 experts, top 1) on the 2 x 2 x 1 mesh at a
+    decode's token count (cap 1) and a prefill's (cap 5), the scatter path's
+    buffers whole over (pod, data): y within f32 1e-4 and every gradient
+    within 1e-4 x max|g| of the whole-weight path on plain tensors, and no
+    collective moves an expert weight or a piece of one (the experts'
+    products on each rank's quarter of d: one f32 all-reduce of the two
+    input products, one all-gather of the output's slices)."""
+    cfg = torch_ranks.pod_moe_cfg()
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    weight_bytes = {e * d * f * 4 // n for n in (1, 2, 4)}
+    for out in pod_world:
+        pre = f"pods/moe/{case}"
+        _within(out[f"{pre}/dtensor/y"], out[f"{pre}/plain/y"])
+        keys = [k for k in out if k.startswith(f"{pre}/plain/grad/")]
+        assert len(keys) == 5
+        for key in keys:
+            want, got = out[key], out[key.replace("/plain/", "/dtensor/")]
+            assert np.abs(got - want).max() <= 1e-4 * max(np.abs(want).max(), 1e-30), key
+        log = [str(s).split(":") for s in out[f"{pre}/dtensor/log"]]
+        assert not [b for op, b in log if op == "all-gather" and int(b) in weight_bytes]

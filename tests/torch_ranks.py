@@ -15,6 +15,7 @@ Imports no jax.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pathlib
 import sys
@@ -71,7 +72,11 @@ MESH_CASES = {"internlm2": ("internlm2_1p8b", dict(n_layers=2, d_model=128), Non
               # xLSTM's serving path: the sLSTM loop a sequence a model rank
               # (``sharding.batch_rows``, its state so in the cache), the
               # mLSTM's y cut to w_out's rows
-              "xlstm": ("xlstm_1p3b", dict(n_layers=8, d_model=64), None)}
+              "xlstm": ("xlstm_1p3b", dict(n_layers=8, d_model=64), None),
+              # one mLSTM head, fewer than model's 2 ranks: the cache holds C
+              # and n by their k rows on model, and decode updates each
+              # rank's rows where they lie (``ops._mlstm_by_rows``)
+              "xlstm_one_head": ("xlstm_1p3b", dict(n_layers=8, d_model=32, n_heads=1), None)}
 # xlstm_one_head: one mLSTM head on the model axis of 2, so the train step's
 # cell runs the reference's layout (the head on both model ranks, each on
 # half of v's columns: ``ops.mlstm_scan``), and the sLSTM loop a sequence a
@@ -98,8 +103,11 @@ GROUP_CASES = {"minicpm3": ("minicpm3_4b", dict(n_layers=2, d_model=64, n_heads=
                                                          v_head_dim=64)), None),
                "hymba": ("hymba_1p5b", dict(n_layers=2, d_model=192, n_heads=3), None)}
 GROUP_TRAIN_CASES = GROUP_CASES
-# the cases whose collectives the gloo run counts beside the dry-run's trace
+# the cases whose collectives the gloo run counts beside the dry-run's trace;
+# and those whose decode step's collectives it counts alone (the MoE's
+# experts on each rank's slice of d, the mLSTM's state updated by k rows)
 COUNTED = ("internlm2", "row_shard", "hymba")
+DECODE_COUNTED = ("granite_e4", "xlstm_one_head")
 
 
 def mesh_cfg(configs, case: tuple):
@@ -396,6 +404,76 @@ def case_groups(rank: int, world: int, inp: dict) -> dict:
     return out
 
 
+# The multi-pod mesh's data axes, at 2 x 2 x 1 (pod, data, model): a weight
+# whose rows lie cut over (pod, data), gathered by ``sharding.gathered`` (one
+# all-gather over the flattened group) against DTensor's gather axis by axis;
+# and the MoE's scatter path at a decode's token count and a prefill's (cap 1
+# and 5, the buffers whole over the data axes), its experts' products on each
+# rank's slice of d, against the whole weights.
+POD_MESH = (2, 2, 1)
+POD_MOE_CASES = {"b4_s1": (4, 1), "b4_s8": (4, 8)}
+
+
+def pod_moe_cfg():
+    """A reduced llama4 whose MoE (8 experts, top 1) takes the scatter path
+    at any token count below the expert path's floor."""
+    base = C.get_config("llama4_maverick_400b").reduced()
+    return dataclasses.replace(base, moe=dataclasses.replace(base.moe, num_experts=8,
+                                                             impl="shard_map"))
+
+
+def case_pods(rank: int, world: int, inp: dict) -> dict:
+    """2 x 2 x 1 (pod, data, model): ``POD_MESH``'s two checks."""
+    mesh = init_device_mesh("cpu", POD_MESH, mesh_dim_names=("pod", "data", "model"))
+    axes = sharding.MeshAxes(data=("pod", "data"))
+    out: dict = {}
+    sharding.set_active_mesh(mesh, axes)
+    try:
+        rows = [Shard(0), Shard(0), Replicate()]
+        w, x = torch.from_numpy(inp["pods/w"]), torch.from_numpy(inp["pods/x"])
+        # the two-step form first, before a flattened group exists
+        for kind in ("two", "one"):
+            wd = distribute_tensor(w, mesh, rows).requires_grad_(True)
+            xd = distribute_tensor(x, mesh, rows)
+            counter = cost.collective_counter()
+            with (sharding._axis_by_axis() if kind == "two" else contextlib.nullcontext()):
+                with counter:
+                    wg = (wd.redistribute(mesh, [Replicate()] * 3) if kind == "two"
+                          else sharding.gathered(wd))
+                ((xd @ wg) ** 2).sum().full_tensor().backward()
+            out[f"pods/{kind}/value"] = wg.to_local().detach().numpy()
+            out[f"pods/{kind}/grad"] = wd.grad.to_local().numpy()
+            out[f"pods/{kind}/log"] = np.array([f"{op}:{b}" for op, b in counter.log])
+
+        cfg = pod_moe_cfg()
+        p = {k: torch.from_numpy(inp[f"pods/moe/{k}"]) for k in ("router", "w_in", "w_gate",
+                                                                 "w_out")}
+        for name in POD_MOE_CASES:
+            x = torch.from_numpy(inp[f"pods/moe/{name}/x"])
+            for kind in ("plain", "dtensor"):
+                if kind == "plain":
+                    pin, xin = dict(p), x
+                else:
+                    pin = sharding.shard_params({"moe": p}, mesh, sharding.param_pspecs(
+                        {"moe": p}, mesh, axes))["moe"]
+                    xin = sharding.place_batch({"x": x}, mesh, axes)["x"]
+                pin = {k: v.detach().requires_grad_(True) for k, v in pin.items()}
+                xin = xin.detach().requires_grad_(True)
+                counter = cost.collective_counter()
+                with counter:
+                    y, aux = moe.moe_apply(pin, cfg, xin)
+                y, aux = _full(y), _full(aux)
+                grads = torch.autograd.grad(y.sum() + aux, [*pin.values(), xin])
+                pre = f"pods/moe/{name}/{kind}"
+                out[f"{pre}/y"] = y.detach().numpy()
+                for k, g in zip([*pin, "x"], grads):
+                    out[f"{pre}/grad/{k}"] = _full(g).numpy()
+                out[f"{pre}/log"] = np.array([f"{op}:{b}" for op, b in counter.log])
+    finally:
+        sharding.set_active_mesh(None)
+    return out
+
+
 def _scan_calls() -> tuple[list, object]:
     """(a list that each SSD kernel call on this rank appends its local
     shapes to, "x|h0|state" with h0 None from no state; the kernel wrapper
@@ -450,6 +528,8 @@ def _sharded_steps(mesh, serve_cases: dict, train_cases: dict, inp: dict, out: d
         if name in COUNTED and serve_cases is MESH_CASES:
             for kind in ("prefill", "decode"):
                 out[f"{name}/coll/{kind}"] = _counted(cfg, params, kind, mesh)
+        elif name in DECODE_COUNTED and serve_cases is MESH_CASES:
+            out[f"{name}/coll/decode"] = _counted(cfg, params, "decode", mesh)
 
     for name, case in train_cases.items():
         cfg = mesh_cfg(C, case)
@@ -601,7 +681,8 @@ def collect(procs: list, tmp: pathlib.Path, case: str, timeout: float = 240) -> 
 
 
 CASES = {"parallel": case_parallel, "engine_ckpt": case_engine_ckpt, "mesh": case_mesh,
-         "groups": case_groups, "pipeline4": case_pipeline4, "pipeline2": case_pipeline2}
+         "groups": case_groups, "pods": case_pods, "pipeline4": case_pipeline4,
+         "pipeline2": case_pipeline2}
 
 
 def main() -> int:
