@@ -7,14 +7,17 @@ placement and swarm paths on one NVIDIA H100 and check them.
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. card    — print ``nvidia-smi`` name and power limit; fail with no card.
   2. build   — nvcc every kernel in ``src/repro_torch/kernels/csrc`` (in
-               parallel) into the gitignored ``_build`` directory; count the
-               tensor-core instructions (HMMA/HGMMA) of flash attention's bf16
-               instantiations (one per (K, V) head-dim pair, MLA's (96, 64)
-               and the padded (120, 120) among them) in ``cuobjdump
-               --dump-sass`` of the library, and require Hopper's (HGMMA,
-               no HMMA) in every bf16 dK/dV and dQ function of the
-               backward's library; each kernel function's
-               registers and spills from ``-Xptxas -v`` (``ptxas_report``).
+               parallel) into the gitignored ``_build`` directory; in
+               ``cuobjdump --dump-sass`` of the libraries require Hopper's
+               tensor-core instructions (HGMMA, no HMMA) in every bf16
+               forward instantiation of flash attention (one per (K, V)
+               head-dim pair, MLA's (96, 64) and the padded (120, 120) among
+               them) and every bf16 dK/dV and dQ function of the backward,
+               with their setmaxnreg counts; each kernel function's
+               registers and spills from ``-Xptxas -v`` (``ptxas_report``),
+               the bf16 forward's among them; the forward's launch plan as
+               the library computes it equal to the wrapper's
+               (``flash_attention.launch_plan``) at every head-dim pair.
   3. kernels — hold each hand-written kernel against its plain PyTorch
                version on the card, at the reference's test-sweep shapes
                (f32 and bf16) and at each serving path's shapes; time kernel,
@@ -69,9 +72,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   4. serve   — for each path, full-width bf16 with random weights from a
                seeded generator: ``Server.generate`` for batch 4 and 64 steps
                with the launch counts set to 0 just before and asserted
-               exactly just after; then prefill and teacher-forced decode on
-               the kernel path's own tokens against the plain path on the same
-               weights, within a stated tolerance.  Paths: internlm2-1.8B
+               exactly just after; then prefill and COMPARE_STEPS (16)
+               decode steps teacher-forced on the kernel path's own tokens
+               against the plain path on the same weights, within a stated
+               tolerance.  Paths: internlm2-1.8B
                (prompt 1024), hymba-1.5B's hybrid attention+SSM blocks
                (prompt 1536: past the 1024 window, so the window mask, a ring
                roll and decode wrapping the ring all run), minicpm3-4B's MLA
@@ -303,6 +307,9 @@ SCHEME_RTOL, SCHEME_ATOL = 2.0 ** -8, 2.0 ** -12
 
 SEED = 0
 STEPS = 64
+# Decode steps of each serve path's teacher-forced comparison against the
+# plain paths (the generate runs STEPS; its launches are counted over all).
+COMPARE_STEPS = 16
 # H100 SXM f64 peak outside the tensor cores (NVIDIA's data sheet: 34
 # TFLOP/s) for the DP sweep's bound; it counts an FMA as two operations, the
 # sweep's unfused multiply, adds and compares as one each.
@@ -660,7 +667,7 @@ def sweeps(torch, randn):
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunked import ssd_scan_chunked
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, key_tile
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssm_scan import ssd_scan
 
@@ -671,7 +678,7 @@ def sweeps(torch, randn):
                 (2, 128, 128, 4, 2, 64, False, None, 0), (1, 64, 64, 2, 2, 128, True, None, 0),
                 (1, 64, 64, 2, 1, 64, True, 8, 100), (1, 70, 70, 2, 1, 32, True, None, -5),
                 (1, 256, 256, 10, 2, 64, True, 64, 0),
-                # served head layouts at length (the cp.async ring, causal and
+                # served head layouts at length (the K and V rings, causal and
                 # window band skipping) and a ragged Sq
                 (1, 1024, 1024, 16, 8, 128, True, None, 0),
                 (1, 1536, 1536, 25, 5, 64, True, 1024, 0),
@@ -691,7 +698,8 @@ def sweeps(torch, randn):
             got = flash_attention(q, k, v, **kw)
             close(got, ref.attention(q, k, v, **kw), dt_name, what)
             if dt == torch.bfloat16:
-                scheme_close(got, ref.attention_bf16_scheme(q, k, v, **kw), what)
+                scheme_close(got, ref.attention_bf16_scheme(q, k, v, **kw, bk=key_tile(d, d)),
+                             what)
         for (b, smax, hq, hkv, d, ln) in [(2, 256, 4, 2, 64, 100), (3, 100, 6, 6, 32, 100),
                                           (2, 512, 8, 2, 128, 511), (1, 64, 4, 1, 64, 64),
                                           (2, 96, 4, 2, 64, 0), (2, 256, 25, 5, 64, 200),
@@ -965,7 +973,7 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | N
     ``dv`` (MLA's 64 beside 96: then v is a strided slice of a (.., hd + dv)
     product, as the model passes it), in ``dtype_name``."""
     from repro_torch.kernels import cost, ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, key_tile
     F = torch.nn.functional
     dt = getattr(torch, dtype_name)
     dv = hd if dv is None else dv
@@ -976,7 +984,8 @@ def flash_record(torch, randn, B, S, hq, hkv, hd, window, what: str, dv: int | N
     got = flash_attention(q, k, v, **kw)
     err = close(got, ref.attention(q, k, v, **kw), dtype_name, f"flash_attention {what}")
     if dt == torch.bfloat16:
-        scheme_close(got, ref.attention_bf16_scheme(q, k, v, **kw), f"flash_attention {what}")
+        scheme_close(got, ref.attention_bf16_scheme(q, k, v, **kw, bk=key_tile(hd, dv)),
+                     f"flash_attention {what}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     # the causal (and windowed) mask, for SDPA
     i = torch.arange(S, device="cuda")
@@ -1437,16 +1446,19 @@ def tensor_core_count() -> dict:
     """HMMA/HGMMA (tensor-core) and FFMA instructions per kernel function of
     the built flash-attention libraries, forward and backward, and of the
     SSD scan's backward, from ``cuobjdump --dump-sass``: every bf16 forward
-    function runs on the tensor cores, every bf16 dK/dV and dQ function of
-    the backward on Hopper's (HGMMA, no HMMA), and each of the SSD
+    function and every bf16 dK/dV and dQ function of the backward runs on
+    Hopper's tensor cores (HGMMA, no HMMA), each with its producer's and
+    consumers' setmaxnreg counts (USETMAXREG), and each of the SSD
     backward's 4 instantiations of its bf16 tile-pair and chunk-sum
     functions shows HMMA."""
     import collections
+    import re
     import shutil
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = shutil.which("cuobjdump") or str(pathlib.Path(build._nvcc()).parent / "cuobjdump")
     counts = collections.defaultdict(collections.Counter)
+    maxreg = collections.defaultdict(list)
     for src in ("flash_attention.cu", "flash_attention_bwd.cu", "ssm_scan_bwd_tc.cu"):
         lib = build._lib_path(build.CSRC / src)
         r = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
@@ -1460,21 +1472,24 @@ def tensor_core_count() -> dict:
                 for op in ("HGMMA", "HMMA", "FFMA"):
                     if f" {op}." in line or f" {op} " in line:
                         counts[fn][op] += 1
+                m = re.search(r"(USETMAXREG[^;]*);", line)
+                if m:
+                    maxreg[fn].append(" ".join(m.group(1).split()))
     bf16 = {f: c for f, c in counts.items() if "flash_fwd_bf16_kernel" in f}
     f32 = {f: c for f, c in counts.items() if "flash_fwd_f32_kernel" in f}
     bwd = {f: c for f, c in counts.items()
            if "flash_bwd_dkdv_bf16_kernel" in f or "flash_bwd_dq_bf16_kernel" in f}
-    n_tc = sum(c["HMMA"] + c["HGMMA"] for c in bf16.values())
-    print(f"[build] flash_attention bf16 instantiations: {len(bf16)} functions, {n_tc} "
-          f"tensor-core instructions (HMMA/HGMMA) by function "
-          f"{[c['HMMA'] + c['HGMMA'] for c in bf16.values()]}, FFMA "
-          f"{[c['FFMA'] for c in bf16.values()]}; f32 instantiations: HMMA "
+    print(f"[build] flash_attention bf16 forward: {len(bf16)} functions, HGMMA "
+          f"{[c['HGMMA'] for c in bf16.values()]}, HMMA {[c['HMMA'] for c in bf16.values()]}, "
+          f"FFMA {[c['FFMA'] for c in bf16.values()]}, setmaxnreg "
+          f"{[sorted(set(maxreg[f])) for f in bf16]}; f32 instantiations: HMMA "
           f"{[c['HMMA'] + c['HGMMA'] for c in f32.values()]}, FFMA "
           f"{[c['FFMA'] for c in f32.values()]}; flash_attention_bwd bf16 dK/dV and dQ: "
           f"{len(bwd)} functions, HGMMA {[c['HGMMA'] for c in bwd.values()]}, HMMA "
           f"{[c['HMMA'] for c in bwd.values()]}", flush=True)
-    need(len(bf16) == len(HEAD_DIMS) and all(c["HMMA"] + c["HGMMA"] > 0 for c in bf16.values()),
-         f"flash_attention bf16 instantiations without tensor-core instructions: {dict(bf16)}")
+    need(len(bf16) == len(HEAD_DIMS) and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                             for c in bf16.values()),
+         f"flash_attention bf16 forward functions without HGMMA, or with HMMA: {dict(bf16)}")
     need(len(bwd) == 2 * len(HEAD_DIMS)
          and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in bwd.values()),
          f"flash_attention_bwd bf16 functions without HGMMA, or with HMMA: {dict(bwd)}")
@@ -1485,8 +1500,26 @@ def tensor_core_count() -> dict:
           flush=True)
     need(len(ssd) == 8 and all(c["HMMA"] + c["HGMMA"] > 0 for c in ssd.values()),
          f"ssm_scan_bwd_tc bf16 functions without tensor-core instructions: {dict(ssd)}")
-    return {"hmma_bf16": n_tc, "hgmma_bwd_bf16": sum(c["HGMMA"] for c in bwd.values()),
+    return {"hgmma_fwd_bf16": sum(c["HGMMA"] for c in bf16.values()),
+            "hgmma_bwd_bf16": sum(c["HGMMA"] for c in bwd.values()),
             "hmma_ssd_bwd_bf16": sum(c["HMMA"] + c["HGMMA"] for c in ssd.values())}
+
+
+def flash_plans() -> None:
+    """The bf16 flash forward's launch plan as the built library computes it
+    (``flash_attention_fwd_plan``) against the wrapper's host plan, at every
+    instantiated head-dim pair: block rows, key tile, stages, shared bytes."""
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS, SMEM_LIMIT, device_plan,
+                                                     launch_plan)
+    for dk, dv in HEAD_DIMS:
+        host = launch_plan(1, 1, 1, dk, dv)
+        got = device_plan(dk, dv)
+        need(got == host[1:] and got[3] <= SMEM_LIMIT,
+             f"flash_attention ({dk}, {dv}): the library's plan {got} != the wrapper's "
+             f"{tuple(host[1:])} (or past {SMEM_LIMIT} shared bytes)")
+    print("[build] flash_attention bf16 plans (block rows, key tile, stages, shared bytes), "
+          "library = wrapper: " + "; ".join(f"{p} {device_plan(*p)}" for p in HEAD_DIMS),
+          flush=True)
 
 
 def ptxas_report() -> dict:
@@ -1528,11 +1561,19 @@ def ptxas_report() -> dict:
         short = re.sub(r"__nv_bfloat16", "bf16", short)
         table[short] = (regs, st, ld)
     shown = [k for k, (_, st, _) in table.items()
-             if st or "rmsnorm_bwd" in k or "dscale" in k
+             if st or "rmsnorm_bwd" in k or "dscale" in k or "flash_fwd_bf16" in k
              or re.search(r"(120, 120|96, 96)", k)]
     print(f"[build] ptxas, {len(table)} kernel functions; spilling or new: " + "; ".join(
         f"{k} {table[k][0]} regs" + (f", spill {table[k][1]}/{table[k][2]} B" if table[k][1]
                                      else "") for k in shown), flush=True)
+    fwd = {k: v for k, v in table.items() if "flash_fwd_bf16" in k}
+    print(f"[build] flash_attention bf16 forward (registers at launch, before setmaxnreg; "
+          f"spill store/load bytes): " + "; ".join(f"{k} {r} regs, spill {st}/{ld} B"
+                                                  for k, (r, st, ld) in fwd.items()), flush=True)
+    for stem, log in sorted(build.LOGS.items()):  # ptxas serialising wgmma says why
+        for line in log.splitlines():
+            if "wgmma" in line.lower():
+                print(f"[build] ptxas {stem}: {line.strip()}", flush=True)
     return table
 
 
@@ -1720,8 +1761,8 @@ def serve_phase(torch, arch: str) -> dict:
     need(out.shape == (B, STEPS) and out.dtype == np.int32
          and bool(((out >= 0) & (out < cfg.vocab)).all()), f"bad generated ids {out.shape}")
 
-    # Kernel path vs plain path on the same weights: prefill, then decode
-    # teacher-forced on the kernel path's own tokens.  The same two paths in
+    # Kernel path vs plain path on the same weights: prefill, then
+    # COMPARE_STEPS decode steps teacher-forced on the kernel path's own tokens.  The same two paths in
     # f32 on the same (upcast) weights are gated by F32_GATE.  Both bf16
     # paths are held against the plain f32 path: the kernel path's distance
     # is gated at BF16_FLOOR_RATIO times the plain path's, the noise floor.
@@ -1775,7 +1816,7 @@ def serve_phase(torch, arch: str) -> dict:
                 prefill_ms = (time.perf_counter() - t0) * 1e3
         compare(logits, "prefill")
         agree.append(logits["plain"].argmax(-1) == gen_ids[:, 0])
-        for i in range(STEPS):
+        for i in range(COMPARE_STEPS):
             tok = gen_ids[:, i:i + 1]
             for name in order:
                 _, decode, prm = paths[name]
@@ -1788,7 +1829,7 @@ def serve_phase(torch, arch: str) -> dict:
                 if name == "kernel":
                     dec_ms.append((time.perf_counter() - t0) * 1e3)
             compare(logits, f"decode step {i}")
-            if i + 1 < STEPS:
+            if i + 1 < COMPARE_STEPS:
                 agree.append(logits["plain"].argmax(-1) == gen_ids[:, i + 1])
     share = torch.cat(agree).float().mean().item()
     dec_med = statistics.median(dec_ms)
@@ -4543,6 +4584,7 @@ def main() -> int:
           + ("" if build_s > 0 else " (every library already built)"), flush=True)
     tensor_core_count()
     ptxas_report()
+    flash_plans()
     phase_done("build")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)

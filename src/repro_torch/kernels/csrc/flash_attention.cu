@@ -5,11 +5,7 @@
 //   The K head dim and the V head dim are separate template parameters:
 //   (32,32), (64,64), (128,128), (120,120) (h2o-danube3) and (96,96)
 //   (phi3-vision) for the GQA models, and MLA's (96,64) (minicpm3: q and k of
-//   qk_nope 64 + qk_rope 32, v of 64).  Q.K^T runs over DK, P.V over DV;
-//   nothing is padded to a common width.  The bf16 kernel pads a head dim
-//   that is not a multiple of 16 (120) to the next one in shared memory
-//   only: the pad columns are zero-filled there, Q.K^T takes one more k-step
-//   over them, P.V skips the pad's n-tile, and exactly DV columns are stored.
+//   qk_nope 64 + qk_rope 32, v of 64).  Q.K^T runs over DK, P.V over DV.
 //   Online softmax in f32; causal, sliding `window` and `kv_offset` masks;
 //   masked logits are -1e30 (not -inf) and the denominator is clamped at 1e-30,
 //   so a row with no valid key averages V exactly as the plain version does.
@@ -27,46 +23,56 @@
 //
 // Bound on the card: operations.  Causal prefill at B 4, S 1024, 16 heads of
 // 128 does ~17 GFLOP on ~50 MB, well above the H100's ~295 flop/byte ridge.
-// The first version did f32 FMAs on the CUDA cores (67 TFLOP/s peak), with
-// scalar loads widened into f32 shared memory and nothing overlapped: 0.9458
-// ms at that shape and 1.2195 ms at hymba's (B 4, S 1536, 25 heads of 64,
-// window 1024), 16.7x and 4.2x SDPA (PERF.md, the kernel table's earlier times).
+// The first version did f32 FMAs on the CUDA cores (0.9458 ms at that
+// shape, 16.7x SDPA); the second (PR 13) ran on Ampere's mma.sync m16n8k16
+// with ldmatrix and a cp.async ring, bound by mma.sync's rate, about half
+// of wgmma's (0.1154 ms, 99.23 device us, 2.1x SDPA; 298.4 ms at internlm2's
+// prefill_32k, 3.35x SDPA; PERF.md's kernel table).
 //
-// bf16 design (FA2-shaped, on the bf16 tensor cores):
-//   - A block of 4 warps owns 64 query rows of one (batch, q-head); each warp
-//     owns 16 rows.  The Q fragments stay in registers for the whole key loop.
-//   - S = Q.K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate), K fragments
-//     from shared memory by ldmatrix.  Q is fed as loaded (exact in bf16); the
-//     scale, with log2(e) folded in, is applied to S in f32 by the FFMA that
-//     forms each exp2 argument, s*scale*log2e - m*scale*log2e.
-//   - The online softmax runs in registers; row max and row sum reduce over
-//     the four lanes of a quad.  l is summed from the f32 p.  The O rescale is
-//     skipped when no row max of the warp moved.
-//   - P is reused in registers as the A operand of P.V: the m16n8 accumulator
-//     layout of two adjacent key tiles is m16n8k16's A layout.  It goes in as
-//     a bf16 high part and the bf16 of its remainder, two products, so P keeps
-//     ~16 bits: with P rounded once to bf16, internlm2's full-width logits
-//     reached the 2e-2 gate against the plain path (chip_smoke.py), with the
-//     split they stay near the distance the plain path itself has from f32.
-//     V fragments come from shared memory by ldmatrix.trans.
-//   - K and V tiles of 64 keys stay bf16 in shared memory, staged by 16-byte
-//     cp.async into a ring of kStages stages: tile j+1 loads while tile j
-//     computes, with one barrier per tile.  Rows are padded by 16 bytes so
-//     ldmatrix's eight row addresses fall in distinct banks.  Q is staged
-//     once through the last stage.
-//   - Key tiles the causal or window mask empties for the whole block are
-//     skipped, the heaviest causal query tiles are launched first, and only
-//     tiles that cross a mask edge evaluate the mask per element.
-// At 3 blocks (12 warps) per SM the kernel is bound by the tensor pipe's
-// mma.sync rate, about half the wgmma rate (PERF.md, Findings): the split P
-// costs ~15 %.  wgmma with TMA and warp specialisation is the next step.
+// bf16 design (Hopper's tensor cores through wgmma, tiles by TMA, warp-specialised):
+//   - A block owns 128 query rows of one (batch, query head): one producer
+//     warpgroup, its registers cut by setmaxnreg, beside two consumer
+//     warpgroups of 64 rows each (wgmma's M), their registers raised.
+//   - The producer's one thread TMA-loads Q once, then streams K and V tiles
+//     of BK keys (key_tile: 128, or 64 where v takes two panels) through two
+//     rings of kStages stages, one for K and one for V, K a tile ahead of V,
+//     each on full (TMA's bytes landed) and empty (every consumer warp done)
+//     mbarriers.  Tiles sit as TMA lays them out in the
+//     128-byte swizzle, 64-column panels; head dims 120 and 96 take two
+//     panels, TMA zero-filling the pad columns and the rows past Sq and Skv.
+//     It loads only the key tiles the block's masks leave (tile_range).
+//   - S = Q.K^T: wgmma, both operands in shared memory, K-major, N = BK,
+//     over ceil(DK / 16) k-steps (6 at 96: the pad panel's zero half is
+//     skipped).  A negative scale flips Q's signs in shared memory once.
+//     The scale, with log2(e) folded in, is applied to S in f32 by the
+//     FFMA that forms each exp2 argument, s*|scale|*log2e - m*|scale|*log2e;
+//     the online softmax runs in registers, its row max and sum reduced over
+//     a quad, l summed from the f32 p.  Only tiles that cross a mask edge or
+//     Skv evaluate the mask per element.
+//   - O += P.V: P is packed a k-step of 16 keys at a time as wgmma's register
+//     A operand, a bf16 high part and the bf16 of its remainder (two
+//     products, ~16 bits, as ref._split_bf16 defines them: P rounded once to
+//     bf16 missed internlm2's 2e-2 gate); V is read MN-major from shared
+//     memory at N = 64 x its panels, and DV columns are stored.
+//   - Overlap: each tile's S and the previous tile's P.V are two commit
+//     groups; wgmma_wait<1> lets this tile's softmax run while the tensor
+//     cores do the previous tile's P.V (the split P's 64 packed registers
+//     in flight, S and O fill the consumers' 240).  Its K stage is freed as
+//     soon as S lands, its V stage once its P.V has.  The two consumers
+//     take turns at issuing their products (named barriers), a tile a
+//     turn, so one's softmax also runs under the other's products.
+//   - Heaviest causal query tiles launch first; a consumer warpgroup whose
+//     rows need fewer key tiles than the block's passes the rest on.
 // The f32 instantiation keeps the first version's exact CUDA-core kernel: the f32 parity
 // sweep holds at 3e-5, which TF32 or bf16 products would not.
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -259,15 +265,15 @@ int launch(const Params& p, cudaStream_t stream) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16), cp.async ring, ldmatrix.
+// bf16 on Hopper's tensor cores: wgmma fed by TMA, warp-specialised blocks.
 
-namespace tc {
+namespace hop {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 2;       // K/V tiles in the cp.async ring
-constexpr int BQ = 16 * kWarps;  // query rows per block, 16 per warp
-constexpr int BK = 64;           // keys per tile
+using namespace hopper;  // the block shape, TMA, mbarriers, descriptors, wgmma
+using bf16 = __nv_bfloat16;
+
+constexpr int kStages = 2;                   // K tiles in their ring, V tiles in theirs
+constexpr int kBlockQ = kConsumers * kRows;  // query rows a block: 64 a consumer
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kAbsent = -__builtin_huge_valf();  // a key past Skv: exp2 gives 0
 // A masked logit, in unscaled units.  A power of two, so that its product with
@@ -275,240 +281,371 @@ constexpr float kAbsent = -__builtin_huge_valf();  // a key past Skv: exp2 gives
 // every key: the plain version's uniform softmax over -1e30.  With any valid
 // key in the row its weight is exp2(-huge) = 0, as exp(-1e30 - m) is in f32.
 constexpr float kMaskRaw = -0x1p100f;
-static_assert(BQ <= BK, "Q is staged through one stage's K buffer");
 
-// A K or V tile: BK rows at D's pitch (K rows take DK's, V rows DV's).
-template <int D> __host__ __device__ constexpr int tile_elems() { return BK * pitch<D>(); }
-// One stage: a K tile, then a V tile.
-template <int DK, int DV> __host__ __device__ constexpr int stage_elems() {
-  return tile_elems<DK>() + tile_elems<DV>();
-}
-// kStages stages of a K and a V tile.
-template <int DK, int DV> __host__ __device__ constexpr int smem_bytes() {
-  return kStages * stage_elems<DK, DV>() * 2;
+// Keys of a streamed K or V tile, S's N.  A consumer thread holds S (BK / 2
+// floats), P's two bf16 parts (BK / 2 registers) and O (32 x V's panels),
+// while S and P.V are in flight: 192 of its 240 registers at BK 128 and two
+// panels of V, which spilled (668 B) and ran 14-23 % slower than BK 64 on
+// an H100 (PERF.md, PR 32).  kernels/flash_attention.py::key_tile mirrors it.
+template <int DK, int DV> __host__ __device__ constexpr int key_tile() {
+  return panels<DV>() > 1 ? 64 : 128;
 }
 
-// Three blocks per SM where the padded dims pass (96,64)'s: (128,128) and
-// (120,120) take 168 registers, (96,96)'s 48 output accumulators would spill
-// at four blocks' 128.  Four blocks at (96,64) and below.
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads, padded<DK>() + padded<DV>() > 160 ? 3 : 4)
-flash_fwd_bf16_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  constexpr int PK = pitch<DK>(), PV = pitch<DV>(), TK = tile_elems<DK>(),
-                STAGE = stage_elems<DK, DV>();
-  constexpr int KSTEPS = padded<DK>() / 16;  // Q.K^T k-steps, the last over zero pad at 120
-  constexpr int NT = DV / 8;                 // P.V n-tiles of 8 output columns (15 at 120)
-  // Stage s holds K at smem + s*STAGE and V at smem + s*STAGE + TK.  Q is
-  // staged through the last stage's K tile, which the key loop fills first.
-  __nv_bfloat16* q_stage = smem + (kStages - 1) * STAGE;
+// Shared memory, in bytes from a 1024-aligned base: Q (the block's two row
+// boxes, each [panel]), kStages K tiles and kStages V tiles (each [panel],
+// a panel BK rows of 128 bytes, so a panel's rows run on for N = BK), then
+// the barriers (Q, K full and empty, V full and empty).  A launch asks for
+// 1024 bytes more, to align the base.
+template <int DK, int DV> struct Smem {
+  static constexpr int NPK = panels<DK>(), NPV = panels<DV>(), BK = key_tile<DK, DV>();
+  static constexpr int panel = BK * 128;
+  static constexpr int q = 0, k = q + kConsumers * NPK * kBox, v = k + kStages * NPK * panel,
+                       bars = v + kStages * NPV * panel, total = bars + (1 + 4 * kStages) * 8,
+                       launch = total + 1024;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
-  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
-  const int kvh = h / (p.Hq / p.Hkv);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+// The operands' TMA descriptors, kernel parameters (__grid_constant__).
+struct Maps {
+  CUtensorMap q, k, v;
+};
 
-  int kt_begin, kt_end;
-  tile_range(p, q0, BQ, BK, &kt_begin, &kt_end);
+// The ring's stage and phase parity of key tile kt (kt_begin the block's first).
+struct Slot {
+  int st, par;
+  __device__ __forceinline__ Slot(int kt, int kt_begin)
+      : st((kt - kt_begin) % kStages), par(((kt - kt_begin) / kStages) & 1) {}
+};
 
-  // Prologue: Q, then the first kStages - 1 K/V tiles, one cp.async group each.
-  load_rows<DK, kThreads>(q_stage, q, p.q_ss, q0, BQ, p.Sq, tid);
-  cp_async_commit();
+// The consumers' turns: named barrier 3 + w is consumer w's, which its 128
+// threads wait on and the other consumer's 128 arrive at (256 in all).
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(3 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - w) : "memory");
+}
+
+// This warp is done with a stage: its lane 0 arrives on the empty barrier,
+// by a predicated instruction rather than a branch (ptxas serialises the
+// wgmma in flight across a divergent path).
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(smem_addr(empty)), "r"(lane) : "memory");
+}
+
+// S = Q K^T for one tile, both operands K-major in shared memory; one
+// commit group.
+template <int BK, int KS>
+__device__ __forceinline__ void issue_s(float (&s)[BK / 2], const unsigned char* sQ,
+                                        const unsigned char* sK) {
+  const uint64_t a = kmajor(sQ, 0), b = kmajor(sK, 0, BK * 128);
+  wgmma_fence();
   #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (kt_begin + i < kt_end) {
-      load_rows<DK, kThreads>(smem + i * STAGE, k, p.k_ss, (kt_begin + i) * BK, BK, p.Skv,
-                              tid);
-      load_rows<DV, kThreads>(smem + i * STAGE + TK, v, p.v_ss, (kt_begin + i) * BK, BK,
-                              p.Skv, tid);
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_ss<BK>(s, a + kmajor_step(ks), b + kmajor_step(ks, BK * 128), ks);
+  wgmma_commit();
+}
+
+// The online softmax of one tile of S (keys k0 ..) over this thread's two
+// rows: masks, the rows' new max m (unscaled) and sum l, S turned into P in
+// f32, and each row's rescale alpha of what was summed before.  qw0 is the
+// warpgroup's first row; qpos the rows' absolute positions.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const Params& p, int qw0,
+                                             int k0, const int (&qpos)[2], int lane,
+                                             float sl2) {
+  if (!whole_tile(p, qw0, kRows, k0, BK)) {  // mask only tiles that cross an edge or Skv
+    #pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int kpos = k0 + (i >> 2) * 8 + ((lane & 3) << 1) + (i & 1);
+      // Keys past Skv do not exist (weight 0).
+      s[i] = kpos >= p.Skv ? kAbsent : (key_valid(p, kpos, qpos[(i >> 1) & 1]) ? s[i] : kMaskRaw);
     }
-    cp_async_commit();
   }
-  cp_async_wait<kStages - 1>();  // Q has landed (groups complete in order)
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {  // over the quad's BK columns of each row
+    float mx = m[r];
+    #pragma unroll
+    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    alpha[r] = fast_exp2((m[r] - mx) * sl2);
+    const float mx_s = mx * sl2;
+    m[r] = mx;
+    float rs = 0.f;
+    #pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = fast_exp2(fmaf(s[4 * j + 2 * r], sl2, -mx_s));
+      const float p1 = fast_exp2(fmaf(s[4 * j + 2 * r + 1], sl2, -mx_s));
+      s[4 * j + 2 * r] = p0;
+      s[4 * j + 2 * r + 1] = p1;
+      rs += p0 + p1;
+    }
+    l[r] = l[r] * alpha[r] + rs;  // this thread's partial row sum, from the f32 p
+  }
+}
+
+// P as the next P.V's A operand: a bf16 high part and the bf16 of its
+// remainder a k-step of 16 keys (entries 8kq .. 8kq + 7: n-tiles 2kq, 2kq + 1).
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2], unsigned (&ph)[BK / 16][4],
+                                       unsigned (&pl)[BK / 16][4]) {
+  #pragma unroll
+  for (int kq = 0; kq < BK / 16; ++kq) {
+    const float* x = s + 8 * kq;
+    split_bf16(x[0], x[1], ph[kq][0], pl[kq][0]);
+    split_bf16(x[2], x[3], ph[kq][1], pl[kq][1]);
+    split_bf16(x[4], x[5], ph[kq][2], pl[kq][2]);
+    split_bf16(x[6], x[7], ph[kq][3], pl[kq][3]);
+  }
+}
+
+// O += P V for one tile, P from its high and low bf16 parts in registers, V
+// MN-major from its stage; one commit group.
+template <int NV, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[NV / 2], const unsigned (&ph)[BK / 16][4],
+                                         const unsigned (&pl)[BK / 16][4],
+                                         const unsigned char* sV) {
+  const uint64_t b = mnmajor(sV, 0, BK * 128);
+  wgmma_fence();
+  #pragma unroll
+  for (int kq = 0; kq < BK / 16; ++kq) {
+    wgmma_rs<NV>(o, ph[kq], b + mnmajor_step(kq));
+    wgmma_rs<NV>(o, pl[kq], b + mnmajor_step(kq));
+  }
+  wgmma_commit();
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
+  using L = Smem<DK, DV>;
+  constexpr int NPK = L::NPK, NPV = L::NPV, BK = L::BK, PANEL = L::panel;
+  constexpr int KS = (DK + 15) / 16;  // Q.K^T's k-steps; past DK only zero pad
+  constexpr int NV = 64 * NPV;        // P.V's N; DV columns are stored
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full_k = q_bar + 1;
+  uint64_t* empty_k = full_k + kStages;
+  uint64_t* full_v = empty_k + kStages;
+  uint64_t* empty_v = full_v + kStages;
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // heaviest causal tiles first
+  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq, kvh = h / (p.Hq / p.Hkv);
+  int kt_begin, kt_end;  // the key tiles any of the block's rows visits
+  tile_range(p, q0, kBlockQ, BK, &kt_begin, &kt_end);
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_k + s, 4 * kConsumers);  // each consumer warp
+      mbar_init(empty_v + s, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // A fragments of the warp's 16 rows: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15).
-  unsigned qf[KSTEPS][4];
-  {
-    const int row = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-    const int col = (lane >> 4) << 3;
-    const unsigned sign = p.scale < 0.f ? 0x80008000u : 0u;  // -q.k |scale| = q.k scale
-    #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      ldsm_x4(qf[kk], smem_addr(q_stage + row * PK + kk * 16 + col));
-      #pragma unroll
-      for (int i = 0; i < 4; ++i) qf[kk][i] ^= sign;
-    }
-  }  // the key loop's first barrier frees Q's stage for K/V
-
-  // This thread's accumulator rows are r = 0 (warp row lane/4) and r = 1 (+8).
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  const int qpos[2] = {row0 + p.kv_offset, row0 + 8 + p.kv_offset};
-  const float sl2 = fabsf(p.scale) * kLog2e;  // exp(scale (s - m)) = exp2(sl2 s - sl2 m)
-  float o_acc[NT][4];
-  #pragma unroll
-  for (int j = 0; j < NT; ++j)
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) o_acc[j][e] = 0.f;
-  float m[2] = {kMaskRaw, kMaskRaw}, l[2] = {0.f, 0.f};  // row max in unscaled units
-
-  // The block's first and last absolute query positions, for the tile mask test.
-  const int qa_first = q0 + p.kv_offset, qa_last = min(q0 + BQ, p.Sq) - 1 + p.kv_offset;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int it = kt - kt_begin, k0 = kt * BK;
-    cp_async_wait<kStages - 2>();  // tile kt has landed for this thread ...
-    __syncthreads();  // ... and for all; every thread is done with tile kt - 1's stage
-    if (kt + kStages - 1 < kt_end) {  // refill that stage, kStages - 1 tiles ahead
-      const int st = (it + kStages - 1) % kStages, kn = k0 + (kStages - 1) * BK;
-      load_rows<DK, kThreads>(smem + st * STAGE, k, p.k_ss, kn, BK, p.Skv, tid);
-      load_rows<DV, kThreads>(smem + st * STAGE + TK, v, p.v_ss, kn, BK, p.Skv, tid);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* sK = smem + (it % kStages) * STAGE;
-    const __nv_bfloat16* sV = sK + TK;
-
-    // S = Q K^T: 8 n-tiles of 8 keys; one ldmatrix.x4 gives b0/b1 of two.
-    float s[BK / 8][4];
-    #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    {
-      const int key = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) << 3;
-      #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        #pragma unroll
-        for (int np = 0; np < BK / 16; ++np) {
-          unsigned kb[4];
-          ldsm_x4(kb, smem_addr(sK + (np * 16 + key) * PK + kk * 16 + col));
-          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+  if (wg == 0) {  // producer: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_bar, kConsumers * NPK * kBox);
+      for (int r = 0; r < kConsumers; ++r)
+        for (int c = 0; c < NPK; ++c)
+          tma_load(sm + L::q + (r * NPK + c) * kBox, &maps.q, q_bar, 64 * c, h, q0 + kRows * r,
+                   b);
+      // K runs a tile ahead of V, as the consumers take them: tile kt's S
+      // with tile kt - 1's P.V.
+      for (int kt = kt_begin; kt <= kt_end; ++kt) {
+        if (kt < kt_end) {
+          const Slot sl(kt, kt_begin);
+          mbar_wait(empty_k + sl.st, sl.par ^ 1);
+          mbar_expect_tx(full_k + sl.st, NPK * PANEL);
+          for (int c = 0; c < NPK; ++c)
+            for (int r = 0; r < BK / kRows; ++r)
+              tma_load(sm + L::k + (sl.st * NPK + c) * PANEL + r * kBox, &maps.k, full_k + sl.st,
+                       64 * c, kvh, kt * BK + kRows * r, b);
+        }
+        if (kt > kt_begin) {
+          const Slot sl(kt - 1, kt_begin);
+          mbar_wait(empty_v + sl.st, sl.par ^ 1);
+          mbar_expect_tx(full_v + sl.st, NPV * PANEL);
+          for (int c = 0; c < NPV; ++c)
+            for (int r = 0; r < BK / kRows; ++r)
+              tma_load(sm + L::v + (sl.st * NPV + c) * PANEL + r * kBox, &maps.v, full_v + sl.st,
+                       64 * c, kvh, (kt - 1) * BK + kRows * r, b);
         }
       }
     }
+  } else {  // consumers: warpgroup w owns queries q0 + 64w ..
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg - 1, w4 = (threadIdx.x >> 5) & 3;
+    const int qw0 = q0 + kRows * w;
+    unsigned char* sQw = sm + L::q + w * NPK * kBox;
+    int tb = kt_end, te = kt_end;  // this warpgroup's own key tiles (none without a row)
+    if (qw0 < p.Sq) {
+      tile_range(p, qw0, kRows, BK, &tb, &te);
+      tb = max(tb, kt_begin);
+      te = min(te, kt_end);
+    }
+    // This thread's rows: r = 0 (row0) and r = 1 (+8); entry 4j + e of an
+    // accumulator is row r = e >> 1, column 8j + 2 (lane & 3) + (e & 1).
+    const int row0 = qw0 + w4 * 16 + (lane >> 2);
+    const int qpos[2] = {row0 + p.kv_offset, row0 + 8 + p.kv_offset};
+    const float sl2 = fabsf(p.scale) * kLog2e;  // exp(scale (s - m)) = exp2(sl2 s - sl2 m)
+    float o[NV / 2];
+    zero(o);
+    float m[2] = {kMaskRaw, kMaskRaw}, l[2] = {0.f, 0.f};  // row max in unscaled units
+    unsigned ph[BK / 16][4], pl[BK / 16][4];  // P's high and low bf16 parts, a k-step each
 
-    // Mask only tiles that cross a mask edge or Skv.
-    const bool full = k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= qa_first) &&
-                      (p.window <= 0 || k0 > qa_last - p.window);
-    if (!full) {
-      #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + j * 8 + ((lane & 3) << 1) + (e & 1);
-          // Keys past Skv do not exist (weight 0).
-          s[j][e] = kpos >= p.Skv ? kAbsent
-                                  : (key_valid(p, kpos, qpos[e >> 1]) ? s[j][e] : kMaskRaw);
-        }
-      }
+    mbar_wait(q_bar, 0);
+    if (p.scale < 0.f) {  // -q.k |scale| = q.k scale: flip the signs of this warpgroup's Q
+      uint32_t* qw = reinterpret_cast<uint32_t*>(sQw);
+      for (int i = threadIdx.x - 128 * wg; i < NPK * kBox / 4; i += 128) qw[i] ^= 0x80008000u;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // seen by wgmma
+      asm volatile("bar.sync %0, 128;\n" :: "r"(wg) : "memory");      // the warpgroup's barrier
     }
 
-    // Online softmax over the quad's 64 columns of each row.
+    // The two consumers take turns at issuing their products, a key tile a
+    // turn, consumer 0 first: one's softmax runs while the other's products
+    // do.  Each takes kt_end - kt_begin turns; consumer 0 then takes the
+    // hand-on of consumer 1's last.  No branch lies between a product's
+    // issue and its wait: ptxas would serialise every wgmma.
+    // A tile this warpgroup's rows do not visit: wait for it (every use of
+    // a stage is waited for in order), hand both stages on, take the turn.
+    auto pass = [&](int kt) {
+      const Slot sl(kt, kt_begin);
+      mbar_wait(full_k + sl.st, sl.par);
+      mbar_wait(full_v + sl.st, sl.par);
+      release(empty_k + sl.st, lane);
+      release(empty_v + sl.st, lane);
+      turn_wait(w);
+      turn_pass(w);
+    };
+    if (w == 1) turn_pass(w);  // consumer 0 takes the first turn
+
+    for (int kt = kt_begin; kt < tb; ++kt) pass(kt);
+    float s[BK / 2], alpha[2];
+    if (tb < te) {  // the first tile: S alone
+      const Slot sl(tb, kt_begin);
+      mbar_wait(full_k + sl.st, sl.par);
+      turn_wait(w);
+      issue_s<BK, KS>(s, sQw, sm + L::k + sl.st * NPK * PANEL);
+      turn_pass(w);
+      wgmma_wait<0>();
+      reg_fence(s);
+      release(empty_k + sl.st, lane);
+      softmax_tile<BK>(s, m, l, alpha, p, qw0, tb * BK, qpos, lane, sl2);
+      pack_p<BK>(s, ph, pl);
+    }
+    for (int kt = tb + 1; kt < te; ++kt) {
+      // this tile's S, then the previous tile's P.V, which runs on under
+      // this tile's softmax
+      const Slot sl(kt, kt_begin), prev(kt - 1, kt_begin);
+      mbar_wait(full_k + sl.st, sl.par);
+      mbar_wait(full_v + prev.st, prev.par);
+      turn_wait(w);
+      issue_s<BK, KS>(s, sQw, sm + L::k + sl.st * NPK * PANEL);
+      issue_pv<NV, BK>(o, ph, pl, sm + L::v + prev.st * NPV * PANEL);
+      turn_pass(w);
+      wgmma_wait<1>();  // S has landed
+      reg_fence(s);
+      release(empty_k + sl.st, lane);
+      softmax_tile<BK>(s, m, l, alpha, p, qw0, kt * BK, qpos, lane, sl2);
+      wgmma_wait<0>();  // the previous tile's P.V has landed
+      reg_fence(o);
+      release(empty_v + prev.st, lane);
+      // rescaled to this tile's max; skipped when no row max of the warp moved
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+        #pragma unroll
+        for (int j = 0; j < NV / 8; ++j) {
+          o[4 * j] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+      }
+      pack_p<BK>(s, ph, pl);
+    }
+    if (tb < te) {  // the last tile's P.V
+      const Slot last(te - 1, kt_begin);
+      mbar_wait(full_v + last.st, last.par);
+      issue_pv<NV, BK>(o, ph, pl, sm + L::v + last.st * NPV * PANEL);
+      wgmma_wait<0>();
+      reg_fence(o);
+      release(empty_v + last.st, lane);
+    }
+    for (int kt = te; kt < kt_end; ++kt) pass(kt);
+    if (w == 0) turn_wait(w);
+
+    bf16* ob = static_cast<bf16*>(p.o);
     #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+      const float inv = 1.f / fmaxf(lr, 1e-30f);
+      bf16* orow =
+          ob + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * DV + ((lane & 3) << 1);
       #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float alpha = fast_exp2((m[r] - mx) * sl2), mx_s = mx * sl2;
-      m[r] = mx;
-      float rs = 0.f;
-      #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const float p0 = fast_exp2(fmaf(s[j][2 * r], sl2, -mx_s));
-        const float p1 = fast_exp2(fmaf(s[j][2 * r + 1], sl2, -mx_s));
-        s[j][2 * r] = p0;
-        s[j][2 * r + 1] = p1;
-        rs += p0 + p1;
+      for (int j = 0; j < NV / 8; ++j)
+        if (j * 8 < DV)
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      // The row max is kept unscaled: lse = (m |scale| log2e + log2 l) ln 2, in
+      // the scaled logits' units.  A row with no valid key gets the plain -1e30.
+      if (p.lse != nullptr && (lane & 3) == 0) {
+        int lo, hi;
+        key_range(p, row + p.kv_offset, &lo, &hi);
+        p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] =
+            hi < lo ? -1e30f : (m[r] * sl2 + log2f(fmaxf(lr, 1e-30f))) * kLn2;
       }
-      l[r] = l[r] * alpha + rs;  // this thread's partial row sum, from the f32 p
-      if (__any_sync(0xffffffffu, alpha != 1.f)) {  // skipped when no row max of the warp moved
-        #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          o_acc[j][2 * r] *= alpha;
-          o_acc[j][2 * r + 1] *= alpha;
-        }
-      }
-    }
-
-    // O += P V: P from registers as a bf16 high part and the bf16 of its
-    // remainder (two products, so P carries ~16 bits), V by ldmatrix.trans:
-    // one x4 gives the b0/b1 of two n-tiles; at 120 the last x4's second
-    // tile is the pad's, and its products are not issued.
-    {
-      const int key = (lane & 7) + (((lane >> 3) & 1) << 3), col = (lane >> 4) << 3;
-      #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        unsigned ph[4], pl[4];
-        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-        #pragma unroll
-        for (int dp = 0; dp < (NT + 1) / 2; ++dp) {
-          unsigned vb[4];
-          ldsm_x4_trans(vb, smem_addr(sV + (kk * 16 + key) * PV + dp * 16 + col));
-          mma_bf16(o_acc[2 * dp], ph, vb[0], vb[1]);
-          if (2 * dp + 1 < NT) mma_bf16(o_acc[2 * dp + 1], ph, vb[2], vb[3]);
-          mma_bf16(o_acc[2 * dp], pl, vb[0], vb[1]);
-          if (2 * dp + 1 < NT) mma_bf16(o_acc[2 * dp + 1], pl, vb[2], vb[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o);
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lr = l[r];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const int row = row0 + 8 * r;
-    if (row >= p.Sq) continue;
-    const float inv = 1.f / fmaxf(lr, 1e-30f);
-    __nv_bfloat16* orow =
-        o + ((static_cast<long long>(b) * p.Sq + row) * p.Hq + h) * DV + ((lane & 3) << 1);
-    #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o_acc[j][2 * r] * inv, o_acc[j][2 * r + 1] * inv);
-    // The row max is kept unscaled: lse = (m |scale| log2e + log2 l) ln 2, in
-    // the scaled logits' units.  A row with no valid key gets the plain -1e30.
-    if (p.lse != nullptr && (lane & 3) == 0) {
-      int lo, hi;
-      key_range(p, row + p.kv_offset, &lo, &hi);
-      p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row] =
-          hi < lo ? -1e30f : (m[r] * sl2 + log2f(fmaxf(lr, 1e-30f))) * kLn2;
     }
   }
 }
 
 template <int DK, int DV>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DK, DV>();
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DK, DV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(p.B * p.Hq, (p.Sq + BQ - 1) / BQ);
-  flash_fwd_bf16_kernel<DK, DV><<<grid, kThreads, bytes, stream>>>(p);
+  Maps m;
+  if (!make_map(&m.q, p.q, DK, p.Hq, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb)
+      || !make_map(&m.k, p.k, DK, p.Hkv, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb)
+      || !make_map(&m.v, p.v, DV, p.Hkv, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = Smem<DK, DV>::launch;
+  static const int attr = set_smem(flash_fwd_bf16_kernel<DK, DV>, bytes);  // once a process
+  if (attr) return attr;
+  flash_fwd_bf16_kernel<DK, DV><<<dim3(p.B * p.Hq, (p.Sq + kBlockQ - 1) / kBlockQ), kThreads,
+                                  bytes, stream>>>(m, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace tc
+// The launch plan of an instantiation: query rows a block, keys a tile,
+// stages a ring, dynamic shared bytes.
+template <int DK, int DV>
+int plan(int* out) {
+  out[0] = kBlockQ;
+  out[1] = key_tile<DK, DV>();
+  out[2] = kStages;
+  out[3] = Smem<DK, DV>::launch;
+  return 0;
+}
+
+}  // namespace hop
+
 
 template <int DK, int DV>
 int launch_d(const Params& p, int dtype, cudaStream_t s) {
   if (dtype == 0) return f32::launch<DK, DV>(p, s);
-  if (dtype == 1) return tc::launch<DK, DV>(p, s);
+  if (dtype == 1) return hop::launch<DK, DV>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -518,8 +655,8 @@ int launch_d(const Params& p, int dtype, cudaStream_t s) {
 // `lse`, where non-null, is f32 (B,Hq,Sq) contiguous.
 // (DK, DV) is one of (32,32), (64,64), (128,128), (120,120), (96,96) and (96,64),
 // and in f32 (16,16).
-// bf16 operands are read by 16-byte copies: their base pointers must be
-// 16-byte aligned and their (b, s, h) strides multiples of 8 elements.
+// bf16 operands are read by TMA: their base pointers must be 16-byte
+// aligned and their (b, s, h) strides multiples of 8 elements.
 // Returns a cudaError_t.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
@@ -554,5 +691,24 @@ extern "C" int flash_attention_fwd(
     }
   }
   if (DK == 96 && DV == 64) return launch_d<96, 64>(p, dtype, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 kernel's launch plan for (DK, DV), into out[4]: query rows a
+// block, keys a tile, stages a ring, dynamic shared bytes (the wrapper's
+// flash_attention.launch_plan computes the same on the host).  Returns a
+// cudaError_t.
+extern "C" int flash_attention_fwd_plan(int DK, int DV, int* out) {
+  if (DK == DV) {
+    switch (DK) {
+      case 32: return hop::plan<32, 32>(out);
+      case 64: return hop::plan<64, 64>(out);
+      case 128: return hop::plan<128, 128>(out);
+      case 120: return hop::plan<120, 120>(out);
+      case 96: return hop::plan<96, 96>(out);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (DK == 96 && DV == 64) return hop::plan<96, 64>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

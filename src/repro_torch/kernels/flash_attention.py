@@ -4,15 +4,18 @@
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``.  Bound on the card by
 operations at prefill sizes (~17 GFLOP on ~50 MB at B 4, S 1024).  bf16
-inputs run on the bf16 tensor cores (``mma.sync``, K and V staged by
-``cp.async`` in a two-stage ring, P as a bf16 high part plus the bf16 of its
-remainder for P·V); f32 inputs keep exact f32 arithmetic on the CUDA cores.  Both read KV head ``h // g`` in
+inputs run on Hopper's tensor cores: ``wgmma`` fed by TMA in warp-specialised
+blocks (a producer warpgroup streaming K and V tiles of ``key_tile`` keys
+through mbarrier rings beside two consumer warpgroups of 64 query rows; P as
+a bf16 high part plus the bf16 of its remainder for P·V, from registers;
+``launch_plan`` gives a launch's grid, tiles and shared bytes).  f32 inputs
+keep exact f32 arithmetic on the CUDA cores.  Both read KV head ``h // g`` in
 place instead of copying K and V per group, mask the ragged edges in the
 kernel instead of padding, and skip key tiles the mask empties.  See the
 source note in the ``.cu`` file.  The K head dim and the V head dim may
 differ: MLA's q and k have 96 (qk_nope 64 + qk_rope 32) and its v 64.  A
-head dim need not be a multiple of the tensor cores' k-step of 16: at 120
-the bf16 kernel zero-pads its shared tiles to 128 and stores 120 columns.
+head dim need not be a multiple of 64: at 120 and 96 the bf16 kernel's TMA
+zero-fills a second 64-column panel, and DV columns are stored.
 
 A CPU tensor goes to the plain version (``ref.attention``); a CUDA tensor
 launches the kernel or raises.  A meta tensor takes the CUDA branch's checks
@@ -34,6 +37,7 @@ through XLA's autodiff of ``ref.attention``, whose closed form
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -56,6 +60,64 @@ _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,)
 # q, k, v, o, lse, dO, dq, dk, dv, dsum, then as the forward from B on
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 9
                  + (ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+
+
+# The bf16 kernel's launch (csrc/flash_attention.cu, namespace hop): a block
+# of 128 query rows (two consumer warpgroups of 64 beside a producer
+# warpgroup), K and V tiles of ``key_tile`` keys, each in a ring of STAGES
+# stages, at most SMEM_LIMIT shared bytes a block (an H100's 227 KB).
+BLOCK_Q = 128
+STAGES = 2
+SMEM_LIMIT = 232_448
+_BOX = 64 * 128  # bytes of a TMA box: 64 rows of one 64-column bf16 panel
+
+
+class FlashPlan(NamedTuple):
+    grid: tuple[int, int]   # (B * Hq, query blocks)
+    block_q: int            # query rows a block
+    key_tile: int           # keys a streamed K or V tile
+    stages: int             # stages of the K ring and of the V ring
+    smem_bytes: int         # dynamic shared memory a block asks for
+
+
+def key_tile(dk: int, dv: int) -> int:
+    """Keys a K or V tile of the bf16 kernel at head dims (dk, dv): S's N,
+    the tiles of the online softmax (``ref.attention_bf16_scheme``'s ``bk``).
+    A consumer thread holds S (key_tile / 2 floats), P's two bf16 parts
+    (key_tile / 2 registers) and O (32 a 64-column panel of v): 128 keys,
+    or 64 where v takes two panels (dv > 64)."""
+    head_dims_known(dk, dv)
+    return 64 if dv > 64 else 128
+
+
+def launch_plan(B: int, Sq: int, Hq: int, dk: int, dv: int) -> FlashPlan:
+    """The bf16 kernel's launch at q (B, Sq, Hq, dk) and v's head dim dv,
+    as csrc/flash_attention.cu's ``flash_attention_fwd_plan`` and launch
+    compute it: shared memory holds Q's two 64-row boxes, then STAGES K
+    tiles and STAGES V tiles, each 64-column panel of a tile key_tile rows
+    of 128 bytes (head dims 120 and 96 take two panels), the mbarriers, and
+    1024 bytes to align the base."""
+    bk = key_tile(dk, dv)
+    npk, npv = -(-dk // 64), -(-dv // 64)
+    smem = 2 * npk * _BOX + STAGES * (npk + npv) * bk * 128 + (1 + 4 * STAGES) * 8 + 1024
+    return FlashPlan((B * Hq, -(-Sq // BLOCK_Q)), BLOCK_Q, bk, STAGES, smem)
+
+
+def device_plan(dk: int, dv: int) -> tuple[int, int, int, int]:
+    """(block_q, key_tile, stages, smem_bytes) as the built library computes
+    them (``flash_attention_fwd_plan``); needs the card's toolchain."""
+    head_dims_known(dk, dv)
+    out = (ctypes.c_int * 4)()
+    fn = build.function("flash_attention", "flash_attention_fwd_plan",
+                        (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    build.check(fn(dk, dv, ctypes.addressof(out)), "flash_attention_fwd_plan")
+    return tuple(out)
+
+
+def head_dims_known(dk: int, dv: int) -> None:
+    """Raise unless the bf16 kernel is instantiated at (dk, dv)."""
+    if (dk, dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (k {dk}, v {dv}) not in {HEAD_DIMS}")
 
 
 def head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int]:

@@ -29,7 +29,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.chunked import ssd_scan_chunked
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.dp_sweep import MAX_K, dp_sweep, sm_count, sweep_plan
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, SMEM_LIMIT, device_plan,
+                                                 flash_attention, key_tile, launch_plan)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels.ssm_scan import ssd_scan, ssd_scan_bwd
@@ -50,7 +51,7 @@ FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset
     # rows with no valid key: the plain version's uniform softmax over -1e30
     (1, 64, 64, 2, 1, 64, True, 8, 100),
     (1, 70, 70, 2, 1, 32, True, None, -5),
-    # served head layouts at length: the cp.async ring over many tiles, causal
+    # served head layouts at length: the K and V rings over many tiles, causal
     # and window band skipping, and a ragged Sq
     (1, 1024, 1024, 16, 8, 128, True, None, 0),
     (1, 1536, 1536, 25, 5, 64, True, 1024, 0),
@@ -136,9 +137,17 @@ def test_flash_attention_bf16_kernel_matches_its_scheme(cuda, B, Sq, Skv, Hq, Hk
                for i, (s, h) in enumerate([(Sq, Hq), (Skv, Hkv), (Skv, Hkv)]))
     kw = dict(causal=causal, window=window, kv_offset=off)
     got = flash_attention(q, k, v, **kw)
-    want = ref.attention_bf16_scheme(q, k, v, **kw)
+    want = ref.attention_bf16_scheme(q, k, v, **kw, bk=key_tile(D, D))
     np.testing.assert_allclose(f32(got), f32(want), rtol=2.0 ** -8,
                                atol=2.0 ** -12 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dk,dv", HEAD_DIMS)
+def test_flash_attention_launch_plan_is_the_librarys(cuda, dk, dv):
+    """The bf16 kernel's plan as the built library computes it equals the
+    wrapper's host plan, within the card's shared memory a block."""
+    plan = launch_plan(2, 300, 4, dk, dv)
+    assert device_plan(dk, dv) == plan[1:] and plan.smem_bytes <= SMEM_LIMIT
 
 
 def test_flash_attention_kernel_takes_strided_v(cuda):
@@ -234,7 +243,7 @@ def test_flash_attention_kernel_mla_head_dims_match_plain(cuda, B, Sq, Skv, Hq, 
     assert got.shape == (B, Sq, Hq, 64) and got.dtype == q.dtype
     np.testing.assert_allclose(f32(got), f32(ref.attention(q, k, v, **kw)), **tol(name))
     if name == "bfloat16":
-        want = ref.attention_bf16_scheme(q, k, v, **kw)
+        want = ref.attention_bf16_scheme(q, k, v, **kw, bk=key_tile(96, 64))
         np.testing.assert_allclose(f32(got), f32(want), rtol=2.0 ** -8,
                                    atol=2.0 ** -12 * want.abs().max().item())
 
@@ -248,7 +257,7 @@ def test_flash_attention_bf16_kernel_matches_its_scheme_at_a_given_scale(cuda, D
     v = normal(2, 1, 200, 2, DV, dtype=torch.bfloat16)
     for scale in (0.37, -0.2):
         got = flash_attention(q, k, v, window=90, scale=scale)
-        want = ref.attention_bf16_scheme(q, k, v, window=90, scale=scale)
+        want = ref.attention_bf16_scheme(q, k, v, window=90, scale=scale, bk=key_tile(D, DV))
         assert want.shape == got.shape == (1, 200, 4, DV)
         np.testing.assert_allclose(f32(got), f32(want), rtol=2.0 ** -8,
                                    atol=2.0 ** -12 * want.abs().max().item())

@@ -26,7 +26,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, GROUPS, HEAD_DIMS, MAX_HELD,
                                                   MIN_SPLIT, decode_attention, lane_split,
                                                   num_splits, split_plan)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (HEAD_DIMS as FLASH_HEAD_DIMS, SMEM_LIMIT,
+                                                 flash_attention, key_tile, launch_plan)
 from repro_torch.kernels.rmsnorm import VPT_CHOICES, rmsnorm, rmsnorm_plan
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -254,18 +255,63 @@ def test_split_k_decode_emulation_per_sequence_lengths(lens, name, mode):
                                **tol(name))
 
 
-@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,off", FLASH_CASES + [
-    (1, 64, 64, 2, 1, 64, True, 8, 100)])   # rows with no valid key
-def test_flash_bf16_scheme_matches_pallas(B, Sq, Skv, Hq, Hkv, D, causal, window, off):
+SCHEME_CASES = FLASH_CASES + [(1, 64, 64, 2, 1, 64, True, 8, 100)]   # rows with no valid key
+# Each case at the tile of 64 keys and at the bf16 kernel's own key tile
+# (csrc/flash_attention.cu's key_tile); the 64-key cases keep their ids.
+SCHEME_TILES = [(*case, bk) for case in SCHEME_CASES
+                for bk in sorted({64, key_tile(case[5], case[5])})]
+
+
+def _scheme_id(case):
+    *shape, bk = case
+    return "-".join(map(str, shape)) + ("" if bk == 64 else f"-bk{bk}")
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,off,bk", SCHEME_TILES,
+                         ids=[_scheme_id(c) for c in SCHEME_TILES])
+def test_flash_bf16_scheme_matches_pallas(B, Sq, Skv, Hq, Hkv, D, causal, window, off, bk):
+    """The arithmetic the bf16 kernel is held to on the card
+    (``ref.attention_bf16_scheme`` at its key tile ``bk``) against the Pallas
+    kernel in interpret mode and the plain version, at the bf16 sweep's 2e-2."""
     (jq, tq), (jk, tk), (jv, tv) = (both(normal(i, B, s, h, D), "bfloat16")
                                     for i, (s, h) in enumerate([(Sq, Hq), (Skv, Hkv), (Skv, Hkv)]))
     kw = dict(causal=causal, window=window, kv_offset=off)
-    got = ref.attention_bf16_scheme(tq, tk, tv, **kw).to(tq.dtype)
+    got = ref.attention_bf16_scheme(tq, tk, tv, **kw, bk=bk).to(tq.dtype)
     want = pallas_flash_attention(jq, jk, jv, **kw, block_q=32, block_k=32, interpret=True)
     assert got.dtype == torch.bfloat16 and got.shape == tq.shape
     np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
     np.testing.assert_allclose(f32(got), f32(ref.attention(tq, tk, tv, **kw)), **tol("bfloat16"))
 
+
+
+# Dynamic shared bytes of the bf16 kernel's block at each (DK, DV), counted
+# by hand from the layout in csrc/flash_attention.cu: Q's two boxes of 64 rows
+# by 128 bytes a 64-column panel, two K and two V tiles of key_tile keys by
+# 128 bytes a panel (128 keys where v has one panel, 64 where it has two),
+# 9 mbarriers of 8 bytes and 1024 bytes to align the base.  (120, 120) and
+# (96, 96) take two panels, as (128, 128) does.
+FLASH_TILES = {(32, 32): (128, 2 * 8192 + 4 * 16384 + 72 + 1024),
+               (64, 64): (128, 2 * 8192 + 4 * 16384 + 72 + 1024),
+               (128, 128): (64, 4 * 8192 + 8 * 8192 + 72 + 1024),
+               (120, 120): (64, 4 * 8192 + 8 * 8192 + 72 + 1024),
+               (96, 96): (64, 4 * 8192 + 8 * 8192 + 72 + 1024),
+               (96, 64): (128, 4 * 8192 + 6 * 16384 + 72 + 1024)}
+
+
+@pytest.mark.parametrize("dk,dv", FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("B,Sq,Hq", [(4, 1024, 16), (13, 32768, 16), (1, 1, 1), (2, 130, 40)])
+def test_flash_launch_plan_fits_the_card(B, Sq, Hq, dk, dv):
+    """The bf16 kernel's launch at every instantiated head-dim pair, computed
+    on the host: one block a (batch, query head) and 128 query rows, K and V
+    tiles of ``key_tile`` keys in two rings of two stages, and the shared
+    bytes of its layout, within an H100's 227 KB a block."""
+    plan = launch_plan(B, Sq, Hq, dk, dv)
+    tile, smem = FLASH_TILES[(dk, dv)]
+    assert plan.grid == (B * Hq, -(-Sq // 128)) and plan.block_q == 128
+    assert plan.key_tile == key_tile(dk, dv) == tile and plan.stages == 2
+    assert plan.smem_bytes == smem <= SMEM_LIMIT == 232_448
+    with pytest.raises(ValueError):
+        launch_plan(B, Sq, Hq, 16, 16)   # f32 only: no bf16 instantiation
 
 # (B, Hkv, Smax, valid slots) of each served decode: internlm2's cache of
 # prompt 1024 + 64 steps at its first and last step, hymba's full ring,
